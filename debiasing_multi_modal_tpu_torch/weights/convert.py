@@ -1,0 +1,211 @@
+"""Checkpoint conversion for the port (counterpart of ``weights/convert.py``).
+
+The port's modules use OpenAI's state-dict keys, so a real OpenAI ``.pt``
+loads with ``load_state_dict``.  This module reads such checkpoints
+(:func:`load_openai_checkpoint`), sniffs their architecture
+(:func:`config_from_state_dict`, reference ``build_model``,
+clip/model.py:399-436), builds a model from one (:func:`clip_from_state_dict`),
+and carries the JAX package's weights across
+(:func:`state_dict_from_jax_variables`, the inverse of the JAX package's
+``variables_from_state_dict``):
+
+- Dense ``kernel [in, out]``       -> Linear ``weight [out, in]`` (T)
+- Conv ``kernel [kh, kw, I, O]``   -> Conv2d ``weight [O, I, kh, kw]``
+- separate q/k/v Dense kernels     -> packed ``in_proj_weight [3D, D]``
+- ``batch_stats`` mean/var         -> ``running_mean`` / ``running_var``
+
+Every array comes out as f32 numpy.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from debiasing_multi_modal_tpu_torch.models.config import CLIPConfig
+from debiasing_multi_modal_tpu_torch.utils.platform import resolve_device
+
+# entries of OpenAI's archives that are not model parameters (clip/model.py:433)
+_NON_PARAM_KEYS = ("input_resolution", "context_length", "vocab_size")
+
+
+def load_openai_checkpoint(path: str) -> Dict[str, np.ndarray]:
+    """Read an OpenAI CLIP ``.pt`` (TorchScript archive or raw state dict)
+    into a flat {name: float32 ndarray} dict (reference clip/clip.py:120-143)."""
+    try:
+        state_dict = torch.jit.load(path, map_location="cpu").state_dict()
+    except RuntimeError:
+        # a whole-module save needs weights_only=False; the zoo path is
+        # trusted (downloads are sha256-verified before load)
+        obj = torch.load(path, map_location="cpu", weights_only=False)
+        state_dict = obj.state_dict() if hasattr(obj, "state_dict") else obj
+    return {
+        k: v.detach().cpu().float().numpy()
+        for k, v in state_dict.items()
+        if isinstance(v, torch.Tensor)
+    }
+
+
+def _block_count(sd, pattern: str) -> int:
+    return len({m.group(1) for k in sd if (m := re.match(pattern, k))})
+
+
+def config_from_state_dict(sd: Mapping[str, np.ndarray], name: str = "converted") -> CLIPConfig:
+    if "visual.proj" in sd:
+        vision_width = sd["visual.conv1.weight"].shape[0]
+        vision_layers = _block_count(sd, r"visual\.transformer\.resblocks\.(\d+)\.")
+        vision_patch_size = sd["visual.conv1.weight"].shape[-1]
+        pos_rows = sd["visual.positional_embedding"].shape[0]
+        grid = round((pos_rows - 1) ** 0.5)
+        if grid ** 2 + 1 != pos_rows:
+            raise ValueError(
+                f"ViT positional embedding has {pos_rows} rows — not a "
+                "square patch grid + 1; corrupt or unsupported checkpoint"
+            )
+        image_resolution = vision_patch_size * grid
+    else:
+        vision_layers = tuple(
+            _block_count(sd, rf"visual\.layer{stage}\.(\d+)\.") for stage in (1, 2, 3, 4)
+        )
+        vision_width = sd["visual.layer1.0.conv1.weight"].shape[0]
+        pos_rows = sd["visual.attnpool.positional_embedding"].shape[0]
+        out_width = round((pos_rows - 1) ** 0.5)
+        if out_width ** 2 + 1 != pos_rows:
+            # the reference's sanity assert (clip/model.py:413)
+            raise ValueError(
+                f"attnpool positional embedding has {pos_rows} rows — not a "
+                "square spatial grid + 1; corrupt or unsupported checkpoint"
+            )
+        vision_patch_size = None
+        image_resolution = out_width * 32
+    transformer_width = sd["ln_final.weight"].shape[0]
+    return CLIPConfig(
+        name=name,
+        embed_dim=sd["text_projection"].shape[1],
+        image_resolution=image_resolution,
+        vision_layers=vision_layers,
+        vision_width=vision_width,
+        vision_patch_size=vision_patch_size,
+        context_length=sd["positional_embedding"].shape[0],
+        vocab_size=sd["token_embedding.weight"].shape[0],
+        transformer_width=transformer_width,
+        transformer_heads=transformer_width // 64,
+        transformer_layers=_block_count(sd, r"transformer\.resblocks\.(\d+)\."),
+    )
+
+
+def clip_from_state_dict(sd: Mapping[str, np.ndarray], name: str = "converted",
+                         dtype=None, attn_impl: str = "auto", device=None):
+    """A CLIP model with the architecture sniffed from ``sd`` and its weights
+    loaded (strictly, after dropping the archive's non-parameter entries)."""
+    from debiasing_multi_modal_tpu_torch.models.clip import create_clip
+
+    dev = resolve_device(device)
+    cfg = config_from_state_dict(sd, name=name)
+    model = create_clip(cfg, dtype=dtype, attn_impl=attn_impl, device="cpu")
+    model.load_state_dict(
+        {k: torch.as_tensor(np.asarray(v)) for k, v in sd.items()
+         if k not in _NON_PARAM_KEYS},
+        strict=True,
+    )
+    return model.to(dev)
+
+
+# ------------------------------------------------- JAX variables -> torch --
+
+
+def _f32(x) -> np.ndarray:
+    return np.array(x, np.float32)  # a writable copy (device arrays are read-only)
+
+
+def _dense(out, prefix, node):
+    out[f"{prefix}.weight"] = _f32(node["kernel"]).T
+    if "bias" in node:
+        out[f"{prefix}.bias"] = _f32(node["bias"])
+
+
+def _conv(out, prefix, node):
+    out[f"{prefix}.weight"] = _f32(node["kernel"]).transpose(3, 2, 0, 1)
+
+
+def _bn(out, prefix, params, stats):
+    out[f"{prefix}.weight"] = _f32(params["scale"])
+    out[f"{prefix}.bias"] = _f32(params["bias"])
+    out[f"{prefix}.running_mean"] = _f32(stats["mean"])
+    out[f"{prefix}.running_var"] = _f32(stats["var"])
+    out[f"{prefix}.num_batches_tracked"] = np.asarray(0, np.int64)
+
+
+def _ln(out, prefix, node):
+    # LayerNormF32 in the JAX package wraps an inner nn.LayerNorm named "ln"
+    out[f"{prefix}.weight"] = _f32(node["ln"]["scale"])
+    out[f"{prefix}.bias"] = _f32(node["ln"]["bias"])
+
+
+def _transformer(out, prefix, node):
+    n_layers = len([k for k in node if k.startswith("resblocks_")])
+    for i in range(n_layers):
+        blk = node[f"resblocks_{i}"]
+        t = f"{prefix}.resblocks.{i}"
+        attn = blk["attn"]
+        out[f"{t}.attn.in_proj_weight"] = np.concatenate(
+            [_f32(attn[p]["kernel"]).T for p in ("q_proj", "k_proj", "v_proj")])
+        out[f"{t}.attn.in_proj_bias"] = np.concatenate(
+            [_f32(attn[p]["bias"]) for p in ("q_proj", "k_proj", "v_proj")])
+        _dense(out, f"{t}.attn.out_proj", attn["out_proj"])
+        _ln(out, f"{t}.ln_1", blk["ln_1"])
+        _ln(out, f"{t}.ln_2", blk["ln_2"])
+        _dense(out, f"{t}.mlp.c_fc", blk["mlp"]["c_fc"])
+        _dense(out, f"{t}.mlp.c_proj", blk["mlp"]["c_proj"])
+
+
+def transformer_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """A JAX ``Transformer``'s params -> the port's ``Transformer`` state dict
+    (``resblocks.{i}.*``)."""
+    out: Dict[str, np.ndarray] = {}
+    _transformer(out, "t", params)
+    return {k[2:]: v for k, v in out.items()}
+
+
+def state_dict_from_jax_variables(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """The JAX package's ``{'params', 'batch_stats'}`` CLIP tree (arrays of
+    any array type) -> an OpenAI-layout state dict of numpy arrays."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    out: Dict[str, np.ndarray] = {}
+    visual = params["visual"]
+    if "attnpool" not in visual:
+        raise NotImplementedError("the ViT towers are not yet ported")
+    vstats = stats["visual"]
+    for i in (1, 2, 3):
+        _conv(out, f"visual.conv{i}", visual[f"conv{i}"])
+        _bn(out, f"visual.bn{i}", visual[f"bn{i}"], vstats[f"bn{i}"])
+    blocks = sorted(
+        (int(m.group(1)), int(m.group(2)), k) for k in visual
+        if (m := re.fullmatch(r"layer(\d)_(\d+)", k))
+    )
+    for stage, blk, key in blocks:
+        node, st = visual[key], vstats[key]
+        t = f"visual.layer{stage}.{blk}"
+        for c in (1, 2, 3):
+            _conv(out, f"{t}.conv{c}", node[f"conv{c}"])
+            _bn(out, f"{t}.bn{c}", node[f"bn{c}"], st[f"bn{c}"])
+        if "downsample_conv" in node:
+            _conv(out, f"{t}.downsample.0", node["downsample_conv"])
+            _bn(out, f"{t}.downsample.1", node["downsample_bn"], st["downsample_bn"])
+    pool = visual["attnpool"]
+    out["visual.attnpool.positional_embedding"] = _f32(pool["positional_embedding"])
+    for proj in ("q_proj", "k_proj", "v_proj", "c_proj"):
+        _dense(out, f"visual.attnpool.{proj}", pool[proj])
+
+    text = params["text"]
+    out["token_embedding.weight"] = _f32(text["token_embedding"]["embedding"])
+    out["positional_embedding"] = _f32(text["positional_embedding"])
+    _ln(out, "ln_final", text["ln_final"])
+    out["text_projection"] = _f32(text["text_projection"])
+    _transformer(out, "transformer", text["transformer"])
+    out["logit_scale"] = _f32(params["logit_scale"])
+    return out

@@ -1,0 +1,226 @@
+"""Stage A as a whole: the port's extraction (debiasing_multi_modal_tpu_torch/
+extract, cli) against the JAX package's on one set of weights, f32 on the
+CPU — embeddings to 1e-4 of their scale, predictions equal — plus prompt
+encoding with both tokenizers on one synthetic merges file, cache interchange
+with the JAX package, and crash-safe shard resume.
+
+The real CLIP merges file is not in the repository, so the tokenizers read a
+synthetic one: a header line and 48,894 distinct merge rules over pairs of
+byte symbols, which gives the full 49,408-id vocabulary.
+"""
+
+import gzip
+import os
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from debiasing_multi_modal_tpu.data import embeddings_store as jstore
+from debiasing_multi_modal_tpu.extract import runner as jrunner
+from debiasing_multi_modal_tpu.models import create_clip as jax_create_clip
+from debiasing_multi_modal_tpu.models import init_clip
+from debiasing_multi_modal_tpu.models.config import CLIPConfig as JaxConfig
+from debiasing_multi_modal_tpu.parallel.mesh import make_mesh
+from debiasing_multi_modal_tpu.tokenizer import bpe as jbpe
+from debiasing_multi_modal_tpu_torch.data import embeddings_store as tstore
+from debiasing_multi_modal_tpu_torch.extract import runner as trunner
+from debiasing_multi_modal_tpu_torch.models import CLIPConfig, create_clip
+from debiasing_multi_modal_tpu_torch.templates import WATERBIRDS
+from debiasing_multi_modal_tpu_torch.tokenizer import bpe as tbpe
+from debiasing_multi_modal_tpu_torch.weights.convert import state_dict_from_jax_variables
+
+SMALL_RN = dict(
+    name="small-rn", embed_dim=64, image_resolution=64, vision_layers=(1, 1, 1, 1),
+    vision_width=16, vision_patch_size=None, transformer_width=128,
+    transformer_heads=2, transformer_layers=2,
+)
+N_MERGES = 49152 - 256 - 2
+
+
+def _close(ours, ref, rel=1e-4):
+    np.testing.assert_allclose(ours, ref, rtol=0, atol=rel * float(np.abs(ref).max()))
+
+
+@pytest.fixture(scope="module")
+def pair():
+    jm = jax_create_clip(JaxConfig(**SMALL_RN))
+    variables = jax.device_get(init_clip(jm, jax.random.PRNGKey(0)))
+    tm = create_clip(CLIPConfig(**SMALL_RN), device="cpu")
+    tm.load_state_dict({k: torch.from_numpy(v) for k, v in
+                        state_dict_from_jax_variables(variables).items()}, strict=True)
+    return jm, variables, tm
+
+
+def _write_merges(path):
+    syms = tbpe._vocab_symbol_order()
+    merges = []
+    for a in syms:
+        for b in syms:
+            merges += [f"{a} {b}", f"{a} {b}</w>"]
+            if len(merges) >= N_MERGES:
+                break
+        if len(merges) >= N_MERGES:
+            break
+    with gzip.open(path, "wt", encoding="utf-8") as f:
+        f.write("\n".join(["#version: synthetic"] + merges[:N_MERGES]) + "\n")
+
+
+@pytest.fixture
+def synthetic_bpe(tmp_path, monkeypatch):
+    path = str(tmp_path / "bpe_simple_vocab_16e6.txt.gz")
+    _write_merges(path)
+    monkeypatch.setenv("CLIP_BPE_PATH", path)
+    jbpe.default_tokenizer.cache_clear()
+    tbpe.default_tokenizer.cache_clear()
+    yield path
+    jbpe.default_tokenizer.cache_clear()
+    tbpe.default_tokenizer.cache_clear()
+
+
+def _batches(n_batches, bs, size=(72, 96), seed=0):
+    rng = np.random.default_rng(seed)
+    out = []
+    for b in range(n_batches):
+        y = rng.integers(0, 2, bs).astype(np.int32)
+        place = rng.integers(0, 2, bs).astype(np.int32)
+        out.append((
+            rng.integers(0, 256, (bs, *size, 3), dtype=np.uint8),
+            {"filenames": np.asarray([f"b{b}_{i}.jpg" for i in range(bs)]),
+             "y": y, "place": place, "group": y * 2 + place,
+             "split": np.zeros(bs, np.int32)},
+        ))
+    return out
+
+
+def test_tokenizers_agree(synthetic_bpe):
+    texts = WATERBIRDS.prompts("group") + ["A PHOTO of   <|endoftext|> x-ray 42!"]
+    ours, ref = tbpe.tokenize(texts), jbpe.tokenize(texts)
+    assert ours.shape == (len(texts), 77) and ours.dtype == np.int32
+    np.testing.assert_array_equal(ours, ref)
+    assert tbpe.default_tokenizer().decode(ours[0][1:5]) == \
+        jbpe.default_tokenizer().decode(ref[0][1:5])
+
+
+def test_encode_text_prompts_matches_jax(synthetic_bpe, pair):
+    jm, variables, tm = pair
+    sets = {k: WATERBIRDS.prompts(k) for k in ("class", "spurious", "group")}
+    ref = jrunner.encode_text_prompts(jm, variables, sets)
+    ours = trunner.encode_text_prompts(tm, sets)
+    for kind in sets:
+        assert ours[kind].dtype == np.float32
+        _close(ours[kind], ref[kind])
+    pooled = trunner.encode_text_prompts(tm, {"g": sets["group"]}, templates_per_phrase=2)
+    np.testing.assert_allclose(
+        pooled["g"], ours["group"].reshape(2, 2, -1).mean(axis=1), atol=1e-6)
+
+
+@pytest.mark.parametrize("normalized", [False, True])
+def test_run_matches_jax(pair, normalized):
+    jm, variables, tm = pair
+    text = np.random.default_rng(1).standard_normal((2, 64)).astype(np.float32)
+    batches = _batches(3, 4)
+    ref = jrunner.ExtractionRunner(jm, variables, text, mesh=make_mesh((1,)),
+                                   normalized=normalized).run(iter(batches))
+    ours = trunner.ExtractionRunner(tm, text, normalized=normalized).run(iter(batches))
+    _close(ours.embeddings, ref.embeddings)
+    np.testing.assert_array_equal(ours.y_pred, ref.y_pred)
+    for col in ("filenames", "y", "place", "group", "split"):
+        np.testing.assert_array_equal(getattr(ours, col), getattr(ref, col))
+
+
+def test_encode_batch_and_preprocessed_path(pair):
+    _, _, tm = pair
+    text = np.random.default_rng(2).standard_normal((3, 64)).astype(np.float32)
+    runner = trunner.ExtractionRunner(tm, text)
+    imgs = _batches(1, 5)[0][0]
+    emb, preds = runner.encode_batch(imgs)
+    assert emb.shape == (5, 64) and emb.dtype == np.float32
+    assert preds.dtype == np.int32 and set(preds) <= {0, 1, 2}
+    pre = trunner.ExtractionRunner(tm, text, preprocessed=True)
+    emb64, _ = pre.encode_batch(_batches(1, 2, size=(64, 64))[0][0])
+    assert emb64.shape == (2, 64) and np.isfinite(emb64).all()
+
+
+def test_cache_loads_in_jax_package(tmp_path, pair):
+    _, _, tm = pair
+    text = np.random.default_rng(3).standard_normal((2, 64)).astype(np.float32)
+    table = trunner.ExtractionRunner(tm, text).run(iter(_batches(2, 3)))
+    for name in ("clip.json", "clip.npz"):
+        path = str(tmp_path / name)
+        tstore.save_embeddings(path, table, fmt=name.rsplit(".", 1)[1], dataset="waterbirds")
+        loaded = jstore.load_embeddings(path, dataset="waterbirds")
+        np.testing.assert_allclose(loaded.embeddings, table.embeddings, atol=1e-6)
+        np.testing.assert_array_equal(loaded.y_pred, table.y_pred)
+        np.testing.assert_array_equal(loaded.filenames, table.filenames)
+        back = tstore.load_embeddings(path, dataset="waterbirds")
+        np.testing.assert_array_equal(back.group, table.group)
+    tpath = str(tmp_path / "clip_class.json")
+    tstore.save_text_embeddings(tpath, WATERBIRDS.prompts("class"), text)
+    np.testing.assert_allclose(jstore.load_text_embeddings(tpath), text.T, atol=1e-6)
+    report = trunner.minority_report(table.y, table.place, table.y_pred, "waterbirds")
+    assert isinstance(report, str) and report
+
+
+def test_shard_resume_produces_same_table(tmp_path, pair):
+    _, _, tm = pair
+    text = np.random.default_rng(4).standard_normal((2, 64)).astype(np.float32)
+    runner = trunner.ExtractionRunner(tm, text)
+    batches = _batches(5, 3, seed=5)
+    full = runner.run(iter(batches), prefetch_depth=0)
+
+    def crashing():
+        yield from batches[:3]
+        raise RuntimeError("killed")
+
+    shard_dir = str(tmp_path / "shards")
+    meta = {"backbone": "small-rn"}
+    with pytest.raises(RuntimeError, match="killed"):
+        runner.run(crashing(), shard_dir=shard_dir, shard_every=2, shard_meta=meta)
+    assert trunner.completed_rows(shard_dir) == 6
+    resumed = runner.run(iter(batches), shard_dir=shard_dir, shard_every=2,
+                         shard_meta=meta)
+    np.testing.assert_array_equal(resumed.filenames, full.filenames)
+    np.testing.assert_allclose(resumed.embeddings, full.embeddings, atol=1e-6)
+    np.testing.assert_array_equal(resumed.y_pred, full.y_pred)
+    with pytest.raises(ValueError, match="different"):
+        runner.run(iter(batches), shard_dir=shard_dir, shard_every=2,
+                   shard_meta={"backbone": "other"})
+    with pytest.raises(ValueError, match="misalignment"):
+        runner.run(iter(_batches(5, 4, seed=5)), shard_dir=shard_dir, shard_every=2,
+                   shard_meta=meta)
+
+
+def test_cli_extracts_waterbirds_on_cpu(tmp_path, synthetic_bpe):
+    """The port's CLI end to end on the CPU (full-width RN50, random
+    weights): the caches it writes load in the JAX package."""
+    from PIL import Image
+
+    from debiasing_multi_modal_tpu_torch.cli import extract_main
+
+    root = tmp_path / "data" / "waterbirds" / "waterbird_complete95_forest2water2"
+    (root / "imgs").mkdir(parents=True)
+    rng = np.random.default_rng(0)
+    rows = ["img_id,img_filename,y,split,place"]
+    for k in range(6):
+        fn = f"imgs/{k:05d}.jpg"
+        Image.fromarray(rng.integers(0, 256, (96, 72, 3), dtype=np.uint8)).save(root / fn)
+        rows.append(f"{k},{fn},{k % 2},{k // 2},{(k // 2) % 2}")
+    (root / "metadata.csv").write_text("\n".join(rows) + "\n")
+    args = extract_main.build_parser().parse_args([
+        "--data_dir", str(tmp_path / "data"), "--dataset", "waterbirds",
+        "--embedding_dir", "emb", "--save", "--batch_size", "4",
+        "--device", "cpu", "--num_workers", "0",
+    ])
+    extract_main.main(args)
+    out = tmp_path / "data" / "emb" / "waterbirds"
+    table = jstore.load_embeddings(str(out / "RN50" / "clip.npz"))
+    assert table.embeddings.shape == (6, 1024) and np.isfinite(table.embeddings).all()
+    js = jstore.load_embeddings(str(out / "RN50" / "clip.json"), dataset="waterbirds")
+    np.testing.assert_allclose(js.embeddings, table.embeddings, atol=1e-6)
+    assert jstore.load_text_embeddings(str(out / "clip_group.json")).shape == (1024, 4)
+    for flag in (["--fuse_bn"], ["--quantize", "int8"], ["--tensor_parallel", "2"]):
+        with pytest.raises(NotImplementedError):
+            extract_main.main(extract_main.build_parser().parse_args(["--device", "cpu", *flag]))
+    assert os.path.isdir(out)
