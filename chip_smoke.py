@@ -3,25 +3,37 @@
 
     python3 chip_smoke.py
 
-Phases, in order, each printing one JSON line; any failure raises and exits
-nonzero, and only a run where every phase passed prints the final line.
+Phases, in order, each printing one JSON line per case; any failure raises
+and exits nonzero, and only a run where every phase passed prints the final
+line.
 
 1. device  — require CUDA; print the card's name, count and power limit
              (nvidia-smi); turn TF32 off for f32 matmuls and convolutions.
 2. build   — compile every kernel under debiasing_multi_modal_tpu_torch/csrc
              with nvcc (one process per source, all started together).
 3. kernels — hold each kernel against its plain PyTorch version on the card
-             at the main path's shapes, and time kernel, plain version and the
+             at the main paths' shapes, and time kernel, plain version and the
              PyTorch library call that computes the same function (yardstick
-             only; the port never calls it).
-4. slice   — the main path at full RN50 width in bf16 with seeded random
-             weights: launch counts set to 0, then the text tower encodes 256
-             synthetic prompts and ExtractionRunner.encode_batch extracts a
-             uint8 [256, 256, 256, 3] batch (on-device resize and crop), then
-             the counts are read.  Outputs are checked (finite, in range, text
+             only; the port never calls it): kernel 1 (whole-row attention),
+             kernel 2 (q-tiled), kernel 3 (packed), kernel 7 (int8 GEMM).
+4. slice   — RN50 at full width in bf16 with seeded random weights: launch
+             counts set to 0, then the text tower encodes 256 synthetic
+             prompts and ExtractionRunner.encode_batch extracts a uint8
+             [256, 256, 256, 3] batch (on-device resize and crop), then the
+             counts are read.  Outputs are checked (finite, in range, text
              within cosine 0.999 of the plain-attention model, f32 towers on
              the card against the CPU on a small input) and throughput timed.
-5. summary — the wall seconds, one {"kernels": [...]} line, the card line, and
+5. vit     — ViT-B/32 at full width and depth in bf16, the same drive three
+             times with the counts set to 0 before each: unfused (kernel 1),
+             fuse_qkv=True (kernel 3) and quant="int8_pallas" (kernel 7 and
+             kernel 1); both towers checked against the plain-attention
+             model, fuse_qkv against unfused, int8_pallas against bf16 and
+             against quant="int8" (torch._int_mm), f32 on the card against
+             the CPU, and throughput.
+6. qtiled  — ViT-L/14@336px at its zoo default f32 encodes four 336x336
+             images through kernel 2, held to the same weights under the
+             plain attention formulation.
+7. summary — the wall seconds, one {"kernels": [...]} line, the card line, and
              {"ok": true, "device": {...}} as the last line.
 """
 
@@ -34,7 +46,9 @@ import time
 # Published H100 SXM peaks (NVIDIA data sheet, dense), for bound_ms.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
+PEAK_INT8_OPS = 1979e12
 SEED = 0
+BF16_ULP = 2.0 ** -8
 
 
 def emit(obj):
@@ -98,12 +112,21 @@ def _attention_bound_ms(b, s, d, h, causal, dtype, itemsize):
     return max(bytes_ms, flops_ms), ("bytes" if bytes_ms >= flops_ms else "operations")
 
 
+def _int8_bound_ms(m, k, n, out_itemsize, with_bias):
+    """Each input read once (int8 operands, f32 scales and bias), the output
+    written once; 2*M*N*K integer operations at the dense int8 peak."""
+    nbytes = m * k + k * n + 4 * (m + n + (n if with_bias else 0)) + m * n * out_itemsize
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * m * n * k / PEAK_INT8_OPS * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
 def _attention_f64(q, k, v, h, causal):
     """The same attention in float64, as a yardstick of both versions' error."""
     import torch
 
     b, s, d = q.shape
-    qh, kh, vh = (x.double().view(b, s, h, d // h) for x in (q, k, v))
+    qh, kh, vh = (x.double().reshape(b, s, h, d // h) for x in (q, k, v))
     logits = torch.einsum("bqhd,bkhd->bhqk", qh, kh) * (d // h) ** -0.5
     if causal:
         keep = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
@@ -111,56 +134,154 @@ def _attention_f64(q, k, v, h, causal):
     return torch.einsum("bhqk,bkhd->bqhd", logits.softmax(-1), vh).reshape(b, s, d)
 
 
-def phase_kernels():
+def _heads(x, h):
+    """[B, S, D] (possibly a column slice) -> [B, H, S, hd] for SDPA."""
+    b, s, d = x.shape
+    return x.unflatten(-1, (h, d // h)).transpose(1, 2)
+
+
+def _attention_case(kernel, plain, label, b, s, d, h, causal, dtype, tol, gen,
+                    timed, packed=False):
+    """One attention kernel against its plain version (and float64); timed
+    cases add the kernel's, the plain version's and SDPA's times."""
     import torch
     import torch.nn.functional as F
+
+    if packed:
+        qkv = torch.randn(b, s, 3 * d, device="cuda", generator=gen).to(dtype)
+        q, k, v = qkv.chunk(3, dim=-1)
+        args = (qkv, h)
+    else:
+        q, k, v = (torch.randn(b, s, d, device="cuda", generator=gen).to(dtype)
+                   for _ in range(3))
+        args = (q, k, v, h)
+    out = kernel(*args, causal=causal)
+    torch.cuda.synchronize()
+    ref = plain(*args, causal)
+    err = (out.float() - ref.float()).abs().max().item()
+    cos = F.cosine_similarity(out.float().flatten(), ref.float().flatten(), dim=0).item()
+    exact = _attention_f64(q, k, v, h, causal)
+    row = {"case": label, "shape": [b, s, d, h], "causal": causal,
+           "dtype": str(dtype), "max_abs_err": err, "tolerance": tol,
+           "cosine": cos,
+           "kernel_err_vs_f64": (out.double() - exact).abs().max().item(),
+           "plain_err_vs_f64": (ref.double() - exact).abs().max().item()}
+    del exact
+    if not (err <= tol and (dtype == torch.float32 or cos >= 0.9999)):
+        raise AssertionError(f"{kernel.__name__} disagrees with its plain version: {row}")
+    if timed:
+        heads = [_heads(x, h) for x in (q, k, v)]
+        row["ms"] = time_ms(lambda: kernel(*args, causal=causal))
+        row["plain_ms"] = time_ms(lambda: plain(*args, causal))
+        row["library_ms"] = time_ms(
+            lambda: F.scaled_dot_product_attention(*heads, is_causal=causal))
+        row["library_call"] = "torch.nn.functional.scaled_dot_product_attention"
+        row["bound_ms"], row["bound_by"] = _attention_bound_ms(
+            b, s, d, h, causal, dtype, q.element_size())
+    emit({"phase": "kernels", "kernel": kernel.__name__, **row})
+    return row
+
+
+def _int8_case(label, m, k, n, with_bias, out_dtype, gen, timed):
+    """Kernel 7 against its plain version (exact integer product, the same
+    roundings: they may differ only where float64's rounding of the fused
+    bias add lands on an f32 tie, so the tolerance is one ulp of the output
+    dtype at the output's scale)."""
+    import torch
+
+    from debiasing_multi_modal_tpu_torch.ops import quant_gemm as qg
+    from debiasing_multi_modal_tpu_torch.ops.quant import (
+        quantize_cols_int8,
+        quantize_rows_int8,
+    )
+
+    x = torch.randn(m, k, device="cuda", generator=gen)
+    w = torch.randn(n, k, device="cuda", generator=gen).t()  # a Linear weight's view
+    bias = torch.randn(n, device="cuda", generator=gen) if with_bias else None
+    qx, sx = quantize_rows_int8(x)
+    qk, sk = quantize_cols_int8(w)
+    out = qg.int8_matmul(qx, qk, sx, sk, bias, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    ref = qg.int8_matmul_reference(qx, qk, sx, sk, bias, out_dtype=out_dtype)
+    err = (out.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    tol = scale * (BF16_ULP if out_dtype == torch.bfloat16 else 2.0 ** -23)
+    row = {"case": label, "shape": [m, k, n], "bias": with_bias,
+           "out_dtype": str(out_dtype), "max_abs_err": err, "tolerance": tol,
+           "bit_equal": bool(torch.equal(out, ref))}
+    if not err <= tol:
+        raise AssertionError(f"int8_matmul disagrees with its plain version: {row}")
+    if timed:
+        row["ms"] = time_ms(lambda: qg.int8_matmul(qx, qk, sx, sk, bias, out_dtype=out_dtype))
+        row["plain_ms"] = time_ms(
+            lambda: qg.int8_matmul_reference(qx, qk, sx, sk, bias, out_dtype=out_dtype))
+        row["library_ms"] = time_ms(lambda: torch._int_mm(qx, qk))
+        row["library_call"] = "torch._int_mm (the integer product alone, no epilogue)"
+        row["bound_ms"], row["bound_by"] = _int8_bound_ms(
+            m, k, n, out.element_size(), with_bias)
+    emit({"phase": "kernels", "kernel": "int8_matmul", **row})
+    return row
+
+
+def phase_kernels():
+    import torch
 
     from debiasing_multi_modal_tpu_torch.ops import short_attention as sa
     from debiasing_multi_modal_tpu_torch.ops.attention import multi_head_attention
 
-    # on the card, impl="auto" is the kernel: a shape it does not take raises
+    # on the card, impl="auto" is a kernel: a shape none takes raises
     half = torch.zeros(2, 77, 512, device="cuda", dtype=torch.float16)
-    try:
-        multi_head_attention(half, half, half, 8, causal=True, impl="auto")
-    except ValueError:
-        pass
-    else:
-        raise AssertionError("impl='auto' ran an fp16 shape the kernel does not take")
+    too_long = torch.zeros(1, 2048, 512, device="cuda", dtype=torch.bfloat16)
+    for x in (half, too_long):
+        try:
+            multi_head_attention(x, x, x, 8, causal=True, impl="auto")
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"impl='auto' ran {tuple(x.shape)} {x.dtype}, "
+                                 "which no kernel takes")
 
-    cases = [  # (label, B, S, D, H, causal, dtype, max abs error)
-        ("text_rn50_bf16", 256, 77, 512, 8, True, torch.bfloat16, 2e-2),
-        ("text_rn50_f32", 256, 77, 512, 8, True, torch.float32, 1e-5),
-        ("ragged_noncausal_bf16", 5, 50, 768, 12, False, torch.bfloat16, 2e-2),
-        ("ragged_noncausal_f32", 5, 50, 768, 12, False, torch.float32, 1e-5),
-    ]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    results = []
-    for label, b, s, d, h, causal, dtype, tol in cases:
-        q, k, v = (torch.randn(b, s, d, device="cuda", generator=gen).to(dtype)
-                   for _ in range(3))
-        out = sa.short_attention(q, k, v, h, causal=causal)
-        torch.cuda.synchronize()
-        ref = sa.short_attention_reference(q, k, v, h, causal)
-        err = (out.float() - ref.float()).abs().max().item()
-        cos = F.cosine_similarity(out.float().flatten(), ref.float().flatten(), dim=0).item()
-        exact = _attention_f64(q, k, v, h, causal)
-        row = {"case": label, "shape": [b, s, d, h], "causal": causal,
-               "dtype": str(dtype), "max_abs_err": err, "tolerance": tol,
-               "cosine": cos,
-               "kernel_err_vs_f64": (out.double() - exact).abs().max().item(),
-               "plain_err_vs_f64": (ref.double() - exact).abs().max().item()}
-        if not (err <= tol and (dtype == torch.float32 or cos >= 0.9999)):
-            raise AssertionError(f"short_attention disagrees with its plain version: {row}")
-        if label == "text_rn50_bf16":
-            heads = [x.view(b, s, h, d // h).transpose(1, 2) for x in (q, k, v)]
-            row["ms"] = time_ms(lambda: sa.short_attention(q, k, v, h, causal=causal))
-            row["plain_ms"] = time_ms(lambda: sa.short_attention_reference(q, k, v, h, causal))
-            row["library_ms"] = time_ms(
-                lambda: F.scaled_dot_product_attention(*heads, is_causal=causal))
-            row["bound_ms"], row["bound_by"] = _attention_bound_ms(
-                b, s, d, h, causal, dtype, q.element_size())
-        emit({"phase": "kernels", **row})
-        results.append(row)
+    bf16, f32 = torch.bfloat16, torch.float32
+    results = {"short_attention": [], "short_attention_qtiled": [],
+               "short_attention_packed": [], "int8_matmul": []}
+    # (label, B, S, D, H, causal, dtype, max abs error, timed)
+    for case in [("text_rn50_bf16", 256, 77, 512, 8, True, bf16, 2e-2, True),
+                 ("text_rn50_f32", 256, 77, 512, 8, True, f32, 1e-5, False),
+                 ("vitb32_image_bf16", 256, 50, 768, 12, False, bf16, 2e-2, False),
+                 ("ragged_noncausal_bf16", 5, 50, 768, 12, False, bf16, 2e-2, False),
+                 ("ragged_noncausal_f32", 5, 50, 768, 12, False, f32, 1e-5, False)]:
+        results["short_attention"].append(_attention_case(
+            sa.short_attention, sa.short_attention_reference, *case[:8], gen, case[8]))
+    for case in [("vitl14_336_f32", 8, 577, 1024, 16, False, f32, 1e-5, True),
+                 ("vitl14_448_bf16", 4, 1025, 1024, 16, False, bf16, 2e-2, False),
+                 ("ragged_causal_f32", 3, 1111, 256, 4, True, f32, 1e-5, False)]:
+        results["short_attention_qtiled"].append(_attention_case(
+            sa.short_attention_qtiled, sa.short_attention_reference, *case[:8], gen,
+            case[8]))
+    for case in [("vitb32_packed_bf16", 256, 50, 768, 12, False, bf16, 2e-2, True),
+                 ("text_packed_bf16", 256, 77, 512, 8, True, bf16, 2e-2, False)]:
+        results["short_attention_packed"].append(_attention_case(
+            sa.short_attention_packed, sa.short_attention_packed_reference, *case[:8],
+            gen, case[8], packed=True))
+    # kernels 2 and 3 sum in kernel 1's order: where both take a shape they
+    # agree bit for bit (comparison launches, not counted as the main path's)
+    q, k, v = (torch.randn(64, 77, 512, device="cuda", generator=gen).to(bf16)
+               for _ in range(3))
+    k1 = sa.short_attention(q, k, v, 8, causal=True)
+    same = {"qtiled_equals_whole_row": torch.equal(
+                sa.short_attention_qtiled(q, k, v, 8, causal=True), k1),
+            "packed_equals_whole_row": torch.equal(
+                sa.short_attention_packed(torch.cat([q, k, v], -1), 8, causal=True), k1)}
+    emit({"phase": "kernels", "check": "same_order", **same})
+    if not all(same.values()):
+        raise AssertionError(f"kernels 2/3 and kernel 1 disagree: {same}")
+    # every shape the ViT-B/32 int8_pallas path launches: q/k/v/out_proj, c_fc, c_proj
+    for case in [("vitb32_c_fc_bf16", 12800, 768, 3072, True, bf16, True),
+                 ("vitb32_qkv_out_bf16", 12800, 768, 768, True, bf16, False),
+                 ("vitb32_c_proj_bf16", 12800, 3072, 768, True, bf16, False),
+                 ("ragged_m_unaligned_k_f32", 1000, 588, 256, False, f32, False)]:
+        results["int8_matmul"].append(_int8_case(*case[:6], gen, case[6]))
     return results
 
 
@@ -176,14 +297,74 @@ def _tokens(n, rng):
     return toks
 
 
-def phase_slice():
+def _counters():
+    from debiasing_multi_modal_tpu_torch.ops import quant_gemm as qg
+    from debiasing_multi_modal_tpu_torch.ops import short_attention as sa
+
+    return {"short_attention": sa.short_attention,
+            "short_attention_qtiled": sa.short_attention_qtiled,
+            "short_attention_packed": sa.short_attention_packed,
+            "int8_matmul": qg.int8_matmul}
+
+
+def _zero_counts():
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def _read_counts():
+    return {name: fn.launches for name, fn in _counters().items()}
+
+
+def _expect_counts(path, got, want):
+    want = {name: want.get(name, 0) for name in _counters()}
+    if got != want:
+        raise AssertionError(f"{path}: expected launches {want}, got {got}")
+
+
+def _rate(fn, items, reps):
+    """Items per second of ``fn`` by the host clock around synchronized work."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return items * reps / (time.perf_counter() - t)
+
+
+def _rel(a, b):
     import numpy as np
+
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def _cos_min(a, b):
     import torch
     import torch.nn.functional as F
 
+    a, b = (torch.as_tensor(x).float().cpu() for x in (a, b))
+    return F.cosine_similarity(a, b, dim=-1).min().item()
+
+
+def _stream(rng, shape, n_batches):
+    import numpy as np
+
+    metas = [{"filenames": np.array([f"{b}_{i}" for i in range(shape[0])]),
+              "y": np.zeros(shape[0], np.int32), "place": np.zeros(shape[0], np.int32),
+              "group": np.zeros(shape[0], np.int32), "split": np.zeros(shape[0], np.int32)}
+             for b in range(n_batches)]
+    return [(rng.integers(0, 256, shape, dtype=np.uint8), m) for m in metas]
+
+
+def phase_slice():
+    import numpy as np
+    import torch
+
     from debiasing_multi_modal_tpu_torch.extract.runner import ExtractionRunner
     from debiasing_multi_modal_tpu_torch.models import create_clip
-    from debiasing_multi_modal_tpu_torch.ops import short_attention as sa
 
     def seeded():
         return torch.Generator().manual_seed(SEED)
@@ -196,17 +377,15 @@ def phase_slice():
     images = rng.integers(0, 256, (256, 256, 256, 3), dtype=np.uint8)
 
     # ---- the main path, with every launch count at 0 just before it
-    sa.short_attention.launches = 0
+    _zero_counts()
     with torch.inference_mode():
         text = model.encode_text(tokens)
     runner = ExtractionRunner(model, text[:2].float().cpu().numpy())
     emb, preds = runner.encode_batch(images)
     torch.cuda.synchronize()
-    launches = {"short_attention": sa.short_attention.launches}
+    launches = _read_counts()
     # ----
-    layers = model.config.transformer_layers
-    if launches["short_attention"] != layers:
-        raise AssertionError(f"expected {layers} short_attention launches, got {launches}")
+    _expect_counts("RN50", launches, {"short_attention": model.config.transformer_layers})
     text32 = text.float()
     if not (torch.isfinite(text32).all() and text32.shape == (256, 1024)):
         raise AssertionError("text embeddings are not finite [256, 1024]")
@@ -220,7 +399,7 @@ def phase_slice():
                         generator=seeded())
     with torch.inference_mode():
         text_plain = plain.encode_text(tokens).float()
-    text_cos = F.cosine_similarity(text32, text_plain, dim=-1).min().item()
+    text_cos = _cos_min(text32, text_plain)
     if text_cos < 0.999:
         raise AssertionError(f"kernel text path vs plain attention: min cosine {text_cos}")
     del plain
@@ -238,16 +417,9 @@ def phase_slice():
         txt_cpu = cpu32.encode_text(small_toks).numpy()
     emb_bf16, _ = runner.encode_batch(small_imgs)
 
-    def rel(a, b):
-        return float(np.abs(a - b).max() / np.abs(b).max())
-
-    def cos_min(a, b):
-        a, b = torch.from_numpy(a), torch.from_numpy(b)
-        return F.cosine_similarity(a, b, dim=-1).min().item()
-
-    checks = {"image_f32_cuda_vs_cpu_rel": rel(emb_cuda, emb_cpu),
-              "text_f32_cuda_vs_cpu_rel": rel(txt_cuda, txt_cpu),
-              "image_bf16_vs_f32_min_cosine": cos_min(emb_bf16, emb_cuda),
+    checks = {"image_f32_cuda_vs_cpu_rel": _rel(emb_cuda, emb_cpu),
+              "text_f32_cuda_vs_cpu_rel": _rel(txt_cuda, txt_cpu),
+              "image_bf16_vs_f32_min_cosine": _cos_min(emb_bf16, emb_cuda),
               "text_kernel_vs_plain_bf16_min_cosine": text_cos}
     if not (checks["image_f32_cuda_vs_cpu_rel"] <= 1e-3
             and checks["text_f32_cuda_vs_cpu_rel"] <= 1e-3
@@ -255,41 +427,207 @@ def phase_slice():
         raise AssertionError(f"tower outputs disagree: {checks}")
     del cuda32, cpu32
 
-    # throughput (host clock around synchronized work)
-    def rate(fn, items, reps):
-        fn()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        return items * reps / (time.perf_counter() - t)
-
     def text_encode():
         with torch.inference_mode():
             model.encode_text(tokens)
 
     uploaded = runner.upload_batch(images)
-    metas = [{"filenames": np.array([f"{b}_{i}" for i in range(256)]),
-              "y": np.zeros(256, np.int32), "place": np.zeros(256, np.int32),
-              "group": np.zeros(256, np.int32), "split": np.zeros(256, np.int32)}
-             for b in range(8)]
-    stream = [(rng.integers(0, 256, images.shape, dtype=np.uint8), m) for m in metas]
+    stream = _stream(rng, images.shape, 8)
     t = time.perf_counter()
     table = runner.run(iter(stream))
     run_imgs_s = len(table) / (time.perf_counter() - t)
-    prompts_per_s = rate(text_encode, 256, 10)
+    prompts_per_s = _rate(text_encode, 256, 10)
     perf = {
         "prompts_per_s": prompts_per_s,
-        "imgs_per_s_device": rate(lambda: runner.encode_batch_async(uploaded), 256, 10),
-        "imgs_per_s_encode_batch": rate(lambda: runner.encode_batch(images), 256, 5),
+        "imgs_per_s_device": _rate(lambda: runner.encode_batch_async(uploaded), 256, 10),
+        "imgs_per_s_encode_batch": _rate(lambda: runner.encode_batch(images), 256, 5),
         "imgs_per_s_run_8_batches": run_imgs_s,
         "text_encode_ms": 256 / prompts_per_s * 1e3,
     }
     emit({"phase": "slice", "model": "RN50", "dtype": "bfloat16", "batch": 256,
           "image_hw": [256, 256], "launches": launches, "checks": checks,
           "perf": perf, "model_setup_s": setup_s})
+    return {"rn50": launches}
+
+
+def phase_vit():
+    """ViT-B/32 at full width and depth, bf16: unfused, fuse_qkv, int8_pallas."""
+    import numpy as np
+    import torch
+
+    from debiasing_multi_modal_tpu_torch.extract.runner import ExtractionRunner
+    from debiasing_multi_modal_tpu_torch.models import create_clip
+
+    def build(**kw):
+        return create_clip("ViT-B/32", device="cuda", generator=torch.Generator().manual_seed(SEED),
+                           **{"dtype": torch.bfloat16, **kw})
+
+    rng = np.random.default_rng(SEED + 1)
+    t0 = time.perf_counter()
+    model = build()
+    setup_s = time.perf_counter() - t0
+    layers = model.config.vision_layers + model.config.transformer_layers
+    tokens = torch.from_numpy(_tokens(256, rng)).cuda()
+    images = rng.integers(0, 256, (256, 256, 256, 3), dtype=np.uint8)
+    zs = None
+
+    def drive(m, name, want):
+        """The main path (text encode, then one encode_batch) with every
+        launch count at 0 just before it and read just after."""
+        nonlocal zs
+        _zero_counts()
+        with torch.inference_mode():
+            text = m.encode_text(tokens)
+        if zs is None:
+            zs = text[:2].float().cpu().numpy()
+        runner = ExtractionRunner(m, zs)
+        emb, preds = runner.encode_batch(images)
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        _expect_counts(name, counts, want)
+        text32 = text.float().cpu().numpy()
+        if not (np.isfinite(emb).all() and emb.shape == (256, 512)
+                and np.isfinite(text32).all() and text32.shape == (256, 512)):
+            raise AssertionError(f"{name}: embeddings are not finite [256, 512]")
+        if not (preds.shape == (256,) and preds.min() >= 0 and preds.max() < 2):
+            raise AssertionError(f"{name}: zero-shot predictions out of range")
+        return runner, text32, emb, counts
+
+    launches, checks, perf = {}, {}, {}
+    runner, text, emb, launches["vit_b32"] = drive(
+        model, "ViT-B/32", {"short_attention": layers})
+    fused = build(fuse_qkv=True)
+    f_runner, f_text, f_emb, launches["vit_b32_fuse_qkv"] = drive(
+        fused, "ViT-B/32 fuse_qkv", {"short_attention_packed": layers})
+    q8 = build(quant="int8_pallas")
+    q_runner, q_text, q_emb, launches["vit_b32_int8_pallas"] = drive(
+        q8, "ViT-B/32 int8_pallas",
+        {"short_attention": layers, "int8_matmul": 6 * model.config.vision_layers})
+
+    # the same weights under the plain attention formulation, both towers
+    plain = build(attn_impl="xla")
+    with torch.inference_mode():
+        text_plain = plain.encode_text(tokens).float().cpu().numpy()
+    emb_plain, _ = ExtractionRunner(plain, zs).encode_batch(images)
+    del plain
+    # the same integer products with torch._int_mm in place of kernel 7; the
+    # epilogues differ only in where the bias add rounds (a few f32 ulps)
+    int8_xla = ExtractionRunner(build(quant="int8"), zs)
+    i_emb, _ = int8_xla.encode_batch(images)
+    checks["text_kernel_vs_plain_bf16_min_cosine"] = _cos_min(text, text_plain)
+    checks["image_kernel_vs_plain_bf16_min_cosine"] = _cos_min(emb, emb_plain)
+    checks["fuse_qkv_vs_unfused_image_min_cosine"] = _cos_min(f_emb, emb)
+    checks["fuse_qkv_vs_unfused_text_min_cosine"] = _cos_min(f_text, text)
+    checks["int8_pallas_vs_bf16_image_min_cosine"] = _cos_min(q_emb, emb)
+    checks["int8_pallas_vs_int8_int_mm_image_min_cosine"] = _cos_min(q_emb, i_emb)
+    checks["int8_pallas_text_equals_bf16_text"] = bool(np.array_equal(q_text, text))
+
+    # f32 towers on the card (kernel attention, TF32 off) against the CPU
+    small = rng.integers(0, 256, (4, 224, 224, 3), dtype=np.uint8)
+    emb_cuda, _ = ExtractionRunner(build(dtype=torch.float32), zs).encode_batch(small)
+    cpu32 = create_clip("ViT-B/32", device="cpu", generator=torch.Generator().manual_seed(SEED))
+    emb_cpu, _ = ExtractionRunner(cpu32, zs).encode_batch(small)
+    del cpu32
+    checks["image_f32_cuda_vs_cpu_rel"] = _rel(emb_cuda, emb_cpu)
+    emit({"phase": "vit", "checks": checks})
+    if not (checks["text_kernel_vs_plain_bf16_min_cosine"] >= 0.999
+            and checks["image_kernel_vs_plain_bf16_min_cosine"] >= 0.999
+            and checks["fuse_qkv_vs_unfused_image_min_cosine"] >= 0.999
+            and checks["fuse_qkv_vs_unfused_text_min_cosine"] >= 0.999
+            and checks["int8_pallas_vs_bf16_image_min_cosine"] >= 0.99
+            and checks["int8_pallas_vs_int8_int_mm_image_min_cosine"] >= 0.999
+            and checks["int8_pallas_text_equals_bf16_text"]
+            and checks["image_f32_cuda_vs_cpu_rel"] <= 1e-3):
+        raise AssertionError(f"ViT-B/32 outputs disagree: {checks}")
+
+    def text_encode():
+        with torch.inference_mode():
+            model.encode_text(tokens)
+
+    uploaded = runner.upload_batch(images)
+    stream = _stream(rng, images.shape, 8)
+    t = time.perf_counter()
+    table = runner.run(iter(stream))
+    run_imgs_s = len(table) / (time.perf_counter() - t)
+    prompts_per_s = _rate(text_encode, 256, 10)
+    perf = {
+        "prompts_per_s": prompts_per_s,
+        "imgs_per_s_device": _rate(lambda: runner.encode_batch_async(uploaded), 256, 10),
+        "imgs_per_s_encode_batch": _rate(lambda: runner.encode_batch(images), 256, 5),
+        "imgs_per_s_run_8_batches": run_imgs_s,
+        "text_encode_ms": 256 / prompts_per_s * 1e3,
+        "imgs_per_s_device_fuse_qkv": _rate(lambda: f_runner.encode_batch_async(uploaded), 256, 10),
+        "imgs_per_s_device_int8_pallas": _rate(lambda: q_runner.encode_batch_async(uploaded), 256, 10),
+        "imgs_per_s_device_int8_int_mm": _rate(lambda: int8_xla.encode_batch_async(uploaded), 256, 10),
+    }
+    emit({"phase": "vit", "model": "ViT-B/32", "dtype": "bfloat16", "batch": 256,
+          "image_hw": [256, 256], "launches": launches, "perf": perf,
+          "model_setup_s": setup_s})
     return launches
+
+
+def phase_qtiled():
+    """ViT-L/14@336px at its zoo default f32: every image attention is
+    kernel 2.  Held to the same weights under the plain formulation within
+    1e-4 of the output's scale: both sum in f32 (TF32 off), in other orders,
+    through 24 layers; the measured gap is ~1e-6."""
+    import numpy as np
+    import torch
+
+    from debiasing_multi_modal_tpu_torch.models import create_clip
+
+    def build(**kw):
+        return create_clip("ViT-L/14@336px", device="cuda",
+                           generator=torch.Generator().manual_seed(SEED), **kw)
+
+    model = build()
+    x = torch.randn(4, 336, 336, 3, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(SEED))
+    _zero_counts()
+    with torch.inference_mode():
+        emb = model.encode_image(x)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    _expect_counts("ViT-L/14@336px", launches,
+                   {"short_attention_qtiled": model.config.vision_layers})
+    image_ms = time_ms(lambda: model.encode_image(x), runs=5, calls=3, warmup=1)
+    del model
+    plain = build(attn_impl="xla")
+    with torch.inference_mode():
+        ref = plain.encode_image(x)
+    emb, ref = emb.cpu().numpy(), ref.cpu().numpy()
+    rel = _rel(emb, ref)
+    row = {"phase": "qtiled", "model": "ViT-L/14@336px", "dtype": "float32",
+           "images": [4, 336, 336], "launches": launches,
+           "kernel_vs_plain_attention_rel": rel, "tolerance": 1e-4,
+           "encode_image_ms": image_ms}
+    emit(row)
+    if not (np.isfinite(emb).all() and emb.shape == (4, 768) and rel <= 1e-4):
+        raise AssertionError(f"ViT-L/14@336px through kernel 2 disagrees: {row}")
+    return {"vit_l14_336": launches}
+
+
+def _kernel_line(name, source, replaces, cases, launches_by_path, card):
+    main = next(c for c in cases if "ms" in c)
+    by_path = {path: counts[name] for path, counts in launches_by_path.items()}
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": f"debiasing_multi_modal_tpu_torch/csrc/{source}",
+        "replaces": replaces,
+        "launches": sum(by_path.values()),
+        "launches_by_path": by_path,
+        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "ms": main["ms"],
+        "kernel_ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
+        "library_call": main["library_call"],
+        "shape": main["shape"],
+        "card": card,
+    }
 
 
 def main():
@@ -297,26 +635,27 @@ def main():
     info = phase_device()
     phase_build()
     cases = phase_kernels()
-    launches = phase_slice()
-    main_case = next(c for c in cases if c["case"] == "text_rn50_bf16")
+    launches = {}
+    launches.update(phase_slice())
+    launches.update(phase_vit())
+    launches.update(phase_qtiled())
     emit({"phase": "summary", "seconds": time.perf_counter() - t0})
-    emit({"kernels": [{
-        "name": "short_attention",
-        "route": "cuda",
-        "source": "debiasing_multi_modal_tpu_torch/csrc/short_attention.cu",
-        "replaces": "debiasing_multi_modal_tpu/ops/short_attention.py:218",
-        "launches": launches["short_attention"],
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
-        "ms": main_case["ms"],
-        "kernel_ms": main_case["ms"],
-        "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"],
-        "shape": main_case["shape"],
-        "card": info["nvidia_smi"],
-    }]})
-    print(info["nvidia_smi"], flush=True)
+    card = info["nvidia_smi"]
+    emit({"kernels": [
+        _kernel_line("short_attention", "short_attention.cu",
+                     "debiasing_multi_modal_tpu/ops/short_attention.py:218",
+                     cases["short_attention"], launches, card),
+        _kernel_line("short_attention_qtiled", "short_attention_qtiled.cu",
+                     "debiasing_multi_modal_tpu/ops/short_attention.py:308",
+                     cases["short_attention_qtiled"], launches, card),
+        _kernel_line("short_attention_packed", "short_attention.cu",
+                     "debiasing_multi_modal_tpu/ops/short_attention.py:269",
+                     cases["short_attention_packed"], launches, card),
+        _kernel_line("int8_matmul", "quant_gemm.cu",
+                     "debiasing_multi_modal_tpu/ops/quant_gemm.py:36",
+                     cases["int8_matmul"], launches, card),
+    ]})
+    print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
                                  "count": info["count"]}})
     return 0

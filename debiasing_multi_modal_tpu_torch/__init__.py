@@ -8,8 +8,9 @@ hand-written CUDA C++ kernel under ``csrc/``, built with ``nvcc`` at first use
 (``ops/cuda_build.py``); each has a plain PyTorch version in the same module,
 which the wrapper takes only for tensors on the CPU.
 
-Ported so far: Stage A extraction with the ResNet CLIP towers (``models/``,
-``ops/``, ``weights/convert.py``, ``extract/``, ``cli/extract_main.py``).
+Ported so far: Stage A extraction with the ResNet and ViT CLIP towers
+(``models/``, ``ops/``, ``weights/convert.py``, ``extract/``,
+``cli/extract_main.py``), with ``fuse_qkv`` and the int8 ``quant`` modes.
 Public entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 
 Importing the package loads no kernel library and imports no Triton.

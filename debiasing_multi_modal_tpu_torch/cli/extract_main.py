@@ -3,12 +3,15 @@ prediction (port of ``cli/extract_main.py``, same flags plus ``--device``).
 
     python -m debiasing_multi_modal_tpu_torch.cli.extract_main \\
         --data_dir data --dataset waterbirds --embedding_dir embeddings_unnormalized \\
-        --save --split all --backbone RN50 --checkpoint /path/to/RN50.pt
+        --save --split all --backbone ViT-B/32 --quantize int8_pallas
 
 Runs on ``cuda`` (bf16 towers) unless ``--device cpu`` (f32).  Without
 ``--checkpoint`` the model runs with seeded random weights (pipeline
-testing).  ``--tensor_parallel`` above 1, ``--quantize`` and ``--fuse_bn``
-are not ported yet and raise.
+testing).  Every ResNet and ViT backbone runs; ``--quantize int8`` (the
+plain integer product) or ``int8_pallas`` (kernel 7) quantizes the ViT image
+tower's Dense GEMMs and raises ``ValueError`` on a ResNet, as the JAX CLI
+refuses it.  ``--tensor_parallel`` above 1 and ``--fuse_bn`` are not ported
+yet and raise.
 """
 
 from __future__ import annotations
@@ -51,7 +54,9 @@ def build_parser():
                         "batches; a re-run resumes after the last complete shard")
     p.add_argument("--quantize", default="none",
                    choices=["none", "int8", "int8_pallas"],
-                   help="int8 GEMMs in the vision tower (not yet ported)")
+                   help="dynamic W8A8 int8 GEMMs in the ViT image tower: int8 = "
+                        "the plain integer product, int8_pallas = the int8 "
+                        "GEMM kernel (ViT backbones only)")
     p.add_argument("--tensor_parallel", type=int, default=1,
                    help="shard encoder params over this many devices (not yet ported)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
@@ -62,8 +67,6 @@ def build_parser():
 def main(args):
     if args.tensor_parallel > 1:
         raise NotImplementedError("--tensor_parallel > 1 is not yet ported")
-    if args.quantize != "none":
-        raise NotImplementedError("--quantize is not yet ported")
     if args.fuse_bn:
         raise NotImplementedError("--fuse_bn is not yet ported")
 
@@ -93,13 +96,18 @@ def main(args):
 
     device = resolve_device(args.device)
     dtype = compute_dtype(device)
+    # quant raises ValueError on a ResNet (CLIP's own check)
     if args.checkpoint:
         model = clip_from_state_dict(load_openai_checkpoint(args.checkpoint),
-                                     name=args.backbone, dtype=dtype, device=device)
+                                     name=args.backbone, dtype=dtype, device=device,
+                                     quant=args.quantize)
         print(f"loaded checkpoint {args.checkpoint} ({model.config.name})")
     else:
-        model = create_clip(args.backbone, dtype=dtype, device=device)
+        model = create_clip(args.backbone, dtype=dtype, device=device,
+                            quant=args.quantize)
         print(f"WARNING: no --checkpoint given; {args.backbone} runs with random weights")
+    if args.quantize != "none":
+        print(f"vision tower Dense GEMMs running {args.quantize} W8A8")
 
     prompts = get_prompts(args.dataset)
     tpp = len(prompts.templates)

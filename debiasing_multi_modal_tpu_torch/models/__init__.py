@@ -11,3 +11,4 @@ from debiasing_multi_modal_tpu_torch.models.config import (  # noqa: F401
 )
 from debiasing_multi_modal_tpu_torch.models.resnet import ModifiedResNet  # noqa: F401
 from debiasing_multi_modal_tpu_torch.models.text import TextTransformer  # noqa: F401
+from debiasing_multi_modal_tpu_torch.models.vit import VisionTransformer  # noqa: F401

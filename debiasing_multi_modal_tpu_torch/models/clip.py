@@ -23,6 +23,7 @@ from debiasing_multi_modal_tpu_torch.models.config import CLIPConfig, get_config
 from debiasing_multi_modal_tpu_torch.models.layers import MultiHeadAttentionBlock
 from debiasing_multi_modal_tpu_torch.models.resnet import AttentionPool2d, ModifiedResNet
 from debiasing_multi_modal_tpu_torch.models.text import TextTransformer
+from debiasing_multi_modal_tpu_torch.models.vit import VisionTransformer
 from debiasing_multi_modal_tpu_torch.utils.platform import DeviceLike, resolve_device
 
 
@@ -36,22 +37,35 @@ def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 0.0) -> torch.Tens
 
 
 class CLIP(TextTransformer):
-    def __init__(self, config: CLIPConfig, attn_impl: str = "auto"):
+    def __init__(self, config: CLIPConfig, attn_impl: str = "auto",
+                 quant: str = "none", fuse_qkv: bool = False):
         cfg = config
-        if cfg.is_vit:
-            raise NotImplementedError("the ViT towers are not yet ported")
+        if not cfg.is_vit and quant != "none":
+            raise ValueError(
+                "quant is ViT-only: the ResNet towers are conv-dominated, and "
+                "the JAX package runs them unquantized too"
+            )
         super().__init__(
             vocab_size=cfg.vocab_size, context_length=cfg.context_length,
             width=cfg.transformer_width, heads=cfg.transformer_heads,
             layers=cfg.transformer_layers, embed_dim=cfg.embed_dim,
-            dtype=cfg.dtype, attn_impl=attn_impl,
+            dtype=cfg.dtype, attn_impl=attn_impl, fuse_qkv=fuse_qkv,
         )
         self.config = cfg
-        self.visual = ModifiedResNet(
-            layers=cfg.vision_layers, output_dim=cfg.embed_dim,
-            heads=cfg.vision_heads, input_resolution=cfg.image_resolution,
-            width=cfg.vision_width, dtype=cfg.dtype,
-        )
+        if cfg.is_vit:
+            self.visual = VisionTransformer(
+                input_resolution=cfg.image_resolution,
+                patch_size=cfg.vision_patch_size, width=cfg.vision_width,
+                layers=cfg.vision_layers, heads=cfg.vision_heads,
+                output_dim=cfg.embed_dim, dtype=cfg.dtype, attn_impl=attn_impl,
+                quant=quant, fuse_qkv=fuse_qkv,
+            )
+        else:
+            self.visual = ModifiedResNet(
+                layers=cfg.vision_layers, output_dim=cfg.embed_dim,
+                heads=cfg.vision_heads, input_resolution=cfg.image_resolution,
+                width=cfg.vision_width, dtype=cfg.dtype,
+            )
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
 
     def encode_image(self, images: torch.Tensor) -> torch.Tensor:
@@ -89,6 +103,10 @@ def init_weights(model: CLIP, generator: torch.Generator) -> None:
         elif isinstance(module, AttentionPool2d):
             pos = module.positional_embedding
             normal_(pos, pos.shape[1] ** -0.5)
+        elif isinstance(module, VisionTransformer):
+            # flax's initializers in the JAX tower: normal(width^-0.5)
+            for p in (module.class_embedding, module.positional_embedding, module.proj):
+                normal_(p, module.proj.shape[0] ** -0.5)
     width = model.text_projection.shape[0]
     normal_(model.token_embedding.weight, 0.02)
     normal_(model.positional_embedding, 0.01)
@@ -105,20 +123,18 @@ def create_clip(name_or_config, dtype=None, attn_impl: str = "auto",
     asked for) with seeded random weights (``generator``, default seed 0).
 
     ``dtype=None`` keeps the config's compute dtype (f32 for zoo names); an
-    explicit dtype is honored for both names and configs.  ``fuse_bn``,
-    ``quant`` and ``fuse_qkv`` other than their defaults are not yet ported
-    and raise."""
-    for option, value, default in (("fuse_bn", fuse_bn, False),
-                                   ("quant", quant, "none"),
-                                   ("fuse_qkv", fuse_qkv, False)):
-        if value != default:
-            raise NotImplementedError(f"{option}={value!r} is not yet ported")
+    explicit dtype is honored for both names and configs.  ``quant`` is
+    "none", "int8" (the plain integer product) or "int8_pallas" (kernel 7),
+    ViT only; ``fuse_qkv`` feeds one fused in-projection GEMM to kernel 3.
+    ``fuse_bn`` is not yet ported and raises."""
+    if fuse_bn:
+        raise NotImplementedError("fuse_bn=True is not yet ported")
     dev = resolve_device(device)
     if isinstance(name_or_config, CLIPConfig):
         cfg = name_or_config if dtype is None else name_or_config.with_dtype(dtype)
     else:
         cfg = get_config(name_or_config, dtype=torch.float32 if dtype is None else dtype)
-    model = CLIP(cfg, attn_impl=attn_impl)
+    model = CLIP(cfg, attn_impl=attn_impl, quant=quant, fuse_qkv=fuse_qkv)
     init_weights(model, generator if generator is not None
                  else torch.Generator().manual_seed(0))
     return model.to(dev).eval().requires_grad_(False)

@@ -3,8 +3,7 @@
 A ResNet tower is selected when ``vision_layers`` is a tuple, a ViT tower
 when it is an int (reference ``build_model``, clip/model.py:399-436).  The
 registry covers the public OpenAI model zoo; checkpoints are still
-shape-sniffed at conversion time (weights/convert.py).  Only the ResNet
-towers are ported so far; ``create_clip`` refuses ViT configurations.
+shape-sniffed at conversion time (weights/convert.py).
 """
 
 from __future__ import annotations

@@ -11,7 +11,9 @@ Parameter names are OpenAI's top-level ones (``token_embedding.weight``,
 ``positional_embedding``, ``transformer.resblocks.*``, ``ln_final``,
 ``text_projection``): :class:`~debiasing_multi_modal_tpu_torch.models.clip.CLIP`
 is a ``TextTransformer`` with a vision tower added, as OpenAI's CLIP holds
-the text tower's parameters at its top level.
+the text tower's parameters at its top level.  ``fuse_qkv`` runs each
+block's q/k/v projections as one GEMM into kernel 3 (``models/layers.py``);
+the text tower is never quantized, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -25,13 +27,15 @@ from debiasing_multi_modal_tpu_torch.models.layers import LayerNormF32, Transfor
 class TextTransformer(nn.Module):
     def __init__(self, vocab_size: int, context_length: int, width: int,
                  heads: int, layers: int, embed_dim: int,
-                 dtype=torch.float32, attn_impl: str = "auto"):
+                 dtype=torch.float32, attn_impl: str = "auto",
+                 fuse_qkv: bool = False):
         super().__init__()
         self.dtype = dtype
         self.token_embedding = nn.Embedding(vocab_size, width)
         self.positional_embedding = nn.Parameter(torch.empty(context_length, width))
         self.transformer = Transformer(width, layers, heads, causal=True,
-                                       dtype=dtype, attn_impl=attn_impl)
+                                       dtype=dtype, attn_impl=attn_impl,
+                                       fuse_qkv=fuse_qkv)
         self.ln_final = LayerNormF32(width)
         self.text_projection = nn.Parameter(torch.empty(width, embed_dim))
 

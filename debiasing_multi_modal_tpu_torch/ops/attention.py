@@ -6,16 +6,22 @@ The implementations, by ``impl``:
   Logits are stored in the activation dtype (one rounding after the f32
   accumulation), the softmax runs in f32, the probabilities are cast to the
   value dtype and P.V accumulates in f32.  For f32 inputs this is all-f32.
-- ``"short"``: the whole-row merged-head kernel
-  (:mod:`debiasing_multi_modal_tpu_torch.ops.short_attention`).
-- ``"auto"``: on a CUDA tensor :func:`multi_head_attention` takes the short
-  kernel, which raises on a shape it does not take (see
+- ``"short"``: the merged-head kernels
+  (:mod:`debiasing_multi_modal_tpu_torch.ops.short_attention`): kernel 1
+  (whole-row) where its block fits, else kernel 2 (q-tiled), else a raise.
+- ``"auto"``: on a CUDA tensor :func:`multi_head_attention` takes
+  ``"short"``, so a shape neither kernel takes raises (see
   :func:`short_attention.supported`); the card never drops to the plain
   formulation unasked.  On the CPU ``auto`` is the plain formulation, as the
   JAX package takes XLA off the TPU.
 - ``"pallas"`` (the blockwise flash kernel) is not ported yet, so
   :func:`dot_product_attention` refuses ``auto`` on a CUDA tensor: pass
   ``impl="xla"`` for the plain formulation there.
+
+:func:`multi_head_attention_packed` takes the fused in-projection's packed
+``[B, S, 3D]`` slab: kernel 3 where its whole-row block fits (``"short"``,
+or ``"auto"`` on the card), else it splits the slab and follows
+:func:`multi_head_attention`, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -81,3 +87,22 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         v.reshape(b, skv, num_heads, hd), mask=mask, causal=causal, impl=impl,
     )
     return out.reshape(b, sq, d)
+
+
+def multi_head_attention_packed(qkv: torch.Tensor, num_heads: int, *,
+                                causal: bool = False,
+                                impl: str = "auto") -> torch.Tensor:
+    """Attention over the packed ``[batch, seq, 3 * model_dim]`` slab (q | k
+    | v along the last axis, the fused in-projection's output).  Kernel 3
+    reads the slab in place when it takes the shape; every other case splits
+    here and follows :func:`multi_head_attention`'s dispatch."""
+    if impl not in _IMPLS:
+        raise ValueError(f"unknown attention impl {impl!r}; known: {_IMPLS}")
+    on_card = qkv.device.type == "cuda"
+    if (impl == "short" or (impl == "auto" and on_card)) and (
+            sa.supported_packed(qkv, num_heads)):
+        return sa.short_attention_packed(qkv, num_heads, causal=causal)
+    q, k, v = qkv.chunk(3, dim=-1)
+    if on_card:  # the kernels read contiguous [B, S, D] slabs
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    return multi_head_attention(q, k, v, num_heads, causal=causal, impl=impl)

@@ -1,4 +1,5 @@
-"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+"""Build and load the port's CUDA kernels (``csrc/*.cu``, which may include
+the shared ``csrc/*.cuh`` headers).
 
 Each source is a plain C interface compiled by ``nvcc`` for ``sm_90a`` into a
 shared library and loaded with ``ctypes``.  Builds happen at first use (or
@@ -30,6 +31,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_entries: Dict[tuple, object] = {}  # typed C functions, by (library, symbol)
 
 
 def kernel_names() -> List[str]:
@@ -49,9 +51,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    """The library's path; its name hashes the source and every shared
+    header (``csrc/*.cuh``), so an edit to either rebuilds it."""
+    digest = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            digest.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
 def build_all(names: Iterable[str] = None) -> float:
@@ -91,6 +98,35 @@ def library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(library_path(name))
             _libs[name] = lib
         return lib
+
+
+def _entry(name: str, symbol: str, n_ptrs: int, n_ints: int):
+    """The C function ``symbol`` of library ``name``, typed once as
+    ``n_ptrs`` pointers, ``n_ints`` ints and a trailing stream pointer,
+    returning an int (the CUDA error code)."""
+    key = (name, symbol)
+    fn = _entries.get(key)
+    if fn is None:
+        fn = getattr(library(name), symbol)
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _entries[key] = fn
+    return fn
+
+
+def launch(name: str, symbol: str, tensors, ints, device) -> None:
+    """Call the C entry ``symbol`` of library ``name`` with the tensors'
+    pointers (``None`` passes NULL), the ints, and ``device``'s current
+    stream; raise on a nonzero CUDA error, which a refused launch returns."""
+    import torch
+
+    fn = _entry(name, symbol, len(tensors), len(ints))
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*(None if t is None else t.data_ptr() for t in tensors), *ints, stream)
+    if err:
+        raise RuntimeError(f"{symbol} kernel launch failed: CUDA error {err}")
 
 
 def loaded() -> List[str]:

@@ -1,72 +1,132 @@
-"""Whole-row merged-head self-attention: the port of
-``debiasing_multi_modal_tpu/ops/short_attention.py::_short_attn_kernel``.
+"""Merged-head self-attention kernels: the port of
+``debiasing_multi_modal_tpu/ops/short_attention.py``.
+
+Three kernels share one function (f32 logits, an exact whole-row softmax,
+probabilities cast to the input dtype before P.V, which accumulates in f32):
+
+- kernel 1, whole-row (``_short_attn_kernel``), ``csrc/short_attention.cu``;
+- kernel 2, q-tiled (``_qtiled_kernel``), ``csrc/short_attention_qtiled.cu``,
+  for sequences whose whole-row block does not fit shared memory;
+- kernel 3, packed (``_packed_attn_kernel``), ``csrc/short_attention.cu``,
+  which reads q, k and v from one ``[B, S, 3D]`` slab, the fused
+  in-projection GEMM's output.
 
 q, k, v are ``[B, S, D]`` in merged-head layout (head h is the column slice
 ``[h*hd, (h+1)*hd)``) and so is the output, exactly the layout the
 surrounding projection GEMMs produce and consume — no transposes on either
-side.  Scores are f32 and exact over the whole row; probabilities are cast
-to the input dtype before P.V, which accumulates in f32.
+side.
 
-On a CUDA tensor :func:`short_attention` launches the hand-written kernel in
-``csrc/short_attention.cu`` or raises; on a CPU tensor it runs
-:func:`short_attention_reference`, the plain PyTorch version (the counterpart
-of the JAX package's ``_xla_merged``).  There is no fall back from one to the
-other.
+On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
+it runs the plain PyTorch version (:func:`short_attention_reference`, the
+counterpart of the JAX package's ``_xla_merged``; kernel 2 has the same math
+and so the same plain version; kernel 3's splits the slab and calls it).
+There is no fall back from one to the other.  :func:`short_attention` picks
+kernel 1 when its block fits and kernel 2 otherwise, as the JAX package's
+``_pallas_forward`` picks whole-row before q-tiled.  Each wrapper counts its
+own launches (``short_attention.launches``, ``short_attention_qtiled.launches``,
+``short_attention_packed.launches``).
 
-The H100 gate :func:`supported` is derived from shared memory: one block
-stages one head's K_h and V_h (``[S, hd]`` each, rows padded by one 32-bit
-word) plus eight warps' score rows and query rows, and that must fit the
-227 KB a block may use.  The TPU's VMEM byte models, batch-block pickers and
-image merging do not carry over.
+The H100 gates are derived from shared memory, against the 227 KB a block
+may use: kernel 1 and 3 stage one head's K_h and V_h (``[S, hd]`` each, rows
+padded by one 32-bit word) plus eight warps' score and query rows
+(:func:`smem_bytes`); kernel 2 stages 32 query rows' f32 score and query
+rows plus one 64-key tile (:func:`qtiled_smem_bytes`).  The TPU's VMEM
+constants (``MAX_SEQ_LEN``, ``CELL_VMEM_LIMIT``, ``TILED_CELL_LIMIT``,
+``pick_block_q``), batch-block pickers and image merging do not carry over.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
 
+from debiasing_multi_modal_tpu_torch.ops import cuda_build
+
 _NEG_INF = -1e30
 # A Hopper block may use 232,448 bytes of shared memory (227 KB).
 SMEM_LIMIT_BYTES = 232448
-_WARPS = 8  # warps per block, csrc/short_attention.cu kWarps
-HEAD_DIMS = (32, 64, 128)  # the head widths the kernel is instantiated for
+_WARPS = 8  # warps per block, csrc/common.cuh kWarps
+_Q_TILE = 32  # query rows per kernel-2 block, csrc/short_attention_qtiled.cu kQTile
+_K_TILE = 64  # keys per kernel-2 K/V tile, kKTile
+HEAD_DIMS = (32, 64, 128)  # the head widths the kernels are instantiated for
 _MAX_GRID_Z = 65535  # images ride the grid's z dimension
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _padded_ld(hd: int, itemsize: int) -> int:
+    return hd + (2 if itemsize == 2 else 1)
+
+
 def smem_bytes(s: int, hd: int, itemsize: int) -> int:
-    """Dynamic shared memory of one block (mirrors ``smem_bytes`` in the
-    CUDA source): padded K_h and V_h, plus each warp's f32 scores and
-    query row."""
-    ld = hd + (2 if itemsize == 2 else 1)
-    return 2 * s * ld * itemsize + _WARPS * (s + hd) * 4
+    """Dynamic shared memory of one kernel-1 (or kernel-3) block (mirrors
+    ``smem_bytes`` in the CUDA source): padded K_h and V_h, plus each warp's
+    f32 scores and query row."""
+    return 2 * s * _padded_ld(hd, itemsize) * itemsize + _WARPS * (s + hd) * 4
 
 
-def supported(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              num_heads: int, *, mask: Optional[torch.Tensor] = None) -> bool:
-    """Whether the CUDA kernel takes this call."""
-    if mask is not None:
-        return False
+def qtiled_smem_bytes(s: int, hd: int, itemsize: int) -> int:
+    """Dynamic shared memory of one kernel-2 block (mirrors
+    ``qtiled_smem_bytes`` in the CUDA source): the tile's f32 score and query
+    rows, plus one padded K/V tile."""
+    return _Q_TILE * (s + hd) * 4 + _K_TILE * _padded_ld(hd, itemsize) * itemsize
+
+
+def _shape_ok(q, k, v, num_heads) -> bool:
+    """What every kernel needs besides shared memory."""
     if q.ndim != 3 or q.shape != k.shape or k.shape != v.shape:
         return False
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODES:
         return False
     b, s, d = q.shape
-    if s < 1 or not (1 <= b <= _MAX_GRID_Z) or d % num_heads:
+    if s < 1 or not (1 <= b <= _MAX_GRID_Z) or num_heads < 1 or d % num_heads:
         return False
-    hd = d // num_heads
-    if hd not in HEAD_DIMS:
+    return d // num_heads in HEAD_DIMS
+
+
+def supported_whole_row(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        num_heads: int) -> bool:
+    """Whether kernel 1 takes this call: one head's K_h and V_h fit a block."""
+    if not _shape_ok(q, k, v, num_heads):
         return False
-    return smem_bytes(s, hd, q.element_size()) <= SMEM_LIMIT_BYTES
+    s, d = q.shape[1], q.shape[2]
+    return smem_bytes(s, d // num_heads, q.element_size()) <= SMEM_LIMIT_BYTES
+
+
+def supported_qtiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     num_heads: int) -> bool:
+    """Whether kernel 2 takes this call: 32 query rows' scores fit a block."""
+    if not _shape_ok(q, k, v, num_heads):
+        return False
+    s, d = q.shape[1], q.shape[2]
+    return qtiled_smem_bytes(s, d // num_heads, q.element_size()) <= SMEM_LIMIT_BYTES
+
+
+def supported(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              num_heads: int, *, mask: Optional[torch.Tensor] = None) -> bool:
+    """Whether :func:`short_attention` takes this call on the card: kernel 1
+    fits, or kernel 2 does (as the JAX gate covers both modes)."""
+    if mask is not None:
+        return False
+    return (supported_whole_row(q, k, v, num_heads)
+            or supported_qtiled(q, k, v, num_heads))
+
+
+def supported_packed(qkv: torch.Tensor, num_heads: int) -> bool:
+    """Whether kernel 3 takes this packed ``[B, S, 3D]`` slab: whole-row
+    only, like the JAX gate (a longer sequence splits and takes kernel 2)."""
+    if qkv.ndim != 3 or qkv.shape[2] % 3:
+        return False
+    q = qkv[..., : qkv.shape[2] // 3]
+    return supported_whole_row(q, q, q, num_heads)
 
 
 def short_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, num_heads: int,
                               causal: bool = False) -> torch.Tensor:
-    """Plain PyTorch version: f32 logits, whole-row softmax, probabilities
-    rounded to the input dtype, f32 P.V accumulation."""
+    """Plain PyTorch version of kernels 1 and 2: f32 logits, whole-row
+    softmax, probabilities rounded to the input dtype, f32 P.V
+    accumulation."""
     b, s, d = q.shape
     hd = d // num_heads
     qh = q.reshape(b, s, num_heads, hd).float()
@@ -81,6 +141,14 @@ def short_attention_reference(q: torch.Tensor, k: torch.Tensor,
     return out.to(q.dtype).reshape(b, s, d)
 
 
+def short_attention_packed_reference(qkv: torch.Tensor, num_heads: int,
+                                     causal: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of kernel 3: split the slab, then
+    :func:`short_attention_reference`."""
+    q, k, v = qkv.chunk(3, dim=-1)
+    return short_attention_reference(q, k, v, num_heads, causal)
+
+
 def _check(q, k, v, num_heads):
     if q.ndim != 3 or q.shape != k.shape or k.shape != v.shape:
         raise ValueError(
@@ -91,52 +159,109 @@ def _check(q, k, v, num_heads):
         raise ValueError(f"D={q.shape[2]} is not divisible by {num_heads} heads")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must lie on one device")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"short_attention runs on cuda or cpu, not {q.device}")
 
 
-_forward = None  # the C entry, typed once when its library loads
+def _refuse(name, shape, dtype, num_heads, gate):
+    raise ValueError(
+        f"the CUDA {name} kernel does not take {tuple(shape)} {dtype} "
+        f"heads={num_heads} (see {gate}())"
+    )
 
 
-def _load_forward():
-    global _forward
-    from debiasing_multi_modal_tpu_torch.ops import cuda_build
+def _need_contiguous(name, *tensors):
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} needs contiguous inputs")
 
-    fn = cuda_build.library("short_attention").short_attention_forward
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    _forward = fn
-    return fn
+
+def _whole_row(q, k, v, num_heads, causal):
+    _need_contiguous("short_attention", q, k, v)
+    out = torch.empty_like(q)
+    b, s, d = q.shape
+    cuda_build.launch("short_attention", "short_attention_forward", (q, k, v, out),
+                      (b, s, d, num_heads, int(causal), _DTYPE_CODES[q.dtype]), q.device)
+    short_attention.launches += 1
+    return out
 
 
 def short_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     num_heads: int, *, causal: bool = False) -> torch.Tensor:
     """q/k/v ``[B, S, D]`` merged-head -> ``[B, S, D]``.
 
-    CPU tensors take :func:`short_attention_reference`; CUDA tensors launch
-    the kernel (``short_attention.launches`` counts those launches) or raise
-    on anything it does not take."""
+    CPU tensors take :func:`short_attention_reference`.  CUDA tensors launch
+    kernel 1 when :func:`supported_whole_row` holds (counted in
+    ``short_attention.launches``), else kernel 2 through
+    :func:`short_attention_qtiled` when :func:`supported_qtiled` holds, else
+    raise."""
     _check(q, k, v, num_heads)
     if q.device.type == "cpu":
         return short_attention_reference(q, k, v, num_heads, causal)
-    if q.device.type != "cuda":
-        raise ValueError(f"short_attention runs on cuda or cpu, not {q.device}")
-    if not supported(q, k, v, num_heads):
-        raise ValueError(
-            f"the CUDA short_attention kernel does not take q{tuple(q.shape)} "
-            f"{q.dtype} heads={num_heads} (see supported())"
-        )
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("short_attention needs contiguous q, k and v")
-    fn = _forward or _load_forward()
-    b, s, d = q.shape
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b, s, d, num_heads, int(causal), _DTYPE_CODES[q.dtype], stream)
-    if err:
-        raise RuntimeError(f"short_attention kernel launch failed: CUDA error {err}")
-    short_attention.launches += 1
-    return out
+    if supported_whole_row(q, k, v, num_heads):
+        return _whole_row(q, k, v, num_heads, causal)
+    if supported_qtiled(q, k, v, num_heads):
+        return short_attention_qtiled(q, k, v, num_heads, causal=causal)
+    _refuse("short_attention", q.shape, q.dtype, num_heads, "supported")
 
 
 short_attention.launches = 0
+
+
+def short_attention_qtiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           num_heads: int, *, causal: bool = False) -> torch.Tensor:
+    """Kernel 2: q/k/v ``[B, S, D]`` merged-head -> ``[B, S, D]`` through
+    q tiles with K/V streamed through shared memory.
+
+    CPU tensors take :func:`short_attention_reference` (the same math);
+    CUDA tensors launch kernel 2 (counted in ``short_attention_qtiled.launches``)
+    or raise where :func:`supported_qtiled` does not hold."""
+    _check(q, k, v, num_heads)
+    if q.device.type == "cpu":
+        return short_attention_reference(q, k, v, num_heads, causal)
+    if not supported_qtiled(q, k, v, num_heads):
+        _refuse("short_attention_qtiled", q.shape, q.dtype, num_heads,
+                "supported_qtiled")
+    _need_contiguous("short_attention_qtiled", q, k, v)
+    out = torch.empty_like(q)
+    b, s, d = q.shape
+    cuda_build.launch("short_attention_qtiled", "short_attention_qtiled_forward",
+                      (q, k, v, out), (b, s, d, num_heads, int(causal),
+                                       _DTYPE_CODES[q.dtype]), q.device)
+    short_attention_qtiled.launches += 1
+    return out
+
+
+short_attention_qtiled.launches = 0
+
+
+def short_attention_packed(qkv: torch.Tensor, num_heads: int, *,
+                           causal: bool = False) -> torch.Tensor:
+    """Kernel 3: packed qkv ``[B, S, 3D]`` (q | k | v along the last axis,
+    the fused in-projection's output) -> ``[B, S, D]``.
+
+    CPU tensors take :func:`short_attention_packed_reference`; CUDA tensors
+    launch kernel 3 (counted in ``short_attention_packed.launches``) or raise
+    where :func:`supported_packed` does not hold."""
+    if qkv.ndim != 3 or qkv.shape[2] % 3 or (qkv.shape[2] // 3) % num_heads:
+        raise ValueError(
+            f"short_attention_packed takes [B, S, 3D] with D divisible by "
+            f"{num_heads} heads, got {tuple(qkv.shape)}"
+        )
+    if qkv.device.type == "cpu":
+        return short_attention_packed_reference(qkv, num_heads, causal)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"short_attention_packed runs on cuda or cpu, not {qkv.device}")
+    if not supported_packed(qkv, num_heads):
+        _refuse("short_attention_packed", qkv.shape, qkv.dtype, num_heads,
+                "supported_packed")
+    _need_contiguous("short_attention_packed", qkv)
+    b, s, d3 = qkv.shape
+    out = qkv.new_empty(b, s, d3 // 3)
+    cuda_build.launch("short_attention", "short_attention_packed_forward", (qkv, out),
+                      (b, s, d3 // 3, num_heads, int(causal), _DTYPE_CODES[qkv.dtype]),
+                      qkv.device)
+    short_attention_packed.launches += 1
+    return out
+
+
+short_attention_packed.launches = 0

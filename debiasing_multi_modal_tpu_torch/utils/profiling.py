@@ -3,15 +3,19 @@
 :func:`trace` records a ``torch.profiler`` trace of a region into
 ``log_dir`` (TensorBoard / Chrome trace format).
 
-Run as a module, it breaks the RN50 Stage-A slice down on one card (bf16,
-seeded random weights, the shapes ``chip_smoke.py`` drives):
+Run as a module, it breaks a Stage-A slice down on one card (bf16, seeded
+random weights, the shapes ``chip_smoke.py`` drives):
 
-    python -m debiasing_multi_modal_tpu_torch.utils.profiling [--batch 256] [--out DIR]
+    python -m debiasing_multi_modal_tpu_torch.utils.profiling \
+        [--backbone RN50|ViT-B/32|...] [--quant none|int8|int8_pallas] \
+        [--fuse_qkv] [--batch 256] [--out DIR]
 
 - ``stages``: device time of each stage of one ``ExtractionRunner`` image
-  step (preprocess, stem, layer1-4, attention pool, zero-shot head) and of
-  one text encode (attention blocks, MLP blocks, the rest), from CUDA events
-  recorded by forward hooks; the median over repeated runs, in ms;
+  step (ResNet: preprocess, stem, layer1-4, attention pool, zero-shot head;
+  ViT: preprocess, patch embedding, attention blocks, MLP blocks, the rest of
+  the transformer, the class-token head, zero-shot head) and of one text
+  encode (attention blocks, MLP blocks, the rest), from CUDA events recorded
+  by forward hooks; the median over repeated runs, in ms;
 - ``kernels``: device time summed by kernel name under ``torch.profiler``
   over a few image steps and text encodes, with the share of the profiled
   wall time in which no kernel ran (``idle_share``).
@@ -109,6 +113,41 @@ def image_stages(runner, uploaded, reps=10):
             h.remove()
 
 
+def vit_image_stages(runner, uploaded, reps=10):
+    v = runner.model.visual
+    blocks = v.transformer.resblocks
+    mods = {"visual": v, "transformer": v.transformer}
+    for i, blk in enumerate(blocks):
+        mods[f"attn{i}"], mods[f"mlp{i}"] = blk.attn, blk.mlp
+    events, handles = _hook_events(mods)
+
+    def run():
+        events["start"] = _event()
+        runner.encode_batch_async(uploaded)
+        events["end"] = _event()
+        return events
+
+    n = len(blocks)
+    spans = [("preprocess", "start", "visual:in"),
+             ("patch_embed", "visual:in", "transformer:in"),
+             ("transformer", "transformer:in", "transformer:out"),
+             ("class_token_head", "transformer:out", "visual:out"),
+             ("zero_shot_head", "visual:out", "end"), ("total", "start", "end")]
+    spans += [(f"attn{i}", f"attn{i}:in", f"attn{i}:out") for i in range(n)]
+    spans += [(f"mlp{i}", f"mlp{i}:in", f"mlp{i}:out") for i in range(n)]
+    try:
+        run()  # warm-up
+        t = _median_spans(run, spans, reps)
+    finally:
+        for h in handles:
+            h.remove()
+    attn = sum(t.pop(f"attn{i}") for i in range(n))
+    mlp = sum(t.pop(f"mlp{i}") for i in range(n))
+    t["attention_blocks"], t["mlp_blocks"] = attn, mlp
+    t["transformer_rest"] = t["transformer"] - attn - mlp
+    return t
+
+
 def text_stages(model, tokens, reps=10):
     import torch
 
@@ -185,6 +224,9 @@ def kernel_breakdown(fn, reps=3, top=20, log_dir=None):
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--backbone", default="RN50")
+    p.add_argument("--quant", default="none", choices=["none", "int8", "int8_pallas"])
+    p.add_argument("--fuse_qkv", action="store_true")
     p.add_argument("--batch", type=int, default=256)
     p.add_argument("--image_hw", type=int, default=256)
     p.add_argument("--out", default=None, help="write the profiler traces here")
@@ -206,22 +248,27 @@ def main(argv=None):
     ).stdout.strip().splitlines()[0]
 
     rng = np.random.default_rng(0)
-    model = create_clip("RN50", dtype=torch.bfloat16, device="cuda",
-                        generator=torch.Generator().manual_seed(0))
+    model = create_clip(args.backbone, dtype=torch.bfloat16, device="cuda",
+                        generator=torch.Generator().manual_seed(0),
+                        quant=args.quant, fuse_qkv=args.fuse_qkv)
     n, hw = args.batch, args.image_hw
     tokens = np.zeros((n, 77), np.int64)
     tokens[:, 0], tokens[:, 1:20], tokens[:, 20] = 49406, rng.integers(1, 49406, (n, 19)), 49407
     tokens = torch.from_numpy(tokens).cuda()
-    runner = ExtractionRunner(model, rng.standard_normal((2, 1024)).astype(np.float32))
+    runner = ExtractionRunner(
+        model, rng.standard_normal((2, model.config.embed_dim)).astype(np.float32))
     uploaded = runner.upload_batch(rng.integers(0, 256, (n, hw, hw, 3), dtype=np.uint8))
 
     def text_encode():
         with torch.inference_mode():
             model.encode_text(tokens)
 
-    head = {"card": card, "batch": n, "image_hw": [hw, hw], "dtype": "bfloat16"}
+    head = {"card": card, "backbone": args.backbone, "quant": args.quant,
+            "fuse_qkv": args.fuse_qkv, "batch": n, "image_hw": [hw, hw],
+            "dtype": "bfloat16"}
+    stages = vit_image_stages if model.config.is_vit else image_stages
     print(json.dumps({"profile": "image_stages_ms", **head,
-                      **image_stages(runner, uploaded)}), flush=True)
+                      **stages(runner, uploaded)}), flush=True)
     print(json.dumps({"profile": "text_stages_ms", **head,
                       **text_stages(model, tokens)}), flush=True)
     out = args.out

@@ -11,6 +11,9 @@ and carries the JAX package's weights across
 
 - Dense ``kernel [in, out]``       -> Linear ``weight [out, in]`` (T)
 - Conv ``kernel [kh, kw, I, O]``   -> Conv2d ``weight [O, I, kh, kw]``
+- ViT ``patch_kernel [P*P*3, W]``  -> ``visual.conv1.weight [W, 3, P, P]``
+  (the kernel is the ``(P, P, 3, W)`` conv kernel flattened in (row, col,
+  channel) order, the inverse of JAX's ``transpose(2, 3, 1, 0).reshape``)
 - separate q/k/v Dense kernels     -> packed ``in_proj_weight [3D, D]``
 - ``batch_stats`` mean/var         -> ``running_mean`` / ``running_var``
 
@@ -98,14 +101,18 @@ def config_from_state_dict(sd: Mapping[str, np.ndarray], name: str = "converted"
 
 
 def clip_from_state_dict(sd: Mapping[str, np.ndarray], name: str = "converted",
-                         dtype=None, attn_impl: str = "auto", device=None):
+                         dtype=None, attn_impl: str = "auto", device=None,
+                         quant: str = "none", fuse_qkv: bool = False):
     """A CLIP model with the architecture sniffed from ``sd`` and its weights
-    loaded (strictly, after dropping the archive's non-parameter entries)."""
+    loaded (strictly, after dropping the archive's non-parameter entries).
+    ``quant`` and ``fuse_qkv`` change no parameter, so every checkpoint
+    loads into every variant."""
     from debiasing_multi_modal_tpu_torch.models.clip import create_clip
 
     dev = resolve_device(device)
     cfg = config_from_state_dict(sd, name=name)
-    model = create_clip(cfg, dtype=dtype, attn_impl=attn_impl, device="cpu")
+    model = create_clip(cfg, dtype=dtype, attn_impl=attn_impl, device="cpu",
+                        quant=quant, fuse_qkv=fuse_qkv)
     model.load_state_dict(
         {k: torch.as_tensor(np.asarray(v)) for k, v in sd.items()
          if k not in _NON_PARAM_KEYS},
@@ -170,16 +177,21 @@ def transformer_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, np.n
     return {k[2:]: v for k, v in out.items()}
 
 
-def state_dict_from_jax_variables(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
-    """The JAX package's ``{'params', 'batch_stats'}`` CLIP tree (arrays of
-    any array type) -> an OpenAI-layout state dict of numpy arrays."""
-    params = variables["params"]
-    stats = variables.get("batch_stats", {})
-    out: Dict[str, np.ndarray] = {}
-    visual = params["visual"]
-    if "attnpool" not in visual:
-        raise NotImplementedError("the ViT towers are not yet ported")
-    vstats = stats["visual"]
+def _vit(out, visual):
+    pk = _f32(visual["patch_kernel"])  # [P*P*3, W]
+    width = pk.shape[1]
+    p = round((pk.shape[0] // 3) ** 0.5)
+    out["visual.conv1.weight"] = np.ascontiguousarray(
+        pk.reshape(p, p, 3, width).transpose(3, 2, 0, 1))
+    out["visual.class_embedding"] = _f32(visual["class_embedding"])
+    out["visual.positional_embedding"] = _f32(visual["positional_embedding"])
+    _ln(out, "visual.ln_pre", visual["ln_pre"])
+    _ln(out, "visual.ln_post", visual["ln_post"])
+    out["visual.proj"] = _f32(visual["proj"])
+    _transformer(out, "visual.transformer", visual["transformer"])
+
+
+def _resnet(out, visual, vstats):
     for i in (1, 2, 3):
         _conv(out, f"visual.conv{i}", visual[f"conv{i}"])
         _bn(out, f"visual.bn{i}", visual[f"bn{i}"], vstats[f"bn{i}"])
@@ -200,6 +212,19 @@ def state_dict_from_jax_variables(variables: Mapping[str, Any]) -> Dict[str, np.
     out["visual.attnpool.positional_embedding"] = _f32(pool["positional_embedding"])
     for proj in ("q_proj", "k_proj", "v_proj", "c_proj"):
         _dense(out, f"visual.attnpool.{proj}", pool[proj])
+
+
+def state_dict_from_jax_variables(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """The JAX package's ``{'params', 'batch_stats'}`` CLIP tree (arrays of
+    any array type) -> an OpenAI-layout state dict of numpy arrays."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    out: Dict[str, np.ndarray] = {}
+    visual = params["visual"]
+    if "attnpool" in visual:
+        _resnet(out, visual, stats["visual"])
+    else:
+        _vit(out, visual)
 
     text = params["text"]
     out["token_embedding.weight"] = _f32(text["token_embedding"]["embedding"])

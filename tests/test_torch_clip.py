@@ -157,7 +157,13 @@ def test_create_clip_without_cuda_needs_cpu():
 
 
 def test_vit_and_options_not_yet_ported():
-    with pytest.raises(NotImplementedError):
-        create_clip("ViT-B/32", device="cpu")
+    """ViT-B/32 builds now, at its full shapes; ``fuse_bn`` still raises."""
+    from debiasing_multi_modal_tpu_torch.models import VisionTransformer
+
+    model = create_clip("ViT-B/32", device="cpu")
+    assert isinstance(model.visual, VisionTransformer)
+    assert model.visual.conv1.weight.shape == (768, 3, 32, 32)
+    assert model.visual.positional_embedding.shape == (50, 768)
+    assert len(model.visual.transformer.resblocks) == 12
     with pytest.raises(NotImplementedError):
         create_clip(CLIPConfig(**SMALL_RN), device="cpu", fuse_bn=True)

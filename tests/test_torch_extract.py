@@ -1,14 +1,17 @@
 """Stage A as a whole: the port's extraction (debiasing_multi_modal_tpu_torch/
 extract, cli) against the JAX package's on one set of weights, f32 on the
-CPU — embeddings to 1e-4 of their scale, predictions equal — plus prompt
-encoding with both tokenizers on one synthetic merges file, cache interchange
-with the JAX package, and crash-safe shard resume.
+CPU — embeddings to 1e-4 of their scale, predictions equal — with a small
+ResNet and a small ViT (plain and ``fuse_qkv``), plus prompt encoding with
+both tokenizers on one synthetic merges file, cache interchange with the JAX
+package, crash-safe shard resume, and the CLI end to end at the full width
+of RN50 and ViT-B/32 (plain and ``--quantize int8_pallas``).
 
 The real CLIP merges file is not in the repository, so the tokenizers read a
 synthetic one: a header line and 48,894 distinct merge rules over pairs of
 byte symbols, which gives the full 49,408-id vocabulary.
 """
 
+import dataclasses
 import gzip
 import os
 
@@ -22,6 +25,7 @@ from debiasing_multi_modal_tpu.extract import runner as jrunner
 from debiasing_multi_modal_tpu.models import create_clip as jax_create_clip
 from debiasing_multi_modal_tpu.models import init_clip
 from debiasing_multi_modal_tpu.models.config import CLIPConfig as JaxConfig
+from debiasing_multi_modal_tpu.models.config import get_config as jax_get_config
 from debiasing_multi_modal_tpu.parallel.mesh import make_mesh
 from debiasing_multi_modal_tpu.tokenizer import bpe as jbpe
 from debiasing_multi_modal_tpu_torch.data import embeddings_store as tstore
@@ -34,6 +38,11 @@ from debiasing_multi_modal_tpu_torch.weights.convert import state_dict_from_jax_
 SMALL_RN = dict(
     name="small-rn", embed_dim=64, image_resolution=64, vision_layers=(1, 1, 1, 1),
     vision_width=16, vision_patch_size=None, transformer_width=128,
+    transformer_heads=2, transformer_layers=2,
+)
+SMALL_VIT = dict(
+    name="small-vit", embed_dim=64, image_resolution=64, vision_layers=2,
+    vision_width=128, vision_patch_size=16, transformer_width=128,
     transformer_heads=2, transformer_layers=2,
 )
 N_MERGES = 49152 - 256 - 2
@@ -51,6 +60,19 @@ def pair():
     tm.load_state_dict({k: torch.from_numpy(v) for k, v in
                         state_dict_from_jax_variables(variables).items()}, strict=True)
     return jm, variables, tm
+
+
+@pytest.fixture(scope="module")
+def vit_pair():
+    jcfg = dataclasses.replace(jax_get_config("ViT-B/32"), **SMALL_VIT)
+    variables = jax.device_get(init_clip(jax_create_clip(jcfg), jax.random.PRNGKey(1)))
+    sd = {k: torch.from_numpy(v) for k, v in state_dict_from_jax_variables(variables).items()}
+    models = {}
+    for fuse_qkv in (False, True):
+        tm = create_clip(CLIPConfig(**SMALL_VIT), device="cpu", fuse_qkv=fuse_qkv)
+        tm.load_state_dict(sd, strict=True)
+        models[fuse_qkv] = (jax_create_clip(jcfg, fuse_qkv=fuse_qkv), tm)
+    return variables, models
 
 
 def _write_merges(path):
@@ -130,6 +152,20 @@ def test_run_matches_jax(pair, normalized):
         np.testing.assert_array_equal(getattr(ours, col), getattr(ref, col))
 
 
+@pytest.mark.parametrize("fuse_qkv", [False, True])
+def test_vit_run_matches_jax(vit_pair, fuse_qkv):
+    variables, models = vit_pair
+    jm, tm = models[fuse_qkv]
+    text = np.random.default_rng(6).standard_normal((2, 64)).astype(np.float32)
+    batches = _batches(3, 4, seed=2)
+    ref = jrunner.ExtractionRunner(jm, variables, text, mesh=make_mesh((1,))).run(iter(batches))
+    ours = trunner.ExtractionRunner(tm, text).run(iter(batches))
+    assert ours.embeddings.shape == (12, 64)
+    _close(ours.embeddings, ref.embeddings)
+    np.testing.assert_array_equal(ours.y_pred, ref.y_pred)
+    np.testing.assert_array_equal(ours.filenames, ref.filenames)
+
+
 def test_encode_batch_and_preprocessed_path(pair):
     _, _, tm = pair
     text = np.random.default_rng(2).standard_normal((3, 64)).astype(np.float32)
@@ -192,12 +228,9 @@ def test_shard_resume_produces_same_table(tmp_path, pair):
                    shard_meta=meta)
 
 
-def test_cli_extracts_waterbirds_on_cpu(tmp_path, synthetic_bpe):
-    """The port's CLI end to end on the CPU (full-width RN50, random
-    weights): the caches it writes load in the JAX package."""
+def _waterbirds_tree(tmp_path):
+    """Six 96x72 JPEGs and their metadata in the Waterbirds layout."""
     from PIL import Image
-
-    from debiasing_multi_modal_tpu_torch.cli import extract_main
 
     root = tmp_path / "data" / "waterbirds" / "waterbird_complete95_forest2water2"
     (root / "imgs").mkdir(parents=True)
@@ -208,19 +241,53 @@ def test_cli_extracts_waterbirds_on_cpu(tmp_path, synthetic_bpe):
         Image.fromarray(rng.integers(0, 256, (96, 72, 3), dtype=np.uint8)).save(root / fn)
         rows.append(f"{k},{fn},{k % 2},{k // 2},{(k // 2) % 2}")
     (root / "metadata.csv").write_text("\n".join(rows) + "\n")
-    args = extract_main.build_parser().parse_args([
-        "--data_dir", str(tmp_path / "data"), "--dataset", "waterbirds",
+    return tmp_path / "data"
+
+
+def _run_cli(data, *flags):
+    from debiasing_multi_modal_tpu_torch.cli import extract_main
+
+    extract_main.main(extract_main.build_parser().parse_args([
+        "--data_dir", str(data), "--dataset", "waterbirds",
         "--embedding_dir", "emb", "--save", "--batch_size", "4",
-        "--device", "cpu", "--num_workers", "0",
-    ])
-    extract_main.main(args)
-    out = tmp_path / "data" / "emb" / "waterbirds"
-    table = jstore.load_embeddings(str(out / "RN50" / "clip.npz"))
-    assert table.embeddings.shape == (6, 1024) and np.isfinite(table.embeddings).all()
-    js = jstore.load_embeddings(str(out / "RN50" / "clip.json"), dataset="waterbirds")
+        "--device", "cpu", "--num_workers", "0", *flags,
+    ]))
+    return data / "emb" / "waterbirds"
+
+
+def _check_caches(out, backbone_dir, dim):
+    table = jstore.load_embeddings(str(out / backbone_dir / "clip.npz"))
+    assert table.embeddings.shape == (6, dim) and np.isfinite(table.embeddings).all()
+    js = jstore.load_embeddings(str(out / backbone_dir / "clip.json"), dataset="waterbirds")
     np.testing.assert_allclose(js.embeddings, table.embeddings, atol=1e-6)
-    assert jstore.load_text_embeddings(str(out / "clip_group.json")).shape == (1024, 4)
-    for flag in (["--fuse_bn"], ["--quantize", "int8"], ["--tensor_parallel", "2"]):
+    np.testing.assert_array_equal(js.y_pred, table.y_pred)
+    assert jstore.load_text_embeddings(str(out / "clip_group.json")).shape == (dim, 4)
+    return table
+
+
+def test_cli_extracts_waterbirds_on_cpu(tmp_path, synthetic_bpe):
+    """The port's CLI end to end on the CPU (full-width RN50, random
+    weights): the caches it writes load in the JAX package.  ``--quantize``
+    on a ResNet raises ``ValueError``, as the JAX CLI refuses it;
+    ``--fuse_bn`` and ``--tensor_parallel 2`` are not ported yet."""
+    from debiasing_multi_modal_tpu_torch.cli import extract_main
+
+    out = _run_cli(_waterbirds_tree(tmp_path))
+    _check_caches(out, "RN50", 1024)
+    with pytest.raises(ValueError, match="ViT-only"):
+        extract_main.main(extract_main.build_parser().parse_args(
+            ["--device", "cpu", "--quantize", "int8"]))
+    for flag in (["--fuse_bn"], ["--tensor_parallel", "2"]):
         with pytest.raises(NotImplementedError):
             extract_main.main(extract_main.build_parser().parse_args(["--device", "cpu", *flag]))
     assert os.path.isdir(out)
+
+
+@pytest.mark.parametrize("quantize", ["none", "int8_pallas"])
+def test_cli_extracts_waterbirds_vit_on_cpu(tmp_path, synthetic_bpe, quantize):
+    """The CLI at the full width of ViT-B/32 (random weights), plain and
+    with the int8 GEMM path: the caches load in the JAX package."""
+    out = _run_cli(_waterbirds_tree(tmp_path), "--backbone", "ViT-B/32",
+                   "--quantize", quantize)
+    table = _check_caches(out, "ViT-B-32", 512)
+    assert set(table.y_pred) <= {0, 1}

@@ -1,8 +1,9 @@
 """The port stands alone: in a fresh interpreter (this test process has jax
 imported by tests/conftest.py), importing debiasing_multi_modal_tpu_torch and
-running a tiny CPU extraction imports neither ``jax`` nor anything of
-``debiasing_multi_modal_tpu``; importing the package alone imports no Triton
-and loads no kernel library."""
+running tiny CPU extractions — a ResNet, and a ViT plain, with ``fuse_qkv``
+(the packed attention path) and with both int8 modes — imports neither
+``jax`` nor anything of ``debiasing_multi_modal_tpu``; importing the package
+alone imports no Triton and loads no kernel library."""
 
 import json
 import os
@@ -38,6 +39,21 @@ batches = [(rng.integers(0, 256, (2, 72, 96, 3), dtype=np.uint8),
              "split": np.zeros(2, np.int32)})]
 table = ExtractionRunner(model, text).run(iter(batches))
 assert table.embeddings.shape == (2, 32)
+
+from debiasing_multi_modal_tpu_torch.ops.quant_gemm import int8_matmul
+from debiasing_multi_modal_tpu_torch.ops.short_attention import short_attention_packed
+vit = CLIPConfig(name="tiny-vit", embed_dim=32, image_resolution=32,
+                 vision_layers=1, vision_width=128, vision_patch_size=16,
+                 transformer_width=128, transformer_heads=2, transformer_layers=1)
+for options in ({}, {"fuse_qkv": True}, {"quant": "int8"}, {"quant": "int8_pallas"}):
+    model = create_clip(vit, device="cpu", **options)
+    table = ExtractionRunner(model, text).run(iter(batches))
+    assert table.embeddings.shape == (2, 32)
+    with torch.no_grad():
+        model.encode_text(tokens)
+assert short_attention_packed(torch.zeros(1, 8, 384), 2).shape == (1, 8, 128)
+assert int8_matmul(torch.zeros(4, 64, dtype=torch.int8), torch.zeros(64, 128, dtype=torch.int8),
+                   torch.ones(4, 1), torch.ones(128)).shape == (4, 128)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "flax"))
              or m == "debiasing_multi_modal_tpu"

@@ -102,6 +102,9 @@ def test_two_layer_causal_transformer_matches_flax():
 
 
 def test_not_yet_ported_options_raise():
+    """``fuse_qkv`` builds now (on every transformer, a ResNet's text tower
+    included); ``quant`` on a ResNet raises ``ValueError``, as in the JAX
+    package."""
     import pytest
 
     from debiasing_multi_modal_tpu_torch.models import CLIPConfig, create_clip
@@ -110,7 +113,55 @@ def test_not_yet_ported_options_raise():
                      vision_layers=(1, 1, 1, 1), vision_width=8,
                      vision_patch_size=None, transformer_width=128,
                      transformer_heads=2, transformer_layers=1)
-    with pytest.raises(NotImplementedError, match="fuse_qkv"):
-        create_clip(cfg, device="cpu", fuse_qkv=True)
-    with pytest.raises(NotImplementedError, match="quant"):
+    model = create_clip(cfg, device="cpu", fuse_qkv=True)
+    assert model.transformer.resblocks[0].attn.fuse_qkv
+    with pytest.raises(ValueError, match="quant"):
         create_clip(cfg, device="cpu", quant="int8")
+
+
+def _block_pair(seed, **kw):
+    block = jl.ResidualAttentionBlock(num_heads=2, **kw)
+    x = _x((3, 50, 128), seed=seed)
+    params = block.init(jax.random.PRNGKey(seed), jnp.asarray(x))["params"]
+    sd = transformer_state_dict_from_jax({"resblocks_0": params})
+    ours = tl.ResidualAttentionBlock(128, 2, causal=kw.get("causal", False),
+                                     quant=kw.get("quant", "none"),
+                                     fuse_qkv=kw.get("fuse_qkv", False))
+    ours.load_state_dict({k[len("resblocks.0."):]: torch.from_numpy(v)
+                          for k, v in sd.items()}, strict=True)
+    ref = np.asarray(block.apply({"params": params}, jnp.asarray(x)))
+    with torch.no_grad():
+        out = ours(torch.from_numpy(x)).numpy()
+    return out, ref
+
+
+def test_fused_qkv_block_matches_flax():
+    """``fuse_qkv``: one [D, 3D] GEMM into the packed attention, in both
+    packages; the parameters stay the unfused ones."""
+    out, ref = _block_pair(6, causal=True, fuse_qkv=True)
+    np.testing.assert_allclose(out, ref, **TOL)
+
+
+def test_quantized_mlp_matches_flax():
+    """The W8A8 MLP on one input: c_fc's int8 operands are bit-equal to
+    JAX's, so its output agrees to f32 ulps; c_proj quantizes QuickGELU's
+    output, where a last-bit difference can move one int8 element by one
+    step (1/127 of its row's maximum): within 2/127 of the output's scale,
+    and at least 99 % of the elements within 1e-5 of it."""
+    x = _x((4, 50, 128), seed=7)
+    for quant in ("int8", "int8_pallas"):
+        mlp = jl.MLPBlock(quant=quant)
+        params = mlp.init(jax.random.PRNGKey(2), jnp.asarray(x))["params"]
+        ref = np.asarray(mlp.apply({"params": params}, jnp.asarray(x)))
+        ours = tl.MLPBlock(128, quant=quant)
+        ours.load_state_dict({
+            f"{n}.{k}": torch.from_numpy(np.array(v).T if k == "weight" else np.array(v))
+            for n in ("c_fc", "c_proj")
+            for k, v in (("weight", params[n]["kernel"]), ("bias", params[n]["bias"]))
+        }, strict=True)
+        assert isinstance(ours.c_fc, tl.Int8Dense)
+        with torch.no_grad():
+            out = ours(torch.from_numpy(x)).numpy()
+        scale = np.abs(ref).max()
+        np.testing.assert_allclose(out, ref, rtol=0, atol=2 / 127 * scale)
+        assert (np.abs(out - ref) <= 1e-5 * scale).mean() >= 0.99
