@@ -15,7 +15,10 @@ line.
              at the main paths' shapes, and time kernel, plain version and the
              PyTorch library call that computes the same function (yardstick
              only; the port never calls it): kernel 1 (whole-row attention),
-             kernel 2 (q-tiled), kernel 3 (packed), kernel 7 (int8 GEMM).
+             kernel 2 (q-tiled), kernel 3 (packed), kernel 7 (int8 GEMM), and
+             kernels 4, 5, 6 (flash forward, dQ, dK/dV) at the training
+             step's two shapes, a long S=4096 shape, a ragged cross shape and
+             hd=32 and hd=128 (SDPA, forward and backward, as yardsticks).
 4. slice   — RN50 at full width in bf16 with seeded random weights: launch
              counts set to 0, then the text tower encodes 256 synthetic
              prompts and ExtractionRunner.encode_batch extracts a uint8
@@ -33,7 +36,16 @@ line.
 6. qtiled  — ViT-L/14@336px at its zoo default f32 encodes four 336x336
              images through kernel 2, held to the same weights under the
              plain attention formulation.
-7. summary — the wall seconds, one {"kernels": [...]} line, the card line, and
+7. train   — ViT-B/32 at full width and depth, bf16 compute, f32 parameters,
+             attn_impl="pallas": 3 SGD steps of the symmetric contrastive loss
+             on 128 uint8 images (preprocessed on the card) and 128 prompts,
+             with every launch count at 0 before the first step and read
+             after it (kernels 4, 5, 6: 24 each), then the same step with
+             remat=True (48/24/24), under "xla" and under "auto" (kernel 1
+             forward, the plain VJP backward); the gradients are checked
+             against "xla", remat against plain, and an f32 step on 4 pairs
+             against the CPU; the step's time and pairs per second.
+8. summary — the wall seconds, one {"kernels": [...]} line, the card line, and
              {"ok": true, "device": {...}} as the last line.
 """
 
@@ -226,20 +238,24 @@ def _int8_case(label, m, k, n, with_bias, out_dtype, gen, timed):
 def phase_kernels():
     import torch
 
+    from debiasing_multi_modal_tpu_torch.ops import flash_attention as fa
     from debiasing_multi_modal_tpu_torch.ops import short_attention as sa
     from debiasing_multi_modal_tpu_torch.ops.attention import multi_head_attention
 
-    # on the card, impl="auto" is a kernel: a shape none takes raises
+    # on the card, impl="auto" is a kernel: a shape none takes raises, and
+    # one past kernels 1 and 2 splits its heads and takes kernel 4
     half = torch.zeros(2, 77, 512, device="cuda", dtype=torch.float16)
+    try:
+        multi_head_attention(half, half, half, 8, causal=True, impl="auto")
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("impl='auto' ran an fp16 shape, which no kernel takes")
     too_long = torch.zeros(1, 2048, 512, device="cuda", dtype=torch.bfloat16)
-    for x in (half, too_long):
-        try:
-            multi_head_attention(x, x, x, 8, causal=True, impl="auto")
-        except ValueError:
-            pass
-        else:
-            raise AssertionError(f"impl='auto' ran {tuple(x.shape)} {x.dtype}, "
-                                 "which no kernel takes")
+    before = fa.flash_attention.launches
+    multi_head_attention(too_long, too_long, too_long, 8, causal=True, impl="auto")
+    if fa.flash_attention.launches != before + 1:
+        raise AssertionError("impl='auto' at bf16 S=2048 did not launch kernel 4 once")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -282,6 +298,147 @@ def phase_kernels():
                  ("vitb32_c_proj_bf16", 12800, 3072, 768, True, bf16, False),
                  ("ragged_m_unaligned_k_f32", 1000, 588, 256, False, f32, False)]:
         results["int8_matmul"].append(_int8_case(*case[:6], gen, case[6]))
+    results.update(_flash_cases(gen))
+    return results
+
+
+def _flash_bounds(b, sq, skv, h, hd, causal, dtype, itemsize):
+    """bound_ms and what bounds it, per kernel: the (query, key) pairs this
+    run's mask keeps; 4, 6 and 8 flops per pair and head dim (two, three and
+    four products); each tensor read or written once (lse and delta f32)."""
+    pairs = sum(min(i + 1, skv) for i in range(sq)) if causal else sq * skv
+    pairs *= b * h
+    q_el, kv_el, stats = b * sq * h * hd, b * skv * h * hd, 4 * b * h * sq
+    work = {"flash_attention": (4, 2 * q_el + 2 * kv_el, 1),        # q, k, v, out; lse
+            "flash_attention_dq": (6, 3 * q_el + 2 * kv_el, 2),     # q, dO, dq, k, v; lse, delta
+            "flash_attention_dkv": (8, 2 * q_el + 4 * kv_el, 2)}    # q, dO, k, v, dk, dv
+    out = {}
+    for name, (flops_per, elements, n_stats) in work.items():
+        bytes_ms = (elements * itemsize + n_stats * stats) / HBM_BYTES_PER_S * 1e3
+        flops_ms = flops_per * pairs * hd / PEAK_FLOPS[str(dtype)] * 1e3
+        out[name] = (max(bytes_ms, flops_ms), "bytes" if bytes_ms >= flops_ms else "operations")
+    return out
+
+
+def _close(out, ref, dtype):
+    """max |kernel - plain|, the plain version's scale, cosine, and whether
+    they agree: bf16 within 1e-2 of scale and cosine >= 0.9999 (bf16
+    roundings of p and ds land on either side where f32 sums differ in
+    order); f32 within 1e-4 of scale (sums over up to 4096 terms in another
+    order)."""
+    import torch
+    import torch.nn.functional as F
+
+    err = (out.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    cos = F.cosine_similarity(out.float().flatten(), ref.float().flatten(), dim=0).item()
+    ok = (err <= 1e-2 * scale and cos >= 0.9999) if dtype == torch.bfloat16 else (
+        err <= 1e-4 * scale)
+    return {"max_abs_err": err, "scale": scale, "cosine": cos}, ok
+
+
+def _flash_case(label, b, sq, skv, h, hd, causal, dtype, gen, timed):
+    """Kernels 4, 5 and 6 against their plain versions on one shape; the
+    backward kernels get the plain forward's out and lse, so each kernel is
+    held alone.  Timed cases add kernel, plain and SDPA times (SDPA's
+    backward alone, by autograd.grad over a retained graph, for 5 and 6)."""
+    import torch
+    import torch.nn.functional as F
+
+    from debiasing_multi_modal_tpu_torch.ops import flash_attention as fa
+
+    q = torch.randn(b, sq, h, hd, device="cuda", generator=gen).to(dtype)
+    k, v = (torch.randn(b, skv, h, hd, device="cuda", generator=gen).to(dtype)
+            for _ in range(2))
+    dout = torch.randn(b, sq, h, hd, device="cuda", generator=gen).to(dtype)
+    out, lse = fa.flash_attention_forward(q, k, v, causal)
+    torch.cuda.synchronize()
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, causal)
+    delta = fa.flash_attention_delta(ref, dout)
+    dq = fa.flash_attention_dq(q, k, v, dout, ref_lse, delta, causal)
+    dk, dv = fa.flash_attention_dkv(q, k, v, dout, ref_lse, delta, causal)
+    torch.cuda.synchronize()
+    rdq, rdk, rdv = fa.flash_attention_backward_reference(q, k, v, ref, ref_lse, dout, causal)
+    head = {"case": label, "shape": [b, sq, skv, h, hd], "causal": causal,
+            "dtype": str(dtype)}
+    rows, bad = {}, []
+    for name, pairs in (("flash_attention", [("out", out, ref)]),
+                        ("flash_attention_dq", [("dq", dq, rdq)]),
+                        ("flash_attention_dkv", [("dk", dk, rdk), ("dv", dv, rdv)])):
+        row = dict(head)
+        for what, got, want in pairs:
+            stats, ok = _close(got, want, dtype)
+            row.update({f"{what}_{key}": val for key, val in stats.items()})
+            if not ok:
+                bad.append(f"{name} {what}")
+        row["max_abs_err"] = max(row[f"{what}_max_abs_err"] for what, _, _ in pairs)
+        rows[name] = row
+    lse_err = (lse - ref_lse).abs().max().item()
+    rows["flash_attention"]["lse_max_abs_err"] = lse_err
+    if not lse_err <= 1e-4:  # f32 sums over <= 4096 keys in another order
+        bad.append("flash_attention lse")
+    del ref, rdq, rdk, rdv
+    if timed:
+        fast = dict(runs=5, calls=3, warmup=1) if sq * skv > 1e6 else {}
+        heads = [x.transpose(1, 2) for x in (q, k, v)]
+        leaves = [x.detach().requires_grad_() for x in heads]
+        sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+        sdpa_grad = dout.transpose(1, 2)
+        plain_bwd_ms = time_ms(lambda: fa.flash_attention_backward_reference(
+            q, k, v, out, lse, dout, causal), **fast)
+        library_bwd_ms = time_ms(lambda: torch.autograd.grad(
+            sdpa_out, leaves, sdpa_grad, retain_graph=True), **fast)
+        timings = {
+            "flash_attention": (
+                time_ms(lambda: fa.flash_attention_forward(q, k, v, causal), **fast),
+                time_ms(lambda: fa.flash_attention_reference(q, k, v, causal), **fast),
+                time_ms(lambda: F.scaled_dot_product_attention(*heads, is_causal=causal),
+                        **fast),
+                "torch.nn.functional.scaled_dot_product_attention"),
+            "flash_attention_dq": (
+                time_ms(lambda: fa.flash_attention_dq(q, k, v, dout, lse, delta, causal),
+                        **fast),
+                plain_bwd_ms, library_bwd_ms,
+                "SDPA backward alone (dq, dk, dv together); plain computes all three"),
+            "flash_attention_dkv": (
+                time_ms(lambda: fa.flash_attention_dkv(q, k, v, dout, lse, delta, causal),
+                        **fast),
+                plain_bwd_ms, library_bwd_ms,
+                "SDPA backward alone (dq, dk, dv together); plain computes all three"),
+        }
+        bounds = _flash_bounds(b, sq, skv, h, hd, causal, dtype, q.element_size())
+        for name, (ms, plain_ms, library_ms, call) in timings.items():
+            rows[name].update({"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                               "library_call": call})
+            rows[name]["bound_ms"], rows[name]["bound_by"] = bounds[name]
+    for name, row in rows.items():
+        emit({"phase": "kernels", "kernel": name, **row})
+    if bad:
+        raise AssertionError(f"flash kernels disagree with their plain versions at {label}: "
+                             f"{bad}")
+    return rows
+
+
+def _flash_cases(gen):
+    """Kernels 4-6 at the shapes listed in the module docstring; the first
+    timed case (the ViT-B/32 image tower of the training step) is the one
+    the summary line reports."""
+    import torch
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    results = {"flash_attention": [], "flash_attention_dq": [], "flash_attention_dkv": []}
+    # (label, B, Sq, Skv, H, hd, causal, dtype, timed)
+    for case in [("vitb32_train_image_bf16", 128, 50, 50, 12, 64, False, bf16, True),
+                 ("vitb32_train_text_bf16", 128, 77, 77, 8, 64, True, bf16, True),
+                 ("long_bf16", 4, 4096, 4096, 16, 64, False, bf16, True),
+                 ("long_causal_bf16", 4, 4096, 4096, 16, 64, True, bf16, True),
+                 ("ragged_cross_f32", 2, 1000, 77, 8, 64, False, f32, False),
+                 ("hd32_causal_bf16", 8, 197, 197, 8, 32, True, bf16, False),
+                 ("hd128_f32", 4, 257, 257, 4, 128, False, f32, False),
+                 ("hd128_causal_cross_bf16", 2, 300, 200, 4, 128, True, bf16, False)]:
+        rows = _flash_case(*case[:8], gen, case[8])
+        for name, row in rows.items():
+            results[name].append(row)
     return results
 
 
@@ -298,13 +455,17 @@ def _tokens(n, rng):
 
 
 def _counters():
+    from debiasing_multi_modal_tpu_torch.ops import flash_attention as fa
     from debiasing_multi_modal_tpu_torch.ops import quant_gemm as qg
     from debiasing_multi_modal_tpu_torch.ops import short_attention as sa
 
     return {"short_attention": sa.short_attention,
             "short_attention_qtiled": sa.short_attention_qtiled,
             "short_attention_packed": sa.short_attention_packed,
-            "int8_matmul": qg.int8_matmul}
+            "int8_matmul": qg.int8_matmul,
+            "flash_attention": fa.flash_attention,
+            "flash_attention_dq": fa.flash_attention_dq,
+            "flash_attention_dkv": fa.flash_attention_dkv}
 
 
 def _zero_counts():
@@ -607,6 +768,157 @@ def phase_qtiled():
     return {"vit_l14_336": launches}
 
 
+def _grads(model):
+    return {name: p.grad.detach().clone() for name, p in model.named_parameters()}
+
+
+def _grad_cosines(a, b):
+    """Per-parameter cosine of two gradient dicts, and over all parameters
+    flattened."""
+    import torch
+    import torch.nn.functional as F
+
+    per = {n: F.cosine_similarity(a[n].flatten().double(), b[n].flatten().double(),
+                                  dim=0).item() for n in a}
+    flat = F.cosine_similarity(torch.cat([a[n].flatten().double() for n in a]),
+                               torch.cat([b[n].flatten().double() for n in a]), dim=0).item()
+    return per, flat
+
+
+def phase_train():
+    """A gradient step through the full ViT-B/32 CLIP on the card (see the
+    module docstring)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from debiasing_multi_modal_tpu_torch.models import create_clip
+    from debiasing_multi_modal_tpu_torch.ops.preprocess import preprocess_uint8
+
+    n = 128
+    rng = np.random.default_rng(SEED + 2)
+    images = torch.from_numpy(rng.integers(0, 256, (n, 256, 256, 3), dtype=np.uint8)).cuda()
+    tokens = torch.from_numpy(_tokens(n, rng)).cuda()
+    labels = torch.arange(n, device="cuda")
+
+    def build(dtype=torch.bfloat16, device="cuda", **kw):
+        model = create_clip("ViT-B/32", dtype=dtype, device=device,
+                            generator=torch.Generator().manual_seed(SEED), **kw)
+        return model.requires_grad_(True)
+
+    def loss_of(model, imgs, toks, lab):
+        logits_per_image, logits_per_text = model(imgs, toks)
+        return (F.cross_entropy(logits_per_image, lab)
+                + F.cross_entropy(logits_per_text, lab)) / 2
+
+    def grad_step(model, opt, u8=images, toks=tokens, lab=labels):
+        """The loss and its gradients, without the update."""
+        opt.zero_grad(set_to_none=True)
+        imgs = preprocess_uint8(u8, model.config.image_resolution, dtype=model.config.dtype)
+        loss = loss_of(model, imgs, toks, lab)
+        loss.backward()
+        return loss
+
+    def step(model, opt):
+        loss = grad_step(model, opt)
+        opt.step()
+        return loss
+
+    def first_step(name, want, **kw):
+        """One step with every launch count at 0 just before it; the loss,
+        the launch counts and the gradients (before the update)."""
+        model = build(**kw)
+        opt = torch.optim.SGD(model.parameters(), lr=1e-3)
+        _zero_counts()
+        loss = grad_step(model, opt)
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        _expect_counts(name, counts, want)
+        grads = _grads(model)
+        opt.step()
+        return model, opt, loss.item(), counts, grads
+
+    layers = 24  # 12 image + 12 text blocks
+    flash = {"flash_attention": layers, "flash_attention_dq": layers,
+             "flash_attention_dkv": layers}
+    launches, checks = {}, {}
+    model, opt, loss1, launches["vit_b32_train"], g_pallas = first_step(
+        "ViT-B/32 train", flash, attn_impl="pallas")
+    losses = [loss1] + [step(model, opt).item() for _ in range(2)]
+    finite = all(np.isfinite(losses)) and all(
+        torch.isfinite(g).all().item() for g in g_pallas.values())
+    finite = finite and all(torch.isfinite(p.grad).all().item()
+                            for p in model.parameters())
+
+    def step_ms(model, opt, reps=5):
+        """ms per step by the host clock around ``reps`` synchronized steps."""
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            step(model, opt)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / reps * 1e3
+
+    perf = {"train_step_ms": step_ms(model, opt)}
+    perf["train_pairs_per_s"] = n / perf["train_step_ms"] * 1e3
+    perf["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del model, opt
+
+    model, opt, _, launches["vit_b32_train_remat"], g_remat = first_step(
+        "ViT-B/32 train remat", {**flash, "flash_attention": 2 * layers},
+        attn_impl="pallas", remat=True)
+    perf["train_step_ms_remat"] = step_ms(model, opt, reps=3)
+    del model, opt
+    remat_gap = {n: (g_remat[n] - g_pallas[n]).abs().max().item() for n in g_pallas}
+    checks["remat_bit_equal_tensors"] = sum(torch.equal(g_remat[n], g_pallas[n])
+                                            for n in g_pallas)
+    checks["remat_max_abs_gap"] = max(remat_gap.values())
+    checks["remat_differing"] = sorted(n for n, gap in remat_gap.items() if gap > 0)
+    del g_remat
+    model, opt, _, launches["vit_b32_train_xla"], g_xla = first_step(
+        "ViT-B/32 train xla", {}, attn_impl="xla")
+    perf["train_step_ms_xla"] = step_ms(model, opt, reps=3)
+    del model, opt
+    model, opt, _, launches["vit_b32_train_auto"], g_auto = first_step(
+        "ViT-B/32 train auto", {"short_attention": layers}, attn_impl="auto")
+    perf["train_step_ms_auto"] = step_ms(model, opt, reps=3)
+    del model, opt
+    per, flat = _grad_cosines(g_pallas, g_xla)
+    checks["pallas_vs_xla_min_param_cosine"] = min(per.values())
+    checks["pallas_vs_xla_min_param"] = min(per, key=per.get)
+    checks["pallas_vs_xla_cosine"] = flat
+    per_auto, flat_auto = _grad_cosines(g_auto, g_xla)
+    checks["auto_vs_xla_cosine"] = flat_auto
+    checks["auto_vs_xla_min_param_cosine"] = min(per_auto.values())
+    del g_xla, g_auto
+
+    # f32 on 4 pairs: the card (kernels 4-6, TF32 off) against the CPU
+    few = dict(u8=images[:4], toks=tokens[:4], lab=labels[:4])
+    grads32 = {}
+    for device in ("cuda", "cpu"):
+        m32 = build(dtype=torch.float32, device=device, attn_impl="pallas")
+        grad_step(m32, torch.optim.SGD(m32.parameters(), lr=1e-3),
+                  **{k: v.to(device) for k, v in few.items()})
+        grads32[device] = {k: v.cpu() for k, v in _grads(m32).items()}
+        del m32
+    rel = {n: ((grads32["cuda"][n] - grads32["cpu"][n]).abs().max()
+               / grads32["cpu"][n].abs().max()).item() for n in grads32["cpu"]}
+    checks["f32_cuda_vs_cpu_max_rel"] = max(rel.values())
+    checks["f32_cuda_vs_cpu_worst_param"] = max(rel, key=rel.get)
+
+    emit({"phase": "train", "model": "ViT-B/32", "dtype": "bfloat16 compute, f32 params",
+          "pairs": n, "losses": losses, "launches": launches, "checks": checks,
+          "perf": perf})
+    if not (finite
+            and checks["pallas_vs_xla_min_param_cosine"] >= 0.99
+            and checks["pallas_vs_xla_cosine"] >= 0.999
+            and checks["auto_vs_xla_cosine"] >= 0.999
+            and checks["remat_max_abs_gap"] == 0.0
+            and checks["f32_cuda_vs_cpu_max_rel"] <= 1e-3):
+        raise AssertionError(f"ViT-B/32 training step disagrees: finite={finite} {checks}")
+    return launches
+
+
 def _kernel_line(name, source, replaces, cases, launches_by_path, card):
     main = next(c for c in cases if "ms" in c)
     by_path = {path: counts[name] for path, counts in launches_by_path.items()}
@@ -639,6 +951,7 @@ def main():
     launches.update(phase_slice())
     launches.update(phase_vit())
     launches.update(phase_qtiled())
+    launches.update(phase_train())
     emit({"phase": "summary", "seconds": time.perf_counter() - t0})
     card = info["nvidia_smi"]
     emit({"kernels": [
@@ -654,6 +967,15 @@ def main():
         _kernel_line("int8_matmul", "quant_gemm.cu",
                      "debiasing_multi_modal_tpu/ops/quant_gemm.py:36",
                      cases["int8_matmul"], launches, card),
+        _kernel_line("flash_attention", "flash_attention.cu",
+                     "debiasing_multi_modal_tpu/ops/flash_attention.py:180",
+                     cases["flash_attention"], launches, card),
+        _kernel_line("flash_attention_dq", "flash_attention.cu",
+                     "debiasing_multi_modal_tpu/ops/flash_attention.py:244",
+                     cases["flash_attention_dq"], launches, card),
+        _kernel_line("flash_attention_dkv", "flash_attention.cu",
+                     "debiasing_multi_modal_tpu/ops/flash_attention.py:298",
+                     cases["flash_attention_dkv"], launches, card),
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],

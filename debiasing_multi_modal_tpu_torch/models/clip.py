@@ -38,7 +38,7 @@ def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 0.0) -> torch.Tens
 
 class CLIP(TextTransformer):
     def __init__(self, config: CLIPConfig, attn_impl: str = "auto",
-                 quant: str = "none", fuse_qkv: bool = False):
+                 quant: str = "none", fuse_qkv: bool = False, remat: bool = False):
         cfg = config
         if not cfg.is_vit and quant != "none":
             raise ValueError(
@@ -49,7 +49,7 @@ class CLIP(TextTransformer):
             vocab_size=cfg.vocab_size, context_length=cfg.context_length,
             width=cfg.transformer_width, heads=cfg.transformer_heads,
             layers=cfg.transformer_layers, embed_dim=cfg.embed_dim,
-            dtype=cfg.dtype, attn_impl=attn_impl, fuse_qkv=fuse_qkv,
+            dtype=cfg.dtype, attn_impl=attn_impl, fuse_qkv=fuse_qkv, remat=remat,
         )
         self.config = cfg
         if cfg.is_vit:
@@ -58,7 +58,7 @@ class CLIP(TextTransformer):
                 patch_size=cfg.vision_patch_size, width=cfg.vision_width,
                 layers=cfg.vision_layers, heads=cfg.vision_heads,
                 output_dim=cfg.embed_dim, dtype=cfg.dtype, attn_impl=attn_impl,
-                quant=quant, fuse_qkv=fuse_qkv,
+                quant=quant, fuse_qkv=fuse_qkv, remat=remat,
             )
         else:
             self.visual = ModifiedResNet(
@@ -115,17 +115,21 @@ def init_weights(model: CLIP, generator: torch.Generator) -> None:
 
 
 def create_clip(name_or_config, dtype=None, attn_impl: str = "auto",
-                device: DeviceLike = None,
+                remat: bool = False, device: DeviceLike = None,
                 generator: Optional[torch.Generator] = None,
                 fuse_bn: bool = False, quant: str = "none",
                 fuse_qkv: bool = False) -> CLIP:
-    """A CLIP model in eval mode on ``device`` (``cuda`` unless ``"cpu"`` is
-    asked for) with seeded random weights (``generator``, default seed 0).
+    """A frozen CLIP model in eval mode on ``device`` (``cuda`` unless
+    ``"cpu"`` is asked for) with seeded random weights (``generator``,
+    default seed 0).  Its parameters do not require grad: a caller that
+    trains turns grad on (``model.requires_grad_(True)``).
 
     ``dtype=None`` keeps the config's compute dtype (f32 for zoo names); an
-    explicit dtype is honored for both names and configs.  ``quant`` is
-    "none", "int8" (the plain integer product) or "int8_pallas" (kernel 7),
-    ViT only; ``fuse_qkv`` feeds one fused in-projection GEMM to kernel 3.
+    explicit dtype is honored for both names and configs.  ``attn_impl`` and
+    ``remat`` (rematerialized transformer blocks in the backward) are the
+    JAX package's; ``quant`` is "none", "int8" (the plain integer product)
+    or "int8_pallas" (kernel 7), ViT only and inference only, as in the JAX
+    package; ``fuse_qkv`` feeds one fused in-projection GEMM to kernel 3.
     ``fuse_bn`` is not yet ported and raises."""
     if fuse_bn:
         raise NotImplementedError("fuse_bn=True is not yet ported")
@@ -134,7 +138,7 @@ def create_clip(name_or_config, dtype=None, attn_impl: str = "auto",
         cfg = name_or_config if dtype is None else name_or_config.with_dtype(dtype)
     else:
         cfg = get_config(name_or_config, dtype=torch.float32 if dtype is None else dtype)
-    model = CLIP(cfg, attn_impl=attn_impl, quant=quant, fuse_qkv=fuse_qkv)
+    model = CLIP(cfg, attn_impl=attn_impl, quant=quant, fuse_qkv=fuse_qkv, remat=remat)
     init_weights(model, generator if generator is not None
                  else torch.Generator().manual_seed(0))
     return model.to(dev).eval().requires_grad_(False)

@@ -12,7 +12,10 @@ the W8A8 :class:`~debiasing_multi_modal_tpu_torch.ops.quant.Int8Dense` with
 the same parameters; ``fuse_qkv`` computes the q/k/v projections as one
 ``[D, 3D]`` GEMM on ``in_proj_weight`` and feeds the packed slab to kernel 3.
 ``fuse_qkv`` with a ``quant`` other than "none" takes the unfused path, as
-the JAX package does.
+the JAX package does.  ``remat`` runs each transformer block under
+``torch.utils.checkpoint`` while grad is on (the counterpart of
+``nn.remat(ResidualAttentionBlock)``): its activations are recomputed in the
+backward instead of kept, and its outputs and gradients are unchanged.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from debiasing_multi_modal_tpu_torch.ops.attention import (
     multi_head_attention,
@@ -179,14 +183,16 @@ class ResidualAttentionBlock(nn.Module):
 
 
 class Transformer(nn.Module):
-    """Stack of residual attention blocks (``resblocks.{i}``)."""
+    """Stack of residual attention blocks (``resblocks.{i}``); with
+    ``remat`` each block is rematerialized in the backward."""
 
     def __init__(self, width: int, layers: int, heads: int,
                  causal: bool = False, dtype=torch.float32,
                  attn_impl: str = "auto", quant: str = "none",
-                 fuse_qkv: bool = False):
+                 fuse_qkv: bool = False, remat: bool = False):
         super().__init__()
         self.width = width
+        self.remat = remat
         self.resblocks = nn.Sequential(*(
             ResidualAttentionBlock(width, heads, causal, dtype, attn_impl,
                                    quant=quant, fuse_qkv=fuse_qkv)
@@ -198,4 +204,8 @@ class Transformer(nn.Module):
             raise ValueError(
                 f"input width {x.shape[-1]} != configured width {self.width}"
             )
-        return self.resblocks(x)
+        if not (self.remat and torch.is_grad_enabled()):
+            return self.resblocks(x)
+        for block in self.resblocks:
+            x = checkpoint(block, x, use_reentrant=False)
+        return x

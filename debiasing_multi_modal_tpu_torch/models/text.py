@@ -13,7 +13,8 @@ Parameter names are OpenAI's top-level ones (``token_embedding.weight``,
 is a ``TextTransformer`` with a vision tower added, as OpenAI's CLIP holds
 the text tower's parameters at its top level.  ``fuse_qkv`` runs each
 block's q/k/v projections as one GEMM into kernel 3 (``models/layers.py``);
-the text tower is never quantized, as in the JAX package.
+the text tower is never quantized, as in the JAX package.  ``remat``
+rematerializes each block in the backward (``models/layers.py``).
 """
 
 from __future__ import annotations
@@ -28,14 +29,14 @@ class TextTransformer(nn.Module):
     def __init__(self, vocab_size: int, context_length: int, width: int,
                  heads: int, layers: int, embed_dim: int,
                  dtype=torch.float32, attn_impl: str = "auto",
-                 fuse_qkv: bool = False):
+                 fuse_qkv: bool = False, remat: bool = False):
         super().__init__()
         self.dtype = dtype
         self.token_embedding = nn.Embedding(vocab_size, width)
         self.positional_embedding = nn.Parameter(torch.empty(context_length, width))
         self.transformer = Transformer(width, layers, heads, causal=True,
                                        dtype=dtype, attn_impl=attn_impl,
-                                       fuse_qkv=fuse_qkv)
+                                       fuse_qkv=fuse_qkv, remat=remat)
         self.ln_final = LayerNormF32(width)
         self.text_projection = nn.Parameter(torch.empty(width, embed_dim))
 

@@ -14,7 +14,8 @@ the same way; the layout is batch-major ``[N, S, D]`` throughout.
 
 ``quant`` runs every transformer Dense on the W8A8 path; the patch GEMM and
 the class-token projection stay in the activation dtype, as in the JAX tower
-(``models/vit.py:31-41``).
+(``models/vit.py:31-41``).  ``remat`` rematerializes each block in the
+backward (``models/layers.py``).
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ class VisionTransformer(nn.Module):
     def __init__(self, input_resolution: int, patch_size: int, width: int,
                  layers: int, heads: int, output_dim: int, dtype=torch.float32,
                  attn_impl: str = "auto", quant: str = "none",
-                 fuse_qkv: bool = False):
+                 fuse_qkv: bool = False, remat: bool = False):
         super().__init__()
         self.dtype = dtype
         self.patch_size = patch_size
@@ -40,7 +41,7 @@ class VisionTransformer(nn.Module):
         self.ln_pre = LayerNormF32(width)
         self.transformer = Transformer(width, layers, heads, dtype=dtype,
                                        attn_impl=attn_impl, quant=quant,
-                                       fuse_qkv=fuse_qkv)
+                                       fuse_qkv=fuse_qkv, remat=remat)
         self.ln_post = LayerNormF32(width)
         self.proj = nn.Parameter(torch.empty(width, output_dim))
 

@@ -9,19 +9,27 @@ The implementations, by ``impl``:
 - ``"short"``: the merged-head kernels
   (:mod:`debiasing_multi_modal_tpu_torch.ops.short_attention`): kernel 1
   (whole-row) where its block fits, else kernel 2 (q-tiled), else a raise.
-- ``"auto"``: on a CUDA tensor :func:`multi_head_attention` takes
-  ``"short"``, so a shape neither kernel takes raises (see
-  :func:`short_attention.supported`); the card never drops to the plain
-  formulation unasked.  On the CPU ``auto`` is the plain formulation, as the
-  JAX package takes XLA off the TPU.
-- ``"pallas"`` (the blockwise flash kernel) is not ported yet, so
-  :func:`dot_product_attention` refuses ``auto`` on a CUDA tensor: pass
-  ``impl="xla"`` for the plain formulation there.
+- ``"pallas"``: the blockwise flash kernels
+  (:mod:`debiasing_multi_modal_tpu_torch.ops.flash_attention`): kernel 4
+  forward, kernels 5 and 6 backward; the plain versions on the CPU.
+- ``"auto"``: on a CUDA tensor the chain of the JAX package's fall-through,
+  always a kernel: :func:`multi_head_attention` takes kernel 1, else kernel
+  2 (where :func:`short_attention.supported` holds); otherwise it splits
+  the heads and :func:`dot_product_attention` takes kernel 4 (where
+  :func:`flash_attention.supported` holds); otherwise it raises.  The card
+  never drops to the plain formulation unasked, so the JAX package's TPU
+  thresholds (``MIN_AUTO_SEQ_LEN``, ``SCORE_BYTES_THRESHOLD``) do not carry
+  over: kernel 4 takes every shape the short kernels refuse.  On the CPU
+  ``auto`` is the plain formulation, as the JAX package takes XLA off the
+  TPU.  A mask raises on every kernel route.
 
 :func:`multi_head_attention_packed` takes the fused in-projection's packed
 ``[B, S, 3D]`` slab: kernel 3 where its whole-row block fits (``"short"``,
 or ``"auto"`` on the card), else it splits the slab and follows
 :func:`multi_head_attention`, as the JAX package does.
+
+Kernels 1-3 are differentiable: their backward is the VJP of the plain
+merged-head formulation, as in the JAX package (``short_attention.py``).
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from typing import Optional
 
 import torch
 
+from debiasing_multi_modal_tpu_torch.ops import flash_attention as fa
 from debiasing_multi_modal_tpu_torch.ops import short_attention as sa
 
 _IMPLS = ("auto", "xla", "short", "pallas")
@@ -43,11 +52,10 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``[batch, heads, q_len, kv_len]``."""
     if impl not in _IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}; known: {_IMPLS}")
-    if impl == "pallas" or (impl == "auto" and q.device.type != "cpu"):
-        raise NotImplementedError(
-            f"impl={impl!r} on {q.device.type}: the flash attention kernel is "
-            "not yet ported (impl='xla' is the plain formulation)"
-        )
+    if impl == "auto":
+        impl = "xla" if q.device.type == "cpu" else "pallas"
+    if impl == "pallas":
+        return fa.flash_attention(q, k, v, mask=mask, causal=causal)
     return _xla_attention(q, k, v, mask=mask, causal=causal)
 
 
@@ -73,8 +81,9 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Attention over merged-head inputs ``[batch, seq, model_dim]``."""
     if impl not in _IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}; known: {_IMPLS}")
-    if impl == "auto":
-        impl = "xla" if q.device.type == "cpu" else "short"
+    if impl == "auto" and q.device.type != "cpu" and sa.supported(
+            q, k, v, num_heads, mask=mask):
+        impl = "short"
     if impl == "short":
         if mask is not None:
             raise ValueError("additive masks use the xla path")

@@ -20,7 +20,16 @@ On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
 it runs the plain PyTorch version (:func:`short_attention_reference`, the
 counterpart of the JAX package's ``_xla_merged``; kernel 2 has the same math
 and so the same plain version; kernel 3's splits the slab and calls it).
-There is no fall back from one to the other.  :func:`short_attention` picks
+There is no fall back from one to the other.
+
+Each kernel is differentiable: where grad is on and an input requires it,
+the launch runs inside :class:`_PlainVJP`, whose backward is the VJP of the
+plain merged-head formulation recomputed from the saved inputs — the JAX
+package's ``_short_bwd`` and ``_short_packed_bwd``, which also compute the
+backward outside any kernel.  The packed kernel's gradient is one
+``[B, S, 3D]`` tensor (dq | dk | dv).  Under ``torch.inference_mode()``, or
+with no input requiring grad, the wrappers launch exactly as before and save
+nothing.  :func:`short_attention` picks
 kernel 1 when its block fits and kernel 2 otherwise, as the JAX package's
 ``_pallas_forward`` picks whole-row before q-tiled.  Each wrapper counts its
 own launches (``short_attention.launches``, ``short_attention_qtiled.launches``,
@@ -149,6 +158,33 @@ def short_attention_packed_reference(qkv: torch.Tensor, num_heads: int,
     return short_attention_reference(q, k, v, num_heads, causal)
 
 
+class _PlainVJP(torch.autograd.Function):
+    """A kernel's output, with the VJP of its plain version as the backward
+    (recomputed from the saved inputs)."""
+
+    @staticmethod
+    def forward(ctx, kernel, plain, num_heads, causal, *inputs):
+        ctx.save_for_backward(*inputs)
+        ctx.plain, ctx.args = plain, (num_heads, causal)
+        return kernel(*inputs, num_heads, causal)
+
+    @staticmethod
+    def backward(ctx, grad):
+        with torch.enable_grad():
+            leaves = [x.detach().requires_grad_() for x in ctx.saved_tensors]
+            out = ctx.plain(*leaves, *ctx.args)
+            grads = torch.autograd.grad(out, leaves, grad)
+        return (None, None, None, None, *grads)
+
+
+def _differentiable(kernel, plain, num_heads, causal, *inputs):
+    """``kernel(*inputs, num_heads, causal)``, through :class:`_PlainVJP`
+    when autograd needs its gradient."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in inputs):
+        return _PlainVJP.apply(kernel, plain, num_heads, causal, *inputs)
+    return kernel(*inputs, num_heads, causal)
+
+
 def _check(q, k, v, num_heads):
     if q.ndim != 3 or q.shape != k.shape or k.shape != v.shape:
         raise ValueError(
@@ -198,13 +234,25 @@ def short_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return short_attention_reference(q, k, v, num_heads, causal)
     if supported_whole_row(q, k, v, num_heads):
-        return _whole_row(q, k, v, num_heads, causal)
+        return _differentiable(_whole_row, short_attention_reference, num_heads,
+                               causal, q, k, v)
     if supported_qtiled(q, k, v, num_heads):
         return short_attention_qtiled(q, k, v, num_heads, causal=causal)
     _refuse("short_attention", q.shape, q.dtype, num_heads, "supported")
 
 
 short_attention.launches = 0
+
+
+def _qtiled(q, k, v, num_heads, causal):
+    _need_contiguous("short_attention_qtiled", q, k, v)
+    out = torch.empty_like(q)
+    b, s, d = q.shape
+    cuda_build.launch("short_attention_qtiled", "short_attention_qtiled_forward",
+                      (q, k, v, out), (b, s, d, num_heads, int(causal),
+                                       _DTYPE_CODES[q.dtype]), q.device)
+    short_attention_qtiled.launches += 1
+    return out
 
 
 def short_attention_qtiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -221,17 +269,22 @@ def short_attention_qtiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not supported_qtiled(q, k, v, num_heads):
         _refuse("short_attention_qtiled", q.shape, q.dtype, num_heads,
                 "supported_qtiled")
-    _need_contiguous("short_attention_qtiled", q, k, v)
-    out = torch.empty_like(q)
-    b, s, d = q.shape
-    cuda_build.launch("short_attention_qtiled", "short_attention_qtiled_forward",
-                      (q, k, v, out), (b, s, d, num_heads, int(causal),
-                                       _DTYPE_CODES[q.dtype]), q.device)
-    short_attention_qtiled.launches += 1
-    return out
+    return _differentiable(_qtiled, short_attention_reference, num_heads, causal,
+                           q, k, v)
 
 
 short_attention_qtiled.launches = 0
+
+
+def _packed(qkv, num_heads, causal):
+    _need_contiguous("short_attention_packed", qkv)
+    b, s, d3 = qkv.shape
+    out = qkv.new_empty(b, s, d3 // 3)
+    cuda_build.launch("short_attention", "short_attention_packed_forward", (qkv, out),
+                      (b, s, d3 // 3, num_heads, int(causal), _DTYPE_CODES[qkv.dtype]),
+                      qkv.device)
+    short_attention_packed.launches += 1
+    return out
 
 
 def short_attention_packed(qkv: torch.Tensor, num_heads: int, *,
@@ -254,14 +307,8 @@ def short_attention_packed(qkv: torch.Tensor, num_heads: int, *,
     if not supported_packed(qkv, num_heads):
         _refuse("short_attention_packed", qkv.shape, qkv.dtype, num_heads,
                 "supported_packed")
-    _need_contiguous("short_attention_packed", qkv)
-    b, s, d3 = qkv.shape
-    out = qkv.new_empty(b, s, d3 // 3)
-    cuda_build.launch("short_attention", "short_attention_packed_forward", (qkv, out),
-                      (b, s, d3 // 3, num_heads, int(causal), _DTYPE_CODES[qkv.dtype]),
-                      qkv.device)
-    short_attention_packed.launches += 1
-    return out
+    return _differentiable(_packed, short_attention_packed_reference, num_heads,
+                           causal, qkv)
 
 
 short_attention_packed.launches = 0

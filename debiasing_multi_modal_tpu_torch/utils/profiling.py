@@ -10,6 +10,14 @@ random weights, the shapes ``chip_smoke.py`` drives):
         [--backbone RN50|ViT-B/32|...] [--quant none|int8|int8_pallas] \
         [--fuse_qkv] [--batch 256] [--out DIR]
 
+or, with ``--train``, one training step of the symmetric contrastive loss
+through the whole CLIP (bf16 compute, f32 parameters, ``torch.optim.SGD``;
+``--backbone`` default ViT-B/32, ``--attn_impl`` default "pallas",
+``--remat``, ``--batch`` default 128):
+
+    python -m debiasing_multi_modal_tpu_torch.utils.profiling --train \
+        [--backbone ViT-B/32] [--attn_impl pallas|auto|xla] [--remat]
+
 - ``stages``: device time of each stage of one ``ExtractionRunner`` image
   step (ResNet: preprocess, stem, layer1-4, attention pool, zero-shot head;
   ViT: preprocess, patch embedding, attention blocks, MLP blocks, the rest of
@@ -19,6 +27,10 @@ random weights, the shapes ``chip_smoke.py`` drives):
 - ``kernels``: device time summed by kernel name under ``torch.profiler``
   over a few image steps and text encodes, with the share of the profiled
   wall time in which no kernel ran (``idle_share``).
+- ``train_stages`` (``--train``): device time of each stage of one training
+  step (preprocess, forward with the image tower and the text transformer
+  inside it, backward, optimizer), from CUDA events; ``train_step_kernels``:
+  the same step under ``torch.profiler``.
 
 Every line names the card and its power limit.
 """
@@ -180,6 +192,47 @@ def text_stages(model, tokens, reps=10):
             "rest": t["total"] - attn - mlp, "total": t["total"]}
 
 
+def train_stages(model, opt, images, tokens, reps=10):
+    """Median device ms of each stage of one contrastive training step of
+    ``model`` on uint8 ``images`` and ``tokens``, and the step function (for
+    :func:`kernel_breakdown`)."""
+    import torch
+    import torch.nn.functional as F
+
+    from debiasing_multi_modal_tpu_torch.ops.preprocess import preprocess_uint8
+
+    cfg = model.config
+    labels = torch.arange(tokens.shape[0], device=tokens.device)
+    events, handles = _hook_events({"visual": model.visual, "text": model.transformer})
+
+    def run():
+        events["start"] = _event()
+        opt.zero_grad(set_to_none=True)
+        imgs = preprocess_uint8(images, cfg.image_resolution, dtype=cfg.dtype)
+        events["preprocessed"] = _event()
+        per_image, per_text = model(imgs, tokens)
+        loss = (F.cross_entropy(per_image, labels) + F.cross_entropy(per_text, labels)) / 2
+        events["forward"] = _event()
+        loss.backward()
+        events["backward"] = _event()
+        opt.step()
+        events["end"] = _event()
+        return events
+
+    spans = [("preprocess", "start", "preprocessed"),
+             ("forward", "preprocessed", "forward"),
+             ("image_tower_forward", "visual:in", "visual:out"),
+             ("text_transformer_forward", "text:in", "text:out"),
+             ("backward", "forward", "backward"),
+             ("optimizer", "backward", "end"), ("total", "start", "end")]
+    try:
+        run()  # warm-up
+        return _median_spans(run, spans, reps), run
+    finally:
+        for h in handles:
+            h.remove()
+
+
 def kernel_breakdown(fn, reps=3, top=20, log_dir=None):
     """Device time by kernel name over ``reps`` calls of ``fn`` under the
     profiler, and the share of the profiled wall time with no kernel running."""
@@ -224,13 +277,24 @@ def kernel_breakdown(fn, reps=3, top=20, log_dir=None):
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--backbone", default="RN50")
+    p.add_argument("--backbone", default=None,
+                   help="zoo name (default RN50; ViT-B/32 with --train)")
     p.add_argument("--quant", default="none", choices=["none", "int8", "int8_pallas"])
     p.add_argument("--fuse_qkv", action="store_true")
-    p.add_argument("--batch", type=int, default=256)
+    p.add_argument("--batch", type=int, default=None,
+                   help="images per step (default 256; 128 with --train)")
     p.add_argument("--image_hw", type=int, default=256)
     p.add_argument("--out", default=None, help="write the profiler traces here")
+    p.add_argument("--train", action="store_true",
+                   help="break down a contrastive training step instead")
+    p.add_argument("--attn_impl", default="pallas", choices=["pallas", "auto", "xla"],
+                   help="attention of the --train model")
+    p.add_argument("--remat", action="store_true", help="rematerialize blocks (--train)")
     args = p.parse_args(argv)
+    if args.batch is None:
+        args.batch = 128 if args.train else 256
+    if args.backbone is None:
+        args.backbone = "ViT-B/32" if args.train else "RN50"
 
     import numpy as np
     import torch
@@ -248,13 +312,27 @@ def main(argv=None):
     ).stdout.strip().splitlines()[0]
 
     rng = np.random.default_rng(0)
-    model = create_clip(args.backbone, dtype=torch.bfloat16, device="cuda",
-                        generator=torch.Generator().manual_seed(0),
-                        quant=args.quant, fuse_qkv=args.fuse_qkv)
     n, hw = args.batch, args.image_hw
     tokens = np.zeros((n, 77), np.int64)
     tokens[:, 0], tokens[:, 1:20], tokens[:, 20] = 49406, rng.integers(1, 49406, (n, 19)), 49407
     tokens = torch.from_numpy(tokens).cuda()
+    if args.train:
+        model = create_clip(args.backbone, dtype=torch.bfloat16, device="cuda",
+                            attn_impl=args.attn_impl, remat=args.remat,
+                            generator=torch.Generator().manual_seed(0)).requires_grad_(True)
+        opt = torch.optim.SGD(model.parameters(), lr=1e-3)
+        images = torch.from_numpy(rng.integers(0, 256, (n, hw, hw, 3), dtype=np.uint8)).cuda()
+        head = {"card": card, "backbone": args.backbone, "attn_impl": args.attn_impl,
+                "remat": args.remat, "batch": n, "image_hw": [hw, hw],
+                "dtype": "bfloat16 compute, f32 params", "optimizer": "SGD"}
+        stages, step = train_stages(model, opt, images, tokens)
+        print(json.dumps({"profile": "train_stages_ms", **head, **stages}), flush=True)
+        print(json.dumps({"profile": "train_step_kernels", **head, **kernel_breakdown(
+            step, log_dir=args.out and os.path.join(args.out, "train"))}), flush=True)
+        return
+    model = create_clip(args.backbone, dtype=torch.bfloat16, device="cuda",
+                        generator=torch.Generator().manual_seed(0),
+                        quant=args.quant, fuse_qkv=args.fuse_qkv)
     runner = ExtractionRunner(
         model, rng.standard_normal((2, model.config.embed_dim)).astype(np.float32))
     uploaded = runner.upload_batch(rng.integers(0, 256, (n, hw, hw, 3), dtype=np.uint8))

@@ -211,7 +211,7 @@ def test_kernels_refuse_what_their_gates_refuse_on_card(card):
     with pytest.raises(ValueError, match="does not take"):
         sa.short_attention_qtiled(long, long, long, 8)
     with pytest.raises(ValueError, match="does not take"):
-        tattn.multi_head_attention(long, long, long, 8, impl="auto")
+        tattn.multi_head_attention(long, long, long, 8, impl="short")
     f32 = torch.zeros(1, 577, 3 * 1024, device="cuda")
     with pytest.raises(ValueError, match="does not take"):
         sa.short_attention_packed(f32, 16)

@@ -1,9 +1,10 @@
 """The port stands alone: in a fresh interpreter (this test process has jax
 imported by tests/conftest.py), importing debiasing_multi_modal_tpu_torch and
 running tiny CPU extractions — a ResNet, and a ViT plain, with ``fuse_qkv``
-(the packed attention path) and with both int8 modes — imports neither
-``jax`` nor anything of ``debiasing_multi_modal_tpu``; importing the package
-alone imports no Triton and loads no kernel library."""
+(the packed attention path) and with both int8 modes — and a contrastive
+gradient step through a ViT CLIP on the flash path with ``remat`` imports
+neither ``jax`` nor anything of ``debiasing_multi_modal_tpu``; importing the
+package alone imports no Triton and loads no kernel library."""
 
 import json
 import os
@@ -52,6 +53,14 @@ for options in ({}, {"fuse_qkv": True}, {"quant": "int8"}, {"quant": "int8_palla
     with torch.no_grad():
         model.encode_text(tokens)
 assert short_attention_packed(torch.zeros(1, 8, 384), 2).shape == (1, 8, 128)
+
+from debiasing_multi_modal_tpu_torch.ops.flash_attention import flash_attention
+train = create_clip(vit, device="cpu", attn_impl="pallas", remat=True).requires_grad_(True)
+per_image, per_text = train(torch.randn(2, 32, 32, 3), tokens)
+loss = torch.nn.functional.cross_entropy(per_image, torch.arange(2))
+(loss + torch.nn.functional.cross_entropy(per_text, torch.arange(2))).backward()
+assert all(p.grad is not None for p in train.parameters())
+assert flash_attention.launches == 0
 assert int8_matmul(torch.zeros(4, 64, dtype=torch.int8), torch.zeros(64, 128, dtype=torch.int8),
                    torch.ones(4, 1), torch.ones(128)).shape == (4, 128)
 bad = sorted(m for m in sys.modules
