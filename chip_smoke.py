@@ -26,17 +26,35 @@ line.
              counts are read.  Outputs are checked (finite, in range, text
              within cosine 0.999 of the plain-attention model, f32 towers on
              the card against the CPU on a small input) and throughput timed.
-5. vit     — ViT-B/32 at full width and depth in bf16, the same drive three
+5. fuse_bn — RN50 at full width in bf16 with its BatchNorms folded
+             (weights/fold.py): seeded weights whose visual BatchNorm
+             statistics are made non-trivial from the seed (mean ~ N(0, 0.2^2),
+             var ~ U(0.5, 2)), folded into a fuse_bn model, then the same drive
+             as the slice with the counts set to 0 before it (kernel 1: 12;
+             the model calls neither bottleneck kernel, as in the JAX
+             package).  Image embeddings within cosine 0.999 of the unfused
+             model's, zero-shot predictions equal on >= 99 % of the images, the
+             f32 folded tower on the card against the CPU; throughput beside
+             the unfused model's.
+6. rn50_blocks — every stride-1 block of the folded RN50 (batch 256, bf16),
+             its input captured by hooks from the folded tower's forward:
+             with the counts set to 0, kernel 8 on all 13 (the downsample on
+             layer1.0, the gate's largest strip) and kernel 9 on the 12
+             identity blocks; each output held to xla_bottleneck (<= 2e-2 of
+             scale, cosine >= 0.9999; f32 on one block <= 1e-4 of scale) and
+             to the model's own Bottleneck.forward (cosine >= 0.999); kernel,
+             plain and model-block times at l1b0_ds, l1b1, l2b1, l3b1, l4b1.
+7. vit     — ViT-B/32 at full width and depth in bf16, the same drive three
              times with the counts set to 0 before each: unfused (kernel 1),
              fuse_qkv=True (kernel 3) and quant="int8_pallas" (kernel 7 and
              kernel 1); both towers checked against the plain-attention
              model, fuse_qkv against unfused, int8_pallas against bf16 and
              against quant="int8" (torch._int_mm), f32 on the card against
              the CPU, and throughput.
-6. qtiled  — ViT-L/14@336px at its zoo default f32 encodes four 336x336
+8. qtiled  — ViT-L/14@336px at its zoo default f32 encodes four 336x336
              images through kernel 2, held to the same weights under the
              plain attention formulation.
-7. train   — ViT-B/32 at full width and depth, bf16 compute, f32 parameters,
+9. train   — ViT-B/32 at full width and depth, bf16 compute, f32 parameters,
              attn_impl="pallas": 3 SGD steps of the symmetric contrastive loss
              on 128 uint8 images (preprocessed on the card) and 128 prompts,
              with every launch count at 0 before the first step and read
@@ -45,7 +63,7 @@ line.
              forward, the plain VJP backward); the gradients are checked
              against "xla", remat against plain, and an f32 step on 4 pairs
              against the CPU; the step's time and pairs per second.
-8. summary — the wall seconds, one {"kernels": [...]} line, the card line, and
+10. summary — the wall seconds, one {"kernels": [...]} line, the card line, and
              {"ok": true, "device": {...}} as the last line.
 """
 
@@ -455,7 +473,9 @@ def _tokens(n, rng):
 
 
 def _counters():
+    from debiasing_multi_modal_tpu_torch.ops import conv_gemm as cg
     from debiasing_multi_modal_tpu_torch.ops import flash_attention as fa
+    from debiasing_multi_modal_tpu_torch.ops import fused_bottleneck as fb
     from debiasing_multi_modal_tpu_torch.ops import quant_gemm as qg
     from debiasing_multi_modal_tpu_torch.ops import short_attention as sa
 
@@ -465,7 +485,9 @@ def _counters():
             "int8_matmul": qg.int8_matmul,
             "flash_attention": fa.flash_attention,
             "flash_attention_dq": fa.flash_attention_dq,
-            "flash_attention_dkv": fa.flash_attention_dkv}
+            "flash_attention_dkv": fa.flash_attention_dkv,
+            "fused_bottleneck_gemm": cg.fused_bottleneck_gemm,
+            "fused_bottleneck": fb.fused_bottleneck}
 
 
 def _zero_counts():
@@ -608,7 +630,241 @@ def phase_slice():
     emit({"phase": "slice", "model": "RN50", "dtype": "bfloat16", "batch": 256,
           "image_hw": [256, 256], "launches": launches, "checks": checks,
           "perf": perf, "model_setup_s": setup_s})
-    return {"rn50": launches}
+    return {"rn50": launches}, perf
+
+
+def _realistic_bn_stats(model, rng):
+    """Overwrite every visual BatchNorm's statistics from ``rng``: mean ~
+    N(0, 0.2^2), var ~ U(0.5, 2), as the JAX package's tests/test_fold.py
+    (seeded weights have identity BatchNorms, which would make folding a
+    no-op)."""
+    import numpy as np
+    import torch
+
+    from debiasing_multi_modal_tpu_torch.models.layers import InferenceBatchNorm
+
+    for mod in model.visual.modules():
+        if isinstance(mod, InferenceBatchNorm):
+            n = mod.running_mean.numel()
+            mod.running_mean.copy_(torch.from_numpy(
+                (rng.standard_normal(n) * 0.2).astype(np.float32)))
+            mod.running_var.copy_(torch.from_numpy(rng.uniform(0.5, 2.0, n).astype(np.float32)))
+
+
+def phase_fuse_bn(slice_perf):
+    """RN50 at full width, bf16, with folded BatchNorms (see the module
+    docstring); returns the launch counts and the folded model."""
+    import numpy as np
+    import torch
+
+    from debiasing_multi_modal_tpu_torch.extract.runner import ExtractionRunner
+    from debiasing_multi_modal_tpu_torch.models import create_clip
+    from debiasing_multi_modal_tpu_torch.weights.convert import clip_from_state_dict
+    from debiasing_multi_modal_tpu_torch.weights.fold import fold_resnet_bn
+
+    rng = np.random.default_rng(SEED + 3)
+    unfused = create_clip("RN50", dtype=torch.bfloat16, device="cuda",
+                          generator=torch.Generator().manual_seed(SEED))
+    _realistic_bn_stats(unfused, rng)
+    t0 = time.perf_counter()
+    folded_sd = fold_resnet_bn({k: v.cpu().numpy() for k, v in unfused.state_dict().items()})
+    fold_s = time.perf_counter() - t0
+
+    def folded(dtype, device):
+        return clip_from_state_dict(folded_sd, name="RN50", dtype=dtype, device=device,
+                                    fuse_bn=True)
+
+    model = folded(torch.bfloat16, "cuda")
+    tokens = torch.from_numpy(_tokens(256, rng)).cuda()
+    images = rng.integers(0, 256, (256, 256, 256, 3), dtype=np.uint8)
+
+    # ---- the main path, with every launch count at 0 just before it
+    _zero_counts()
+    with torch.inference_mode():
+        text = model.encode_text(tokens)
+    zs = text[:2].float().cpu().numpy()
+    runner = ExtractionRunner(model, zs)
+    emb, preds = runner.encode_batch(images)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    # ----
+    _expect_counts("RN50 fuse_bn", launches, {"short_attention": model.config.transformer_layers})
+    text32 = text.float()
+    if not (torch.isfinite(text32).all() and text32.shape == (256, 1024)
+            and np.isfinite(emb).all() and emb.shape == (256, 1024)):
+        raise AssertionError("fuse_bn: embeddings are not finite [256, 1024]")
+    if not (preds.shape == (256,) and preds.min() >= 0 and preds.max() < 2):
+        raise AssertionError("fuse_bn: zero-shot predictions out of range")
+
+    u_runner = ExtractionRunner(unfused, zs)
+    u_emb, u_preds = u_runner.encode_batch(images)
+    small = rng.integers(0, 256, (4, 224, 224, 3), dtype=np.uint8)
+    emb_cuda, _ = ExtractionRunner(folded(torch.float32, "cuda"), zs).encode_batch(small)
+    emb_cpu, _ = ExtractionRunner(folded(torch.float32, "cpu"), zs).encode_batch(small)
+    checks = {"image_vs_unfused_bf16_min_cosine": _cos_min(emb, u_emb),
+              "preds_equal_unfused_share": float(np.mean(preds == u_preds)),
+              "image_f32_cuda_vs_cpu_rel": _rel(emb_cuda, emb_cpu)}
+
+    uploaded = runner.upload_batch(images)
+    stream = _stream(rng, images.shape, 8)
+    t = time.perf_counter()
+    table = runner.run(iter(stream))
+    run_imgs_s = len(table) / (time.perf_counter() - t)
+    perf = {
+        "imgs_per_s_device": _rate(lambda: runner.encode_batch_async(uploaded), 256, 10),
+        "imgs_per_s_encode_batch": _rate(lambda: runner.encode_batch(images), 256, 5),
+        "imgs_per_s_run_8_batches": run_imgs_s,
+        "unfused_imgs_per_s_device": _rate(lambda: u_runner.encode_batch_async(uploaded),
+                                           256, 10),
+    }
+    emit({"phase": "fuse_bn", "model": "RN50", "dtype": "bfloat16", "batch": 256,
+          "image_hw": [256, 256], "launches": launches, "checks": checks, "perf": perf,
+          "unfused_slice_perf": {k: slice_perf[k] for k in (
+              "imgs_per_s_device", "imgs_per_s_encode_batch", "imgs_per_s_run_8_batches")},
+          "fold_s": fold_s})
+    if not (checks["image_vs_unfused_bf16_min_cosine"] >= 0.999
+            and checks["preds_equal_unfused_share"] >= 0.99
+            and checks["image_f32_cuda_vs_cpu_rel"] <= 1e-3):
+        raise AssertionError(f"RN50 fuse_bn disagrees: {checks}")
+    return {"rn50_fuse_bn": launches}, model
+
+
+def _bottleneck_bound_ms(b, h, cin, m, cout, ds, itemsize):
+    """Each input read once (x, weights of x's dtype, f32 biases), the output
+    written once; 2 flops per multiply-add of the four (five) products at
+    the bf16 (f32) peak."""
+    import torch
+
+    macs_per_px = cin * m + 9 * m * m + m * cout + (cin * cout if ds else 0)
+    weight_bytes = macs_per_px * itemsize + 4 * (2 * m + cout + (cout if ds else 0))
+    nbytes = b * h * h * (cin + cout) * itemsize + weight_bytes
+    dtype = torch.bfloat16 if itemsize == 2 else torch.float32
+    flops_ms = 2 * b * h * h * macs_per_px / PEAK_FLOPS[str(dtype)] * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(bytes_ms, flops_ms), ("bytes" if bytes_ms >= flops_ms else "operations")
+
+
+def _block_close(out, ref):
+    import torch
+    import torch.nn.functional as F
+
+    err = (out.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    cos = F.cosine_similarity(out.float().flatten(), ref.float().flatten(), dim=0).item()
+    return err, scale, cos
+
+
+def phase_rn50_blocks(model):
+    """Kernels 8 and 9 at every stride-1 block of the folded RN50 (see the
+    module docstring); returns the launch counts and the per-kernel cases."""
+    import numpy as np
+    import torch
+
+    from debiasing_multi_modal_tpu_torch.ops import conv_gemm as cg
+    from debiasing_multi_modal_tpu_torch.ops import fused_bottleneck as fb
+    from debiasing_multi_modal_tpu_torch.ops.preprocess import preprocess_uint8
+
+    rng = np.random.default_rng(SEED + 4)
+    u8 = torch.from_numpy(rng.integers(0, 256, (256, 256, 256, 3), dtype=np.uint8)).cuda()
+    blocks, handles = {}, []
+    for stage in range(1, 5):
+        for i, block in enumerate(getattr(model.visual, f"layer{stage}")):
+            if block.stride != 1:
+                continue
+            name = f"l{stage}b{i}" + ("_ds" if block.downsample is not None else "")
+            blocks[name] = {"block": block}
+            handles.append(block.register_forward_pre_hook(
+                lambda m, inp, name=name: blocks[name].__setitem__("x", inp[0])))
+            handles.append(block.register_forward_hook(
+                lambda m, inp, out, name=name: blocks[name].__setitem__("model", out)))
+    with torch.inference_mode():
+        model.encode_image(preprocess_uint8(u8, 224, dtype=torch.bfloat16))
+    for h in handles:
+        h.remove()
+    del u8
+    if len(blocks) != 13:
+        raise AssertionError(f"expected 13 stride-1 blocks, found {sorted(blocks)}")
+    for entry in blocks.values():
+        entry["x_nhwc"] = entry["x"].permute(0, 2, 3, 1)
+        entry["weights"] = cg.block_weights(entry["block"])
+        b, h, _, cin = entry["x_nhwc"].shape
+        entry["strip"] = cg.pick_strip_rows(h, h, entry["weights"][0].shape[1], 2)
+
+    # ---- the main path, with every launch count at 0 just before it
+    _zero_counts()
+    with torch.inference_mode():
+        for entry in blocks.values():
+            x, w = entry["x_nhwc"], entry["weights"]
+            entry["k8"] = cg.fused_bottleneck_gemm(x, *w, strip_rows=entry["strip"])
+            if w[6] is None:
+                entry["k9"] = fb.fused_bottleneck(x, *w[:6])
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    # ----
+    _expect_counts("rn50_blocks", launches, {"fused_bottleneck_gemm": 13, "fused_bottleneck": 12})
+
+    cases = {"fused_bottleneck_gemm": [], "fused_bottleneck": []}
+    bad = []
+    timed = ("l1b1", "l1b0_ds", "l2b1", "l3b1", "l4b1")  # l1b1 first: the summary's shape
+    for name in sorted(blocks, key=lambda n: (timed.index(n) if n in timed else len(timed), n)):
+        entry = blocks[name]
+        x, w = entry["x_nhwc"], entry["weights"]
+        b, h, _, cin = x.shape
+        m, cout, ds = w[0].shape[1], w[4].shape[1], w[6] is not None
+        with torch.inference_mode():
+            plain = cg.xla_bottleneck(x, *w)
+        model_out = entry["model"].permute(0, 2, 3, 1)
+        for kname, key in (("fused_bottleneck_gemm", "k8"), ("fused_bottleneck", "k9")):
+            if key not in entry:
+                continue
+            err, scale, cos = _block_close(entry[key], plain)
+            _, _, cos_model = _block_close(entry[key], model_out)
+            row = {"case": name, "shape": [b, h, h, cin, m, cout], "downsample": ds,
+                   "dtype": "torch.bfloat16", "strip_rows": entry["strip"],
+                   "input_nhwc_contiguous": x.is_contiguous(), "max_abs_err": err,
+                   "scale": scale, "cosine": cos, "cosine_vs_model_block": cos_model}
+            if not (err <= 2e-2 * scale and cos >= 0.9999 and cos_model >= 0.999):
+                bad.append(f"{kname} {name}")
+            if name in timed:
+                fast = dict(runs=10, calls=5, warmup=2)
+                with torch.inference_mode():
+                    if key == "k8":
+                        row["ms"] = time_ms(lambda: cg.fused_bottleneck_gemm(
+                            x, *w, strip_rows=entry["strip"]), **fast)
+                    else:
+                        row["ms"] = time_ms(lambda: fb.fused_bottleneck(x, *w[:6]), **fast)
+                    row["plain_ms"] = time_ms(lambda: cg.xla_bottleneck(x, *w), **fast)
+                    row["model_block_ms"] = time_ms(
+                        lambda: entry["block"](entry["x"]), **fast)
+                row["library_ms"] = None
+                row["library_call"] = "none: no single call computes the block"
+                row["bound_ms"], row["bound_by"] = _bottleneck_bound_ms(
+                    b, h, cin, m, cout, ds, x.element_size())
+            emit({"phase": "rn50_blocks", "kernel": kname, **row})
+            cases[kname].append(row)
+        del plain, model_out
+
+    # f32 on one block (l2b1 at 8 images): both kernels against the plain version
+    entry = blocks["l2b1"]
+    x = entry["x_nhwc"][:8].float()
+    w = [t.float() for t in entry["weights"][:6]]
+    strip = cg.pick_strip_rows(x.shape[1], x.shape[2], w[0].shape[1], 4)
+    with torch.inference_mode():
+        plain = cg.xla_bottleneck(x, *w)
+        for kname, out in (("fused_bottleneck_gemm", cg.fused_bottleneck_gemm(
+                                x, *w, strip_rows=strip)),
+                           ("fused_bottleneck", fb.fused_bottleneck(x, *w))):
+            err, scale, cos = _block_close(out, plain)
+            row = {"case": "l2b1_f32", "shape": list(x.shape) + [w[0].shape[1], w[4].shape[1]],
+                   "downsample": False, "dtype": "torch.float32", "strip_rows": strip,
+                   "max_abs_err": err, "scale": scale, "cosine": cos}
+            if not err <= 1e-4 * scale:
+                bad.append(f"{kname} l2b1_f32")
+            emit({"phase": "rn50_blocks", "kernel": kname, **row})
+            cases[kname].append(row)
+    if bad:
+        raise AssertionError(f"bottleneck kernels disagree: {bad}")
+    return {"rn50_blocks": launches}, cases
 
 
 def phase_vit():
@@ -947,8 +1203,13 @@ def main():
     info = phase_device()
     phase_build()
     cases = phase_kernels()
-    launches = {}
-    launches.update(phase_slice())
+    launches, slice_perf = phase_slice()
+    fuse_launches, folded = phase_fuse_bn(slice_perf)
+    launches.update(fuse_launches)
+    block_launches, block_cases = phase_rn50_blocks(folded)
+    launches.update(block_launches)
+    cases.update(block_cases)
+    del folded
     launches.update(phase_vit())
     launches.update(phase_qtiled())
     launches.update(phase_train())
@@ -976,6 +1237,12 @@ def main():
         _kernel_line("flash_attention_dkv", "flash_attention.cu",
                      "debiasing_multi_modal_tpu/ops/flash_attention.py:298",
                      cases["flash_attention_dkv"], launches, card),
+        _kernel_line("fused_bottleneck_gemm", "bottleneck.cu",
+                     "debiasing_multi_modal_tpu/ops/conv_gemm.py:44",
+                     cases["fused_bottleneck_gemm"], launches, card),
+        _kernel_line("fused_bottleneck", "bottleneck.cu",
+                     "debiasing_multi_modal_tpu/ops/fused_bottleneck.py:41",
+                     cases["fused_bottleneck"], launches, card),
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],

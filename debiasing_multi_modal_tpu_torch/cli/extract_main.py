@@ -10,8 +10,9 @@ Runs on ``cuda`` (bf16 towers) unless ``--device cpu`` (f32).  Without
 testing).  Every ResNet and ViT backbone runs; ``--quantize int8`` (the
 plain integer product) or ``int8_pallas`` (kernel 7) quantizes the ViT image
 tower's Dense GEMMs and raises ``ValueError`` on a ResNet, as the JAX CLI
-refuses it.  ``--tensor_parallel`` above 1 and ``--fuse_bn`` are not ported
-yet and raise.
+refuses it.  ``--fuse_bn`` folds a ResNet's frozen BatchNorms into its
+convs (``weights/fold.py``) after loading or seeding the weights, and exits
+on a ViT.  ``--tensor_parallel`` above 1 is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ def build_parser():
     p.add_argument("--host_resolution", type=int, default=224,
                    help="host-side resize/crop target; 0 = raw decode, geometry on device")
     p.add_argument("--fuse_bn", action="store_true",
-                   help="fold the frozen ResNet BatchNorms into the convs (not yet ported)")
+                   help="fold the frozen ResNet BatchNorms into the convs (ResNet only)")
     p.add_argument("--profile_dir", default=None,
                    help="write a torch.profiler trace of the first split here")
     p.add_argument("--num_workers", type=int, default=None,
@@ -67,8 +68,6 @@ def build_parser():
 def main(args):
     if args.tensor_parallel > 1:
         raise NotImplementedError("--tensor_parallel > 1 is not yet ported")
-    if args.fuse_bn:
-        raise NotImplementedError("--fuse_bn is not yet ported")
 
     from debiasing_multi_modal_tpu_torch.data.embeddings_store import (
         EmbeddingTable,
@@ -93,6 +92,7 @@ def main(args):
         clip_from_state_dict,
         load_openai_checkpoint,
     )
+    from debiasing_multi_modal_tpu_torch.weights.fold import fold_resnet_bn
 
     device = resolve_device(args.device)
     dtype = compute_dtype(device)
@@ -106,6 +106,13 @@ def main(args):
         model = create_clip(args.backbone, dtype=dtype, device=device,
                             quant=args.quantize)
         print(f"WARNING: no --checkpoint given; {args.backbone} runs with random weights")
+    if args.fuse_bn:
+        if model.config.is_vit:
+            raise SystemExit("--fuse_bn applies to ResNet backbones only")
+        folded = fold_resnet_bn({k: v.cpu().numpy() for k, v in model.state_dict().items()})
+        model = clip_from_state_dict(folded, name=model.config.name, dtype=dtype,
+                                     device=device, fuse_bn=True)
+        print("folded frozen BatchNorms into the convolutions")
     if args.quantize != "none":
         print(f"vision tower Dense GEMMs running {args.quantize} W8A8")
 

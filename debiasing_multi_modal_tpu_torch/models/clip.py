@@ -38,7 +38,8 @@ def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 0.0) -> torch.Tens
 
 class CLIP(TextTransformer):
     def __init__(self, config: CLIPConfig, attn_impl: str = "auto",
-                 quant: str = "none", fuse_qkv: bool = False, remat: bool = False):
+                 quant: str = "none", fuse_qkv: bool = False, remat: bool = False,
+                 fuse_bn: bool = False):
         cfg = config
         if not cfg.is_vit and quant != "none":
             raise ValueError(
@@ -64,7 +65,7 @@ class CLIP(TextTransformer):
             self.visual = ModifiedResNet(
                 layers=cfg.vision_layers, output_dim=cfg.embed_dim,
                 heads=cfg.vision_heads, input_resolution=cfg.image_resolution,
-                width=cfg.vision_width, dtype=cfg.dtype,
+                width=cfg.vision_width, dtype=cfg.dtype, fuse_bn=fuse_bn,
             )
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
 
@@ -86,7 +87,8 @@ class CLIP(TextTransformer):
 def init_weights(model: CLIP, generator: torch.Generator) -> None:
     """Seeded random weights at the real shapes, drawn on the CPU (so a seed
     gives the same weights on every device): lecun-normal projections and
-    convolutions, zero biases, identity BatchNorms, and the reference's stds
+    convolutions, zero biases (the folded convs' too), identity BatchNorms,
+    and the reference's stds
     for the embeddings (clip/model.py:306-334)."""
 
     def normal_(p: torch.Tensor, std: float):
@@ -130,15 +132,16 @@ def create_clip(name_or_config, dtype=None, attn_impl: str = "auto",
     JAX package's; ``quant`` is "none", "int8" (the plain integer product)
     or "int8_pallas" (kernel 7), ViT only and inference only, as in the JAX
     package; ``fuse_qkv`` feeds one fused in-projection GEMM to kernel 3.
-    ``fuse_bn`` is not yet ported and raises."""
-    if fuse_bn:
-        raise NotImplementedError("fuse_bn=True is not yet ported")
+    ``fuse_bn`` builds the ResNet tower with its BatchNorms folded into the
+    convs (biased convs, no BatchNorm modules: load weights from
+    ``weights/fold.py``); a ViT ignores it, as in the JAX package."""
     dev = resolve_device(device)
     if isinstance(name_or_config, CLIPConfig):
         cfg = name_or_config if dtype is None else name_or_config.with_dtype(dtype)
     else:
         cfg = get_config(name_or_config, dtype=torch.float32 if dtype is None else dtype)
-    model = CLIP(cfg, attn_impl=attn_impl, quant=quant, fuse_qkv=fuse_qkv, remat=remat)
+    model = CLIP(cfg, attn_impl=attn_impl, quant=quant, fuse_qkv=fuse_qkv, remat=remat,
+                 fuse_bn=fuse_bn)
     init_weights(model, generator if generator is not None
                  else torch.Generator().manual_seed(0))
     return model.to(dev).eval().requires_grad_(False)

@@ -11,7 +11,10 @@ The public input is NHWC like the JAX tower's; inside, activations are NCHW
 tensors in channels-last memory.  Convolutions are ``F.conv2d`` (the JAX
 package leaves them to XLA, outside any kernel), computed in ``dtype`` with
 the f32 weights cast at use; BatchNorms apply their running statistics in f32
-(:class:`InferenceBatchNorm`).  The single-query attention pool uses the
+(:class:`InferenceBatchNorm`).  With ``fuse_bn`` (weights from
+``weights/fold.py``) every conv carries a bias and no BatchNorm exists: the
+conv output is rounded to ``dtype`` and the bias added in ``dtype``, as
+flax's biased ``nn.Conv`` does.  The single-query attention pool uses the
 plain attention formulation (``impl="xla"``), as the JAX tower pins.
 """
 
@@ -28,36 +31,46 @@ from debiasing_multi_modal_tpu_torch.ops.attention import dot_product_attention
 
 
 def _conv(x: torch.Tensor, layer: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
-    return F.conv2d(x.to(dtype), layer.weight.to(dtype), None, layer.stride,
-                    layer.padding)
+    y = F.conv2d(x.to(dtype), layer.weight.to(dtype), None, layer.stride,
+                 layer.padding)
+    if layer.bias is not None:  # folded BatchNorm: added in dtype, as flax
+        y = y + layer.bias.to(dtype)[:, None, None]
+    return y
 
 
-def _conv_layer(cin: int, cout: int, kernel: int, stride: int = 1) -> nn.Conv2d:
+def _conv_layer(cin: int, cout: int, kernel: int, stride: int = 1,
+                bias: bool = False) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, kernel, stride=stride, padding=kernel // 2,
-                     bias=False)
+                     bias=bias)
+
+
+def _bn(features: int, fuse_bn: bool) -> nn.Module:
+    """The BatchNorm after a conv, or nothing (no state-dict keys) when it is
+    folded into the conv."""
+    return nn.Identity() if fuse_bn else InferenceBatchNorm(features)
 
 
 class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 dtype=torch.float32):
+                 dtype=torch.float32, fuse_bn: bool = False):
         super().__init__()
         out_planes = planes * self.expansion
         self.dtype = dtype
         self.stride = stride
-        self.conv1 = _conv_layer(inplanes, planes, 1)
-        self.bn1 = InferenceBatchNorm(planes)
-        self.conv2 = _conv_layer(planes, planes, 3)
-        self.bn2 = InferenceBatchNorm(planes)
-        self.conv3 = _conv_layer(planes, out_planes, 1)
-        self.bn3 = InferenceBatchNorm(out_planes)
+        self.conv1 = _conv_layer(inplanes, planes, 1, bias=fuse_bn)
+        self.bn1 = _bn(planes, fuse_bn)
+        self.conv2 = _conv_layer(planes, planes, 3, bias=fuse_bn)
+        self.bn2 = _bn(planes, fuse_bn)
+        self.conv3 = _conv_layer(planes, out_planes, 1, bias=fuse_bn)
+        self.bn3 = _bn(out_planes, fuse_bn)
         self.downsample = None
         if stride > 1 or inplanes != out_planes:
             # OpenAI's keys: downsample.0 (conv), downsample.1 (BN)
             self.downsample = nn.ModuleList([
-                _conv_layer(inplanes, out_planes, 1),
-                InferenceBatchNorm(out_planes),
+                _conv_layer(inplanes, out_planes, 1, bias=fuse_bn),
+                _bn(out_planes, fuse_bn),
             ])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -114,22 +127,22 @@ class AttentionPool2d(nn.Module):
 class ModifiedResNet(nn.Module):
     def __init__(self, layers: Tuple[int, int, int, int], output_dim: int,
                  heads: int, input_resolution: int = 224, width: int = 64,
-                 dtype=torch.float32):
+                 dtype=torch.float32, fuse_bn: bool = False):
         super().__init__()
         self.dtype = dtype
-        self.conv1 = _conv_layer(3, width // 2, 3, stride=2)
-        self.bn1 = InferenceBatchNorm(width // 2)
-        self.conv2 = _conv_layer(width // 2, width // 2, 3)
-        self.bn2 = InferenceBatchNorm(width // 2)
-        self.conv3 = _conv_layer(width // 2, width, 3)
-        self.bn3 = InferenceBatchNorm(width)
+        self.conv1 = _conv_layer(3, width // 2, 3, stride=2, bias=fuse_bn)
+        self.bn1 = _bn(width // 2, fuse_bn)
+        self.conv2 = _conv_layer(width // 2, width // 2, 3, bias=fuse_bn)
+        self.bn2 = _bn(width // 2, fuse_bn)
+        self.conv3 = _conv_layer(width // 2, width, 3, bias=fuse_bn)
+        self.bn3 = _bn(width, fuse_bn)
         inplanes = width
         for stage, (mult, blocks) in enumerate(zip((1, 2, 4, 8), layers), start=1):
             planes = width * mult
             stage_blocks = []
             for block in range(blocks):
                 stride = 2 if (block == 0 and stage > 1) else 1
-                stage_blocks.append(Bottleneck(inplanes, planes, stride, dtype))
+                stage_blocks.append(Bottleneck(inplanes, planes, stride, dtype, fuse_bn))
                 inplanes = planes * Bottleneck.expansion
             setattr(self, f"layer{stage}", nn.Sequential(*stage_blocks))
         self.attnpool = AttentionPool2d(input_resolution // 32, width * 32,

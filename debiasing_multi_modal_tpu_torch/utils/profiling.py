@@ -10,6 +10,16 @@ random weights, the shapes ``chip_smoke.py`` drives):
         [--backbone RN50|ViT-B/32|...] [--quant none|int8|int8_pallas] \
         [--fuse_qkv] [--batch 256] [--out DIR]
 
+with ``--fuse_bn`` (a ResNet), the same image stages for the tower with its
+BatchNorms folded (``weights/fold.py``) beside the unfused tower's; with
+``--bottleneck``, kernels 8 and 9 (``ops/conv_gemm.py``,
+``ops/fused_bottleneck.py``) against their plain version and the model's
+own folded block at RN50's stride-1 block shapes (the port's counterpart of
+``scripts/profile_conv_gemm.py``):
+
+    python -m debiasing_multi_modal_tpu_torch.utils.profiling --fuse_bn
+    python -m debiasing_multi_modal_tpu_torch.utils.profiling --bottleneck [--batch 256]
+
 or, with ``--train``, one training step of the symmetric contrastive loss
 through the whole CLIP (bf16 compute, f32 parameters, ``torch.optim.SGD``;
 ``--backbone`` default ViT-B/32, ``--attn_impl`` default "pallas",
@@ -27,6 +37,11 @@ through the whole CLIP (bf16 compute, f32 parameters, ``torch.optim.SGD``;
 - ``kernels``: device time summed by kernel name under ``torch.profiler``
   over a few image steps and text encodes, with the share of the profiled
   wall time in which no kernel ran (``idle_share``).
+- ``image_stages_ms`` with ``fuse_bn`` true and false (``--fuse_bn``);
+- ``bottleneck_ms`` (``--bottleneck``): per block shape, the device ms of
+  kernel 8 at each ``strip_rows`` and ``images_per_cell`` whose tiles fit
+  shared memory, of kernel 9 at its own strip, of the plain version and of
+  the model's ``Bottleneck.forward``, with the block's FLOP count;
 - ``train_stages`` (``--train``): device time of each stage of one training
   step (preprocess, forward with the image tower and the text transformer
   inside it, backward, optimizer), from CUDA events; ``train_step_kernels``:
@@ -233,6 +248,78 @@ def train_stages(model, opt, images, tokens, reps=10):
             h.remove()
 
 
+def device_ms(fn, runs=10, calls=5, warmup=2):
+    """Median device ms of one call: CUDA events around ``calls``
+    back-to-back calls, over ``runs`` runs."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = _event()
+        for _ in range(calls):
+            fn()
+        end = _event()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+# RN50's stride-1 bottleneck blocks: (name, H = W, Cin, M, Cout, downsample)
+BOTTLENECK_SHAPES = [
+    ("l1b0_ds", 56, 64, 64, 256, True),
+    ("l1b1", 56, 256, 64, 256, False),
+    ("l2b1", 28, 512, 128, 512, False),
+    ("l3b1", 14, 1024, 256, 1024, False),
+    ("l4b1", 7, 2048, 512, 2048, False),
+]
+
+
+def bottleneck_profile(batch, card, strips=(4, 7, 8, 14, 28), groups=(1, 2)):
+    """One ``bottleneck_ms`` line per block shape (bf16, seeded random
+    folded weights; see the module docstring)."""
+    import torch
+
+    from debiasing_multi_modal_tpu_torch.models.resnet import Bottleneck
+    from debiasing_multi_modal_tpu_torch.ops import conv_gemm as cg
+    from debiasing_multi_modal_tpu_torch.ops import fused_bottleneck as fb
+
+    gen = torch.Generator().manual_seed(0)
+    for name, h, cin, m, cout, ds in BOTTLENECK_SHAPES:
+        block = Bottleneck(cin, m, dtype=torch.bfloat16, fuse_bn=True)
+        with torch.no_grad():
+            for prm in block.parameters():  # lecun-normal weights, N(0, 0.1^2) biases
+                std = prm[0].numel() ** -0.5 if prm.ndim > 1 else 0.1
+                prm.copy_(torch.randn(prm.shape, generator=gen) * std)
+        block = block.cuda().eval()
+        x = torch.randn(batch, cin, h, h, generator=gen).to("cuda", torch.bfloat16)
+        x = x.contiguous(memory_format=torch.channels_last)
+        xn, w = x.permute(0, 2, 3, 1), cg.block_weights(block)
+        macs = cin * m + 9 * m * m + m * cout + (cin * cout if ds else 0)
+        row = {"profile": "bottleneck_ms", "card": card, "block": name, "batch": batch,
+               "dtype": "bfloat16", "flops": 2 * batch * h * h * macs}
+        with torch.inference_mode():
+            row["plain_ms"] = device_ms(lambda: cg.xla_bottleneck(xn, *w))
+            row["model_block_ms"] = device_ms(lambda: block(x))
+            for strip in strips:
+                for g in groups:
+                    key = f"kernel8_s{strip}_g{g}_ms"
+                    if h % strip or batch % g:
+                        continue
+                    if cg.smem_bytes(h, m, strip, g, 2) > cg.SMEM_LIMIT_BYTES:
+                        row[key] = "does not fit shared memory"
+                        continue
+                    row[key] = device_ms(lambda: cg.fused_bottleneck_gemm(
+                        xn, *w, strip_rows=strip, images_per_cell=g))
+            if not ds:
+                row["kernel9_strip"] = fb.strip_rows(h, h, m, 2)
+                row["kernel9_ms"] = device_ms(lambda: fb.fused_bottleneck(xn, *w[:6]))
+        print(json.dumps(row), flush=True)
+        del block, x, xn, w
+
+
 def kernel_breakdown(fn, reps=3, top=20, log_dir=None):
     """Device time by kernel name over ``reps`` calls of ``fn`` under the
     profiler, and the share of the profiled wall time with no kernel running."""
@@ -290,6 +377,10 @@ def main(argv=None):
     p.add_argument("--attn_impl", default="pallas", choices=["pallas", "auto", "xla"],
                    help="attention of the --train model")
     p.add_argument("--remat", action="store_true", help="rematerialize blocks (--train)")
+    p.add_argument("--fuse_bn", action="store_true",
+                   help="image stages of the folded ResNet tower beside the unfused one")
+    p.add_argument("--bottleneck", action="store_true",
+                   help="kernels 8 and 9 at RN50's stride-1 block shapes")
     args = p.parse_args(argv)
     if args.batch is None:
         args.batch = 128 if args.train else 256
@@ -311,6 +402,9 @@ def main(argv=None):
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
 
+    if args.bottleneck:
+        bottleneck_profile(args.batch, card)
+        return
     rng = np.random.default_rng(0)
     n, hw = args.batch, args.image_hw
     tokens = np.zeros((n, 77), np.int64)
@@ -333,8 +427,8 @@ def main(argv=None):
     model = create_clip(args.backbone, dtype=torch.bfloat16, device="cuda",
                         generator=torch.Generator().manual_seed(0),
                         quant=args.quant, fuse_qkv=args.fuse_qkv)
-    runner = ExtractionRunner(
-        model, rng.standard_normal((2, model.config.embed_dim)).astype(np.float32))
+    zs = rng.standard_normal((2, model.config.embed_dim)).astype(np.float32)
+    runner = ExtractionRunner(model, zs)
     uploaded = runner.upload_batch(rng.integers(0, 256, (n, hw, hw, 3), dtype=np.uint8))
 
     def text_encode():
@@ -343,13 +437,27 @@ def main(argv=None):
 
     head = {"card": card, "backbone": args.backbone, "quant": args.quant,
             "fuse_qkv": args.fuse_qkv, "batch": n, "image_hw": [hw, hw],
-            "dtype": "bfloat16"}
+            "dtype": "bfloat16", "fuse_bn": False}
+    out = args.out
     stages = vit_image_stages if model.config.is_vit else image_stages
     print(json.dumps({"profile": "image_stages_ms", **head,
                       **stages(runner, uploaded)}), flush=True)
+    if args.fuse_bn:
+        from debiasing_multi_modal_tpu_torch.weights.convert import clip_from_state_dict
+        from debiasing_multi_modal_tpu_torch.weights.fold import fold_resnet_bn
+
+        folded = clip_from_state_dict(
+            fold_resnet_bn({k: v.cpu().numpy() for k, v in model.state_dict().items()}),
+            name=args.backbone, dtype=torch.bfloat16, device="cuda", fuse_bn=True)
+        f_runner = ExtractionRunner(folded, zs)
+        print(json.dumps({"profile": "image_stages_ms", **head, "fuse_bn": True,
+                          **image_stages(f_runner, uploaded)}), flush=True)
+        print(json.dumps({"profile": "image_step_kernels", **head, "fuse_bn": True,
+                          **kernel_breakdown(lambda: f_runner.encode_batch_async(uploaded),
+                                             log_dir=out and os.path.join(out, "image_fused"))}),
+              flush=True)
     print(json.dumps({"profile": "text_stages_ms", **head,
                       **text_stages(model, tokens)}), flush=True)
-    out = args.out
     print(json.dumps({"profile": "image_step_kernels", **head, **kernel_breakdown(
         lambda: runner.encode_batch_async(uploaded),
         log_dir=out and os.path.join(out, "image"))}), flush=True)

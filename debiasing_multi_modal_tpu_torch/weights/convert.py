@@ -16,6 +16,8 @@ and carries the JAX package's weights across
   channel) order, the inverse of JAX's ``transpose(2, 3, 1, 0).reshape``)
 - separate q/k/v Dense kernels     -> packed ``in_proj_weight [3D, D]``
 - ``batch_stats`` mean/var         -> ``running_mean`` / ``running_var``
+- a folded tree (JAX ``fold_resnet_bn``, no visual ``batch_stats``) -> conv
+  ``weight`` and ``bias``, no BatchNorm keys
 
 Every array comes out as f32 numpy.
 """
@@ -102,17 +104,19 @@ def config_from_state_dict(sd: Mapping[str, np.ndarray], name: str = "converted"
 
 def clip_from_state_dict(sd: Mapping[str, np.ndarray], name: str = "converted",
                          dtype=None, attn_impl: str = "auto", device=None,
-                         quant: str = "none", fuse_qkv: bool = False):
+                         quant: str = "none", fuse_qkv: bool = False,
+                         fuse_bn: bool = False):
     """A CLIP model with the architecture sniffed from ``sd`` and its weights
     loaded (strictly, after dropping the archive's non-parameter entries).
     ``quant`` and ``fuse_qkv`` change no parameter, so every checkpoint
-    loads into every variant."""
+    loads into every variant; ``fuse_bn`` takes a folded ResNet dict
+    (``weights/fold.py``: biased convs, no visual BatchNorms)."""
     from debiasing_multi_modal_tpu_torch.models.clip import create_clip
 
     dev = resolve_device(device)
     cfg = config_from_state_dict(sd, name=name)
     model = create_clip(cfg, dtype=dtype, attn_impl=attn_impl, device="cpu",
-                        quant=quant, fuse_qkv=fuse_qkv)
+                        fuse_bn=fuse_bn, quant=quant, fuse_qkv=fuse_qkv)
     model.load_state_dict(
         {k: torch.as_tensor(np.asarray(v)) for k, v in sd.items()
          if k not in _NON_PARAM_KEYS},
@@ -136,6 +140,8 @@ def _dense(out, prefix, node):
 
 def _conv(out, prefix, node):
     out[f"{prefix}.weight"] = _f32(node["kernel"]).transpose(3, 2, 0, 1)
+    if "bias" in node:  # a folded-BN conv (fuse_bn)
+        out[f"{prefix}.bias"] = _f32(node["bias"])
 
 
 def _bn(out, prefix, params, stats):
@@ -192,22 +198,28 @@ def _vit(out, visual):
 
 
 def _resnet(out, visual, vstats):
+    """``vstats`` is None for a folded tree (the JAX ``fold_resnet_bn``'s
+    output: biased convs, no BatchNorms)."""
     for i in (1, 2, 3):
         _conv(out, f"visual.conv{i}", visual[f"conv{i}"])
-        _bn(out, f"visual.bn{i}", visual[f"bn{i}"], vstats[f"bn{i}"])
+        if vstats is not None:
+            _bn(out, f"visual.bn{i}", visual[f"bn{i}"], vstats[f"bn{i}"])
     blocks = sorted(
         (int(m.group(1)), int(m.group(2)), k) for k in visual
         if (m := re.fullmatch(r"layer(\d)_(\d+)", k))
     )
     for stage, blk, key in blocks:
-        node, st = visual[key], vstats[key]
+        node = visual[key]
         t = f"visual.layer{stage}.{blk}"
         for c in (1, 2, 3):
             _conv(out, f"{t}.conv{c}", node[f"conv{c}"])
-            _bn(out, f"{t}.bn{c}", node[f"bn{c}"], st[f"bn{c}"])
+            if vstats is not None:
+                _bn(out, f"{t}.bn{c}", node[f"bn{c}"], vstats[key][f"bn{c}"])
         if "downsample_conv" in node:
             _conv(out, f"{t}.downsample.0", node["downsample_conv"])
-            _bn(out, f"{t}.downsample.1", node["downsample_bn"], st["downsample_bn"])
+            if vstats is not None:
+                _bn(out, f"{t}.downsample.1", node["downsample_bn"],
+                    vstats[key]["downsample_bn"])
     pool = visual["attnpool"]
     out["visual.attnpool.positional_embedding"] = _f32(pool["positional_embedding"])
     for proj in ("q_proj", "k_proj", "v_proj", "c_proj"):
@@ -222,7 +234,7 @@ def state_dict_from_jax_variables(variables: Mapping[str, Any]) -> Dict[str, np.
     out: Dict[str, np.ndarray] = {}
     visual = params["visual"]
     if "attnpool" in visual:
-        _resnet(out, visual, stats["visual"])
+        _resnet(out, visual, stats.get("visual"))
     else:
         _vit(out, visual)
 

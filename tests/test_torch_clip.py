@@ -157,13 +157,22 @@ def test_create_clip_without_cuda_needs_cpu():
 
 
 def test_vit_and_options_not_yet_ported():
-    """ViT-B/32 builds now, at its full shapes; ``fuse_bn`` still raises."""
+    """ViT-B/32 builds at its full shapes (and ignores ``fuse_bn``, as the
+    JAX package does); ``fuse_bn=True`` builds a ResNet tower whose convs
+    carry zero biases and which has no BatchNorm modules."""
     from debiasing_multi_modal_tpu_torch.models import VisionTransformer
+    from debiasing_multi_modal_tpu_torch.models.layers import InferenceBatchNorm
 
-    model = create_clip("ViT-B/32", device="cpu")
+    model = create_clip("ViT-B/32", device="cpu", fuse_bn=True)
     assert isinstance(model.visual, VisionTransformer)
     assert model.visual.conv1.weight.shape == (768, 3, 32, 32)
     assert model.visual.positional_embedding.shape == (50, 768)
     assert len(model.visual.transformer.resblocks) == 12
-    with pytest.raises(NotImplementedError):
-        create_clip(CLIPConfig(**SMALL_RN), device="cpu", fuse_bn=True)
+    folded = create_clip(CLIPConfig(**SMALL_RN), device="cpu", fuse_bn=True)
+    convs = [m for m in folded.visual.modules() if isinstance(m, torch.nn.Conv2d)]
+    assert len(convs) == 3 + 4 * 3 + 4  # stem, three per block, four downsamples
+    assert all(c.bias is not None and not c.bias.any() for c in convs)
+    assert not any(isinstance(m, InferenceBatchNorm) for m in folded.modules())
+    keys = set(folded.state_dict())
+    assert "visual.layer1.0.downsample.0.bias" in keys and "visual.conv1.bias" in keys
+    assert not any(".bn" in k or "downsample.1" in k for k in keys)

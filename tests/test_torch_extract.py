@@ -267,19 +267,29 @@ def _check_caches(out, backbone_dir, dim):
 
 def test_cli_extracts_waterbirds_on_cpu(tmp_path, synthetic_bpe):
     """The port's CLI end to end on the CPU (full-width RN50, random
-    weights): the caches it writes load in the JAX package.  ``--quantize``
-    on a ResNet raises ``ValueError``, as the JAX CLI refuses it;
-    ``--fuse_bn`` and ``--tensor_parallel 2`` are not ported yet."""
+    weights), unfused and with ``--fuse_bn``: the caches it writes load in
+    the JAX package, and with identity BatchNorms folding changes nothing
+    beyond f32 rounding.  ``--fuse_bn`` on a ViT exits, as the JAX CLI
+    does; ``--quantize`` on a ResNet raises ``ValueError``, as the JAX CLI
+    refuses it; ``--tensor_parallel 2`` is not ported yet."""
     from debiasing_multi_modal_tpu_torch.cli import extract_main
 
-    out = _run_cli(_waterbirds_tree(tmp_path))
-    _check_caches(out, "RN50", 1024)
+    data = _waterbirds_tree(tmp_path)
+    out = _run_cli(data)
+    plain = _check_caches(out, "RN50", 1024)
+    _run_cli(data, "--fuse_bn", "--embedding_dir", "emb_fused")
+    folded = _check_caches(data / "emb_fused" / "waterbirds", "RN50", 1024)
+    _close(folded.embeddings, plain.embeddings)
+    np.testing.assert_array_equal(folded.y_pred, plain.y_pred)
+    with pytest.raises(SystemExit, match="ResNet backbones only"):
+        extract_main.main(extract_main.build_parser().parse_args(
+            ["--device", "cpu", "--backbone", "ViT-B/32", "--fuse_bn"]))
     with pytest.raises(ValueError, match="ViT-only"):
         extract_main.main(extract_main.build_parser().parse_args(
             ["--device", "cpu", "--quantize", "int8"]))
-    for flag in (["--fuse_bn"], ["--tensor_parallel", "2"]):
-        with pytest.raises(NotImplementedError):
-            extract_main.main(extract_main.build_parser().parse_args(["--device", "cpu", *flag]))
+    with pytest.raises(NotImplementedError):
+        extract_main.main(extract_main.build_parser().parse_args(
+            ["--device", "cpu", "--tensor_parallel", "2"]))
     assert os.path.isdir(out)
 
 

@@ -1,7 +1,9 @@
 """The port stands alone: in a fresh interpreter (this test process has jax
 imported by tests/conftest.py), importing debiasing_multi_modal_tpu_torch and
-running tiny CPU extractions — a ResNet, and a ViT plain, with ``fuse_qkv``
-(the packed attention path) and with both int8 modes — and a contrastive
+running tiny CPU extractions — a ResNet, unfused and folded (``fuse_bn``,
+with the bottleneck kernels' wrappers on one of its blocks), and a ViT
+plain, with ``fuse_qkv`` (the packed attention path) and with both int8
+modes — and a contrastive
 gradient step through a ViT CLIP on the flash path with ``remat`` imports
 neither ``jax`` nor anything of ``debiasing_multi_modal_tpu``; importing the
 package alone imports no Triton and loads no kernel library."""
@@ -40,6 +42,20 @@ batches = [(rng.integers(0, 256, (2, 72, 96, 3), dtype=np.uint8),
              "split": np.zeros(2, np.int32)})]
 table = ExtractionRunner(model, text).run(iter(batches))
 assert table.embeddings.shape == (2, 32)
+
+from debiasing_multi_modal_tpu_torch.ops.conv_gemm import block_weights, fused_bottleneck_gemm
+from debiasing_multi_modal_tpu_torch.ops.fused_bottleneck import fused_bottleneck
+from debiasing_multi_modal_tpu_torch.weights.convert import clip_from_state_dict
+from debiasing_multi_modal_tpu_torch.weights.fold import fold_resnet_bn
+folded = clip_from_state_dict(fold_resnet_bn({k: v.numpy() for k, v in model.state_dict().items()}),
+                              device="cpu", fuse_bn=True)
+assert ExtractionRunner(folded, text).run(iter(batches)).embeddings.shape == (2, 32)
+assert fused_bottleneck_gemm(torch.zeros(1, 8, 8, 16),
+                             *block_weights(folded.visual.layer1[0])).shape == (1, 8, 8, 64)
+assert fused_bottleneck(torch.zeros(1, 4, 4, 32), torch.zeros(32, 8), torch.zeros(8),
+                        torch.zeros(3, 3, 8, 8), torch.zeros(8), torch.zeros(8, 32),
+                        torch.zeros(32)).shape == (1, 4, 4, 32)
+assert fused_bottleneck_gemm.launches == fused_bottleneck.launches == 0
 
 from debiasing_multi_modal_tpu_torch.ops.quant_gemm import int8_matmul
 from debiasing_multi_modal_tpu_torch.ops.short_attention import short_attention_packed
