@@ -10,12 +10,21 @@ line.
 1. device  — require CUDA; print the card's name, count and power limit
              (nvidia-smi); turn TF32 off for f32 matmuls and convolutions.
 2. build   — compile every kernel under debiasing_multi_modal_tpu_torch/csrc
-             with nvcc (one process per source, all started together).
+             with nvcc (one process per source, all started together); print
+             the registers and spills of kernels 1 and 3 (-Xptxas=-v).
 3. kernels — hold each kernel against its plain PyTorch version on the card
              at the main paths' shapes, and time kernel, plain version and the
              PyTorch library call that computes the same function (yardstick
-             only; the port never calls it): kernel 1 (whole-row attention),
-             kernel 2 (q-tiled), kernel 3 (packed), kernel 7 (int8 GEMM), and
+             only; the port never calls it): kernel 1 (whole-row attention;
+             bf16 on the tensor cores, timed at the text and ViT-B/32 image
+             shapes, f32 on the CUDA cores at the text shape; the attention
+             kernels, their plain versions and SDPA timed by CUDA-graph replay,
+             so a wrapper's host time stays out), kernel 2
+             (q-tiled), kernel 3 (packed, timed at both shapes), with ragged
+             bf16 S from 1 to the gate's largest (832 at hd 64) for kernels 1
+             and 3, and the order checks (kernel 3 bit-equal to kernel 1 in
+             both dtypes, kernel 2 bit-equal to kernel 1 in f32 and within the
+             bf16 limits in bf16), kernel 7 (int8 GEMM), and
              kernels 4, 5, 6 (flash forward, dQ, dK/dV) at the training
              step's two shapes, a long S=4096 shape, a ragged cross shape and
              hd=32 and hd=128 (SDPA, forward and backward, as yardsticks).
@@ -108,6 +117,29 @@ def time_ms(fn, runs=20, calls=20, warmup=5):
     return statistics.median(times)
 
 
+def graph_ms(fn, runs=20, calls=20, warmup=5):
+    """Device time of one call with the host out of the way: ``calls`` calls
+    captured once in a CUDA graph, then :func:`time_ms` of its replay,
+    divided by ``calls``.  A kernel of a few tens of microseconds is shorter
+    than its Python wrapper's host time on a loaded host, where
+    :func:`time_ms` would time the host."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = time_ms(graph.replay, runs=runs, calls=1, warmup=2) / calls
+    del graph
+    return ms
+
+
 def phase_device():
     import torch
 
@@ -132,6 +164,9 @@ def phase_build():
     seconds = cuda_build.build_all()
     emit({"phase": "build", "kernels": cuda_build.kernel_names(),
           "seconds": seconds})
+    # registers and spills of kernels 1 and 3 (nvcc -Xptxas=-v)
+    emit({"phase": "build", "ptxas": "short_attention.cu",
+          "functions": cuda_build.ptxas_usage("short_attention")})
 
 
 def _attention_bound_ms(b, s, d, h, causal, dtype, itemsize):
@@ -200,16 +235,60 @@ def _attention_case(kernel, plain, label, b, s, d, h, causal, dtype, tol, gen,
     if not (err <= tol and (dtype == torch.float32 or cos >= 0.9999)):
         raise AssertionError(f"{kernel.__name__} disagrees with its plain version: {row}")
     if timed:
+        # device times by CUDA-graph replay; "events_ms" is the kernel timed
+        # as earlier runs timed it, with its wrapper's host time behind it
         heads = [_heads(x, h) for x in (q, k, v)]
-        row["ms"] = time_ms(lambda: kernel(*args, causal=causal))
-        row["plain_ms"] = time_ms(lambda: plain(*args, causal))
-        row["library_ms"] = time_ms(
+        row["ms"] = graph_ms(lambda: kernel(*args, causal=causal))
+        row["events_ms"] = time_ms(lambda: kernel(*args, causal=causal))
+        row["plain_ms"] = graph_ms(lambda: plain(*args, causal))
+        row["library_ms"] = graph_ms(
             lambda: F.scaled_dot_product_attention(*heads, is_causal=causal))
         row["library_call"] = "torch.nn.functional.scaled_dot_product_attention"
         row["bound_ms"], row["bound_by"] = _attention_bound_ms(
             b, s, d, h, causal, dtype, q.element_size())
     emit({"phase": "kernels", "kernel": kernel.__name__, **row})
     return row
+
+
+# Ragged bf16 S at hd 64 for kernels 1 and 3: one key chunk in registers (1,
+# 17, 50, 77), two passes over 64-key chunks (129, 257, 577), and the gate's
+# largest S (832); causal and not.
+RAGGED_S = [(f"ragged_s{s}_{'causal' if causal else 'noncausal'}_bf16", 3, s, 512, 8, causal)
+            for s in (1, 17, 50, 77, 129, 257, 577, 832) for causal in (False, True)]
+
+
+def _order_checks(gen):
+    """Kernel 3 runs kernel 1's device code, so the two are bit-equal in both
+    dtypes; kernel 2 sums in kernel 1's f32 order (bit-equal in f32), while
+    bf16 kernel 1 runs on the tensor cores, so there kernel 2 is held to the
+    bf16 limits (2e-2, cosine >= 0.9999).  Comparison launches, not counted
+    as the main path's."""
+    import torch
+    import torch.nn.functional as F
+
+    from debiasing_multi_modal_tpu_torch.ops import short_attention as sa
+
+    checks = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        q, k, v = (torch.randn(64, 77, 512, device="cuda", generator=gen).to(dtype)
+                   for _ in range(3))
+        k1 = sa.short_attention(q, k, v, 8, causal=True)
+        k2 = sa.short_attention_qtiled(q, k, v, 8, causal=True)
+        k3 = sa.short_attention_packed(torch.cat([q, k, v], -1), 8, causal=True)
+        checks[f"packed_equals_whole_row_{name}"] = torch.equal(k3, k1)
+        if dtype == torch.float32:
+            checks["qtiled_equals_whole_row_float32"] = torch.equal(k2, k1)
+        else:
+            err = (k2.float() - k1.float()).abs().max().item()
+            cos = F.cosine_similarity(k2.float().flatten(), k1.float().flatten(), dim=0).item()
+            checks.update(qtiled_vs_whole_row_bfloat16_max_abs=err,
+                          qtiled_vs_whole_row_bfloat16_cosine=cos,
+                          qtiled_within_bf16_limits_of_whole_row=err <= 2e-2 and cos >= 0.9999)
+    bad = [key for key, val in checks.items() if val is False]
+    if bad:
+        raise AssertionError(f"kernels 1-3 disagree: {bad} {checks}")
+    return checks
 
 
 def _int8_case(label, m, k, n, with_bias, out_dtype, gen, timed):
@@ -277,14 +356,17 @@ def phase_kernels():
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     bf16, f32 = torch.bfloat16, torch.float32
+    ragged = [(*case, bf16, 2e-2, False) for case in RAGGED_S]
     results = {"short_attention": [], "short_attention_qtiled": [],
                "short_attention_packed": [], "int8_matmul": []}
-    # (label, B, S, D, H, causal, dtype, max abs error, timed)
+    # (label, B, S, D, H, causal, dtype, max abs error, timed); bf16 runs on
+    # the tensor cores, f32 on the CUDA cores
     for case in [("text_rn50_bf16", 256, 77, 512, 8, True, bf16, 2e-2, True),
-                 ("text_rn50_f32", 256, 77, 512, 8, True, f32, 1e-5, False),
-                 ("vitb32_image_bf16", 256, 50, 768, 12, False, bf16, 2e-2, False),
+                 ("text_rn50_f32", 256, 77, 512, 8, True, f32, 1e-5, True),
+                 ("vitb32_image_bf16", 256, 50, 768, 12, False, bf16, 2e-2, True),
                  ("ragged_noncausal_bf16", 5, 50, 768, 12, False, bf16, 2e-2, False),
-                 ("ragged_noncausal_f32", 5, 50, 768, 12, False, f32, 1e-5, False)]:
+                 ("ragged_noncausal_f32", 5, 50, 768, 12, False, f32, 1e-5, False),
+                 *ragged]:
         results["short_attention"].append(_attention_case(
             sa.short_attention, sa.short_attention_reference, *case[:8], gen, case[8]))
     for case in [("vitl14_336_f32", 8, 577, 1024, 16, False, f32, 1e-5, True),
@@ -294,22 +376,12 @@ def phase_kernels():
             sa.short_attention_qtiled, sa.short_attention_reference, *case[:8], gen,
             case[8]))
     for case in [("vitb32_packed_bf16", 256, 50, 768, 12, False, bf16, 2e-2, True),
-                 ("text_packed_bf16", 256, 77, 512, 8, True, bf16, 2e-2, False)]:
+                 ("text_packed_bf16", 256, 77, 512, 8, True, bf16, 2e-2, True),
+                 *ragged]:
         results["short_attention_packed"].append(_attention_case(
             sa.short_attention_packed, sa.short_attention_packed_reference, *case[:8],
             gen, case[8], packed=True))
-    # kernels 2 and 3 sum in kernel 1's order: where both take a shape they
-    # agree bit for bit (comparison launches, not counted as the main path's)
-    q, k, v = (torch.randn(64, 77, 512, device="cuda", generator=gen).to(bf16)
-               for _ in range(3))
-    k1 = sa.short_attention(q, k, v, 8, causal=True)
-    same = {"qtiled_equals_whole_row": torch.equal(
-                sa.short_attention_qtiled(q, k, v, 8, causal=True), k1),
-            "packed_equals_whole_row": torch.equal(
-                sa.short_attention_packed(torch.cat([q, k, v], -1), 8, causal=True), k1)}
-    emit({"phase": "kernels", "check": "same_order", **same})
-    if not all(same.values()):
-        raise AssertionError(f"kernels 2/3 and kernel 1 disagree: {same}")
+    emit({"phase": "kernels", "check": "kernel_order", **_order_checks(gen)})
     # every shape the ViT-B/32 int8_pallas path launches: q/k/v/out_proj, c_fc, c_proj
     for case in [("vitb32_c_fc_bf16", 12800, 768, 3072, True, bf16, True),
                  ("vitb32_qkv_out_bf16", 12800, 768, 768, True, bf16, False),
@@ -1175,10 +1247,14 @@ def phase_train():
     return launches
 
 
-def _kernel_line(name, source, replaces, cases, launches_by_path, card):
+TC_DESIGN = ("CUDA C++; bf16 on the tensor cores (mma.sync.m16n8k16, ldmatrix, 16-byte "
+             "cp.async into swizzled shared memory), f32 on the CUDA cores")
+
+
+def _kernel_line(name, source, replaces, cases, launches_by_path, card, design=None):
     main = next(c for c in cases if "ms" in c)
     by_path = {path: counts[name] for path, counts in launches_by_path.items()}
-    return {
+    line = {
         "name": name,
         "route": "cuda",
         "source": f"debiasing_multi_modal_tpu_torch/csrc/{source}",
@@ -1196,6 +1272,9 @@ def _kernel_line(name, source, replaces, cases, launches_by_path, card):
         "shape": main["shape"],
         "card": card,
     }
+    if design:
+        line["design"] = design
+    return line
 
 
 def main():
@@ -1218,13 +1297,13 @@ def main():
     emit({"kernels": [
         _kernel_line("short_attention", "short_attention.cu",
                      "debiasing_multi_modal_tpu/ops/short_attention.py:218",
-                     cases["short_attention"], launches, card),
+                     cases["short_attention"], launches, card, TC_DESIGN),
         _kernel_line("short_attention_qtiled", "short_attention_qtiled.cu",
                      "debiasing_multi_modal_tpu/ops/short_attention.py:308",
                      cases["short_attention_qtiled"], launches, card),
         _kernel_line("short_attention_packed", "short_attention.cu",
                      "debiasing_multi_modal_tpu/ops/short_attention.py:269",
-                     cases["short_attention_packed"], launches, card),
+                     cases["short_attention_packed"], launches, card, TC_DESIGN),
         _kernel_line("int8_matmul", "quant_gemm.cu",
                      "debiasing_multi_modal_tpu/ops/quant_gemm.py:36",
                      cases["int8_matmul"], launches, card),

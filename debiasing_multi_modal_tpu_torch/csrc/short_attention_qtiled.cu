@@ -18,10 +18,12 @@
 // The ragged S edge is masked, never padded in device memory; a causal tile
 // streams only the keys its last row sees.
 //
-// The arithmetic is kernel 1's in kernel 1's order: lane j%32 scores key j
+// The arithmetic is kernel 1's f32 code in its order: lane j%32 scores key j
 // with the same in-order f32 FMA chain over the head dim, the row sum is the
 // same lane-strided sum and shuffle tree, and P.V runs over keys in order.
-// So where both kernels take a shape their outputs agree bit for bit.
+// So where both kernels take an f32 shape their outputs agree bit for bit.
+// In bf16 kernel 1 runs on the tensor cores, in another order: there the two
+// agree within the bf16 limits, not bit for bit.
 //
 // What bounds it on the H100: at ViT-L/14@336px (S=577, hd=64) it does
 // ~4*S*hd flops per query row against ~4*hd elements of q/o and its share of

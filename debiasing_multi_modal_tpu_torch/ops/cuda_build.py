@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -26,12 +27,13 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _entries: Dict[tuple, object] = {}  # typed C functions, by (library, symbol)
+build_logs: Dict[str, str] = {}  # the compiler's output, by library built in this process
 
 
 def kernel_names() -> List[str]:
@@ -83,10 +85,35 @@ def build_all(names: Iterable[str] = None) -> float:
         if proc.returncode:
             errors.append(f"nvcc failed for {name}.cu:\n{log}")
         else:
+            build_logs[name] = log
             os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
     if errors:
         raise RuntimeError("\n".join(errors))
     return time.perf_counter() - t0
+
+
+def ptxas_usage(name: str) -> List[dict]:
+    """Registers, spill bytes and stack of every kernel in library ``name``,
+    read from ``-Xptxas=-v`` in its build log (empty if this process did not
+    build it)."""
+    rows, current = [], None
+    for line in build_logs.get(name, "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            current = {"function": m.group(1)}
+            rows.append(current)
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            current.update(stack_bytes=int(m.group(1)), spill_store_bytes=int(m.group(2)),
+                           spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            current["registers"] = int(m.group(1))
+    return rows
 
 
 def library(name: str) -> ctypes.CDLL:

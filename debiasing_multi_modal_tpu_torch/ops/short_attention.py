@@ -36,10 +36,14 @@ own launches (``short_attention.launches``, ``short_attention_qtiled.launches``,
 ``short_attention_packed.launches``).
 
 The H100 gates are derived from shared memory, against the 227 KB a block
-may use: kernel 1 and 3 stage one head's K_h and V_h (``[S, hd]`` each, rows
-padded by one 32-bit word) plus eight warps' score and query rows
-(:func:`smem_bytes`); kernel 2 stages 32 query rows' f32 score and query
-rows plus one 64-key tile (:func:`qtiled_smem_bytes`).  The TPU's VMEM
+may use: kernels 1 and 3 stage one head's K_h and V_h (``[S, hd]`` each),
+in bf16 rows rounded up to 16 and swizzled (no padding) plus one 16-row Q
+tile per warp, in f32 rows padded by one 32-bit word plus eight warps'
+score and query rows (:func:`smem_bytes`); kernel 2 stages 32 query rows'
+f32 score and query rows plus one 64-key tile (:func:`qtiled_smem_bytes`).
+In bf16 kernels 1 and 3 run on the tensor cores (``mma.sync``, ``ldmatrix``,
+16-byte ``cp.async``), which need 16-byte aligned base pointers; in f32 they
+run on the CUDA cores in kernel 2's summation order.  The TPU's VMEM
 constants (``MAX_SEQ_LEN``, ``CELL_VMEM_LIMIT``, ``TILED_CELL_LIMIT``,
 ``pick_block_q``), batch-block pickers and image merging do not carry over.
 """
@@ -67,10 +71,21 @@ def _padded_ld(hd: int, itemsize: int) -> int:
     return hd + (2 if itemsize == 2 else 1)
 
 
+def _tc_warps(s: int, hd: int) -> int:
+    """Warps of one bf16 kernel-1 block: one per 16 query rows, at most 8
+    (4 at hd 128), ``tc_warps`` in the CUDA source."""
+    return min(4 if hd == 128 else 8, -(-s // 16))
+
+
 def smem_bytes(s: int, hd: int, itemsize: int) -> int:
     """Dynamic shared memory of one kernel-1 (or kernel-3) block (mirrors
-    ``smem_bytes`` in the CUDA source): padded K_h and V_h, plus each warp's
-    f32 scores and query row."""
+    ``smem_bytes_bf16`` and ``smem_bytes_f32`` in the CUDA source).  bf16:
+    K_h and V_h with rows rounded up to 16, plus one 16-row Q tile per warp.
+    f32: padded K_h and V_h, plus each of eight warps' f32 scores and query
+    row."""
+    if itemsize == 2:
+        s16 = -(-s // 16) * 16
+        return 2 * s16 * hd * 2 + _tc_warps(s, hd) * 16 * hd * 2
     return 2 * s * _padded_ld(hd, itemsize) * itemsize + _WARPS * (s + hd) * 4
 
 
@@ -211,8 +226,17 @@ def _need_contiguous(name, *tensors):
         raise ValueError(f"{name} needs contiguous inputs")
 
 
+def _need_aligned(name, *tensors):
+    """The bf16 kernel copies 16-byte chunks with ``cp.async``: a base
+    pointer off a 16-byte boundary (a view whose storage offset is not a
+    multiple of 8 elements) would fault, so it raises here."""
+    if any(t.dtype == torch.bfloat16 and t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name} needs 16-byte aligned bf16 inputs")
+
+
 def _whole_row(q, k, v, num_heads, causal):
     _need_contiguous("short_attention", q, k, v)
+    _need_aligned("short_attention", q, k, v)
     out = torch.empty_like(q)
     b, s, d = q.shape
     cuda_build.launch("short_attention", "short_attention_forward", (q, k, v, out),
@@ -278,6 +302,7 @@ short_attention_qtiled.launches = 0
 
 def _packed(qkv, num_heads, causal):
     _need_contiguous("short_attention_packed", qkv)
+    _need_aligned("short_attention_packed", qkv)
     b, s, d3 = qkv.shape
     out = qkv.new_empty(b, s, d3 // 3)
     cuda_build.launch("short_attention", "short_attention_packed_forward", (qkv, out),

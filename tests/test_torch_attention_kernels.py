@@ -98,8 +98,10 @@ def test_gates_pick_whole_row_first_then_qtiled():
     # past kernel 2's score rows: neither
     too_long = qkv(2048, 512, torch.bfloat16)
     assert not sa.supported(*too_long, 8)
-    # the largest S each kernel takes at hd=64 (PERF.md records the table)
-    assert sa.smem_bytes(778, 64, 2) <= sa.SMEM_LIMIT_BYTES < sa.smem_bytes(779, 64, 2)
+    # the largest S each kernel takes at hd=64 (PERF.md records the table);
+    # bf16 kernel 1 (tensor cores, swizzled K_h/V_h, one Q tile per warp)
+    assert sa.smem_bytes(832, 64, 2) <= sa.SMEM_LIMIT_BYTES < sa.smem_bytes(833, 64, 2)
+    assert sa.smem_bytes(417, 64, 4) <= sa.SMEM_LIMIT_BYTES < sa.smem_bytes(418, 64, 4)
     assert (sa.qtiled_smem_bytes(1622, 64, 4) <= sa.SMEM_LIMIT_BYTES
             < sa.qtiled_smem_bytes(1623, 64, 4))
     # kernel 3 is whole-row only, as the JAX gate
@@ -177,19 +179,28 @@ def test_qtiled_kernel_matches_plain_on_card(card, b, s, d, h, causal, dtype, at
 
 
 def test_qtiled_kernel_equals_whole_row_kernel_on_card(card):
-    """Kernel 2 sums in kernel 1's order, so where both take a shape their
-    outputs are bit-equal."""
+    """In f32 kernel 2 sums in kernel 1's order, so where both take a shape
+    their outputs are bit-equal; in bf16 kernel 1 runs on the tensor cores
+    (another order), so the two agree within the bf16 limits."""
     g = torch.Generator(device="cuda").manual_seed(1)
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v = (torch.randn(3, 77, 512, device="cuda", generator=g).to(dtype)
                    for _ in range(3))
         for causal in (False, True):
-            assert torch.equal(sa.short_attention(q, k, v, 8, causal=causal),
-                               sa.short_attention_qtiled(q, k, v, 8, causal=causal))
+            whole = sa.short_attention(q, k, v, 8, causal=causal)
+            tiled = sa.short_attention_qtiled(q, k, v, 8, causal=causal)
+            if dtype == torch.float32:
+                assert torch.equal(whole, tiled)
+            else:
+                assert (whole.float() - tiled.float()).abs().max().item() <= 2e-2
+                assert torch.nn.functional.cosine_similarity(
+                    whole.float().flatten(), tiled.float().flatten(), dim=0).item() >= 0.9999
 
 
 @pytest.mark.parametrize("b,s,d,h,causal,dtype", [
-    (64, 50, 768, 12, False, torch.bfloat16), (16, 77, 512, 8, True, torch.float32)])
+    (64, 50, 768, 12, False, torch.bfloat16), (16, 77, 512, 8, True, torch.float32)] + [
+    (3, s, 512, 8, causal, torch.bfloat16)
+    for s in (1, 17, 50, 77, 129, 257, 577, 832) for causal in (False, True)])
 def test_packed_kernel_matches_plain_on_card(card, b, s, d, h, causal, dtype):
     g = torch.Generator(device="cuda").manual_seed(2)
     qkv = torch.randn(b, s, 3 * d, device="cuda", generator=g).to(dtype)
@@ -202,6 +213,9 @@ def test_packed_kernel_matches_plain_on_card(card, b, s, d, h, causal, dtype):
     ref = sa.short_attention_packed_reference(qkv, h, causal)
     assert (out.float() - ref.float()).abs().max().item() <= (
         2e-2 if dtype == torch.bfloat16 else 1e-5)
+    if dtype == torch.bfloat16:
+        assert torch.nn.functional.cosine_similarity(
+            out.float().flatten(), ref.float().flatten(), dim=0).item() >= 0.9999
 
 
 def test_kernels_refuse_what_their_gates_refuse_on_card(card):

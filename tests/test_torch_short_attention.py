@@ -9,7 +9,10 @@ card and no JAX the kernel tests run alone:
 
 Tolerance 1e-5 abs and rel in f32: the same f32 math in another reduction
 order.  The CUDA kernel itself runs only on a card; its comparison with the
-plain version skips here.
+plain version skips here.  On the card, bf16 (tensor cores) is held within
+2e-2 abs and cosine 0.9999 of the plain version (the bf16 roundings of the
+probabilities land on either side where f32 sums differ in order), f32
+within 1e-5.
 """
 
 import numpy as np
@@ -118,6 +121,35 @@ def test_supported_gate():
     long = torch.zeros(1, 2048, 512, dtype=torch.bfloat16)
     assert sa.smem_bytes(2048, 64, 2) > sa.SMEM_LIMIT_BYTES
     assert not sa.supported(long, long, long, 8)   # K_h/V_h exceed shared memory
+    # the bf16 mirror: K_h and V_h rounded up to 16 rows, one 16-row Q tile
+    # per warp (one warp per 16 rows, at most 8; 4 at hd 128)
+    assert sa.smem_bytes(77, 64, 2) == 2 * 80 * 128 + 5 * 16 * 128
+    assert sa.smem_bytes(50, 64, 2) == 2 * 64 * 128 + 4 * 16 * 128
+    assert sa.smem_bytes(577, 64, 2) == 2 * 592 * 128 + 8 * 16 * 128
+    assert sa.smem_bytes(400, 128, 2) == 2 * 400 * 256 + 4 * 16 * 256
+    assert sa.smem_bytes(1, 32, 2) == 2 * 16 * 64 + 1 * 16 * 64
+
+
+def test_f32_and_qtiled_footprints_unchanged():
+    """Only kernel 1's bf16 footprint follows the tensor-core design: the
+    f32 footprint (padded K_h/V_h plus eight warps' score and query rows)
+    and kernel 2's stay, with the largest S each takes at hd 32/64/128."""
+    assert sa.smem_bytes(577, 64, 4) == 2 * 577 * 65 * 4 + 8 * (577 + 64) * 4
+    assert sa.qtiled_smem_bytes(577, 64, 4) == 32 * (577 + 64) * 4 + 64 * 65 * 4
+    assert sa.qtiled_smem_bytes(1025, 64, 2) == 32 * (1025 + 64) * 4 + 64 * 66 * 2
+
+    def largest(fn, hd, itemsize):
+        s = 1
+        while fn(s + 1, hd, itemsize) <= sa.SMEM_LIMIT_BYTES:
+            s += 1
+        return s
+
+    assert [largest(sa.smem_bytes, hd, 4) for hd in (32, 64, 128)] == [781, 417, 214]
+    assert [largest(sa.qtiled_smem_bytes, hd, 4) for hd in (32, 64, 128)] == [1718, 1622, 1430]
+    assert [largest(sa.qtiled_smem_bytes, hd, 2) for hd in (32, 64, 128)] == [1750, 1686, 1558]
+    # bf16 kernel 1 takes at least every S it took before the tensor-core
+    # design (1,377 / 778 / 413)
+    assert [largest(sa.smem_bytes, hd, 2) for hd in (32, 64, 128)] == [1744, 832, 416]
 
 
 def test_wrapper_rejects_bad_shapes():
@@ -153,8 +185,7 @@ def test_auto_off_the_cpu_never_takes_the_plain_version():
                               q.view(2, 16, 2, 64), impl="auto")
 
 
-@pytest.mark.skipif(not torch.cuda.is_available(), reason="needs a CUDA card")
-def test_auto_on_card_launches_the_kernel_or_raises():
+def test_auto_on_card_launches_the_kernel_or_raises(card):
     g = torch.Generator(device="cuda").manual_seed(0)
     q, k, v = (torch.randn(3, 77, 512, device="cuda", generator=g).bfloat16()
                for _ in range(3))
@@ -173,11 +204,17 @@ def test_auto_on_card_launches_the_kernel_or_raises():
     assert fa.flash_attention.launches == flash + 1
 
 
-@pytest.mark.skipif(not torch.cuda.is_available(), reason="needs a CUDA card")
-@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-5)])
-@pytest.mark.parametrize("b,s,d,h,causal", [(256, 77, 512, 8, True), (5, 50, 768, 12, False)])
-def test_kernel_matches_plain_on_card(dtype, atol, b, s, d, h, causal):
-    torch.backends.cuda.matmul.allow_tf32 = False
+# bf16 ragged S at hd 64: one key chunk in registers (1, 17, 50, 77), two
+# passes over 64-key chunks (129, 257, 577), and the gate's largest S (832)
+RAGGED_BF16 = [(torch.bfloat16, 2e-2, 3, s, 512, 8, causal)
+               for s in (1, 17, 50, 77, 129, 257, 577, 832) for causal in (False, True)]
+
+
+@pytest.mark.parametrize("dtype,atol,b,s,d,h,causal", [
+    (dtype, atol, *shape)
+    for dtype, atol in [(torch.bfloat16, 2e-2), (torch.float32, 1e-5)]
+    for shape in [(256, 77, 512, 8, True), (5, 50, 768, 12, False)]] + RAGGED_BF16)
+def test_kernel_matches_plain_on_card(card, dtype, atol, b, s, d, h, causal):
     g = torch.Generator(device="cuda").manual_seed(0)
     q, k, v = (torch.randn(b, s, d, device="cuda", generator=g).to(dtype) for _ in range(3))
     before = sa.short_attention.launches
@@ -186,6 +223,22 @@ def test_kernel_matches_plain_on_card(dtype, atol, b, s, d, h, causal):
     assert sa.short_attention.launches == before + 1
     ref = sa.short_attention_reference(q, k, v, h, causal)
     assert (out.float() - ref.float()).abs().max().item() <= atol
+    if dtype == torch.bfloat16:
+        cos = torch.nn.functional.cosine_similarity(out.float().flatten(),
+                                                    ref.float().flatten(), dim=0)
+        assert cos.item() >= 0.9999
+
+
+def test_kernel_refuses_a_misaligned_bf16_view_on_card(card):
+    """cp.async copies 16-byte chunks: a contiguous view whose storage
+    offset leaves the base pointer off a 16-byte boundary raises."""
+    flat = torch.zeros(2 * 50 * 512 + 1, device="cuda", dtype=torch.bfloat16)
+    q = flat[1:].view(2, 50, 512)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    before = sa.short_attention.launches
+    with pytest.raises(ValueError, match="aligned"):
+        sa.short_attention(q, q, q, 8)
+    assert sa.short_attention.launches == before
 
 
 def _grads_through(fn, inputs, t):
