@@ -11,7 +11,9 @@ line.
              (nvidia-smi); turn TF32 off for f32 matmuls and convolutions.
 2. build   — compile every kernel under debiasing_multi_modal_tpu_torch/csrc
              with nvcc (one process per source, all started together); print
-             the registers and spills of kernels 1 and 3 (-Xptxas=-v).
+             the registers and spills of kernels 1 and 3 and of every flash
+             instantiation (-Xptxas=-v); bf16 kernels 5 and 6 must not spill
+             at hd 32 and 64.
 3. kernels — hold each kernel against its plain PyTorch version on the card
              at the main paths' shapes, and time kernel, plain version and the
              PyTorch library call that computes the same function (yardstick
@@ -25,16 +27,24 @@ line.
              and 3, and the order checks (kernel 3 bit-equal to kernel 1 in
              both dtypes, kernel 2 bit-equal to kernel 1 in f32 and within the
              bf16 limits in bf16), kernel 7 (int8 GEMM), and
-             kernels 4, 5, 6 (flash forward, dQ, dK/dV) at the training
-             step's two shapes, a long S=4096 shape, a ragged cross shape and
-             hd=32 and hd=128 (SDPA, forward and backward, as yardsticks).
+             kernels 4, 5, 6 (flash forward, dQ, dK/dV; 5 and 6 on the
+             tensor cores in bf16) at the training step's two shapes, a long
+             S=4096 shape (plain and causal), ragged cross shapes and hd=32
+             and hd=128, timed by CUDA-graph replay with the event time
+             beside (SDPA, forward and backward, as yardsticks; its backward
+             alone, autograd's backward captured in the graph).
 4. slice   — RN50 at full width in bf16 with seeded random weights: launch
              counts set to 0, then the text tower encodes 256 synthetic
              prompts and ExtractionRunner.encode_batch extracts a uint8
              [256, 256, 256, 3] batch (on-device resize and crop), then the
              counts are read.  Outputs are checked (finite, in range, text
              within cosine 0.999 of the plain-attention model, f32 towers on
-             the card against the CPU on a small input) and throughput timed.
+             the card against the CPU on a small input, the one-pass
+             BatchNorm against the JAX formula at RN50's five widths within
+             one bf16 rounding at scale) and throughput timed,
+             the host's load average beside it.  Then one encode_batch_async
+             on an uploaded batch under torch.cuda.set_sync_debug_mode("error"):
+             the step must not make the host wait for the card.
 5. fuse_bn — RN50 at full width in bf16 with its BatchNorms folded
              (weights/fold.py): seeded weights whose visual BatchNorm
              statistics are made non-trivial from the seed (mean ~ N(0, 0.2^2),
@@ -59,7 +69,8 @@ line.
              kernel 1); both towers checked against the plain-attention
              model, fuse_qkv against unfused, int8_pallas against bf16 and
              against quant="int8" (torch._int_mm), f32 on the card against
-             the CPU, and throughput.
+             the CPU, and throughput with the host's load beside it; one
+             encode_batch_async under the sync check.
 8. qtiled  — ViT-L/14@336px at its zoo default f32 encodes four 336x336
              images through kernel 2, held to the same weights under the
              plain attention formulation.
@@ -71,12 +82,17 @@ line.
              remat=True (48/24/24), under "xla" and under "auto" (kernel 1
              forward, the plain VJP backward); the gradients are checked
              against "xla", remat against plain, and an f32 step on 4 pairs
-             against the CPU; the step's time and pairs per second.
+             against the CPU; one whole step (preprocess, forward, backward,
+             SGD) under torch.cuda.set_sync_debug_mode("error"); the step's
+             time and pairs per second.
 10. summary — the wall seconds, one {"kernels": [...]} line, the card line, and
              {"ok": true, "device": {...}} as the last line.
 """
 
+import contextlib
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -117,27 +133,41 @@ def time_ms(fn, runs=20, calls=20, warmup=5):
     return statistics.median(times)
 
 
-def graph_ms(fn, runs=20, calls=20, warmup=5):
+def graph_ms(fn, runs=20, calls=20, warmup=5, stream=None):
     """Device time of one call with the host out of the way: ``calls`` calls
     captured once in a CUDA graph, then :func:`time_ms` of its replay,
     divided by ``calls``.  A kernel of a few tens of microseconds is shorter
     than its Python wrapper's host time on a loaded host, where
-    :func:`time_ms` would time the host."""
+    :func:`time_ms` would time the host.  ``stream`` is the side stream to
+    warm up and capture on (a fresh one by default)."""
     import torch
 
-    side = torch.cuda.Stream()
+    side = stream if stream is not None else torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(warmup):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(calls):
             fn()
     ms = time_ms(graph.replay, runs=runs, calls=1, warmup=2) / calls
     del graph
     return ms
+
+
+@contextlib.contextmanager
+def no_host_sync():
+    """Raise if the region makes the host wait for the card (a pageable copy,
+    ``.item()``, a synchronize): ``torch.cuda.set_sync_debug_mode("error")``."""
+    import torch
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
 
 
 def phase_device():
@@ -164,9 +194,17 @@ def phase_build():
     seconds = cuda_build.build_all()
     emit({"phase": "build", "kernels": cuda_build.kernel_names(),
           "seconds": seconds})
-    # registers and spills of kernels 1 and 3 (nvcc -Xptxas=-v)
+    # registers and spills of kernels 1 and 3 and of every flash
+    # instantiation (nvcc -Xptxas=-v)
     emit({"phase": "build", "ptxas": "short_attention.cu",
           "functions": cuda_build.ptxas_usage("short_attention")})
+    flash = cuda_build.ptxas_usage("flash_attention")
+    emit({"phase": "build", "ptxas": "flash_attention.cu", "functions": flash})
+    spilled = [row["function"] for row in flash
+               if re.search(r"(dq|dkv)_tc_kernelILi(32|64)E", row["function"])
+               and (row.get("spill_store_bytes") or row.get("spill_load_bytes"))]
+    if spilled:
+        raise AssertionError(f"bf16 kernels 5-6 spill registers at hd 32/64: {spilled}")
 
 
 def _attention_bound_ms(b, s, d, h, causal, dtype, itemsize):
@@ -427,11 +465,32 @@ def _close(out, ref, dtype):
     return {"max_abs_err": err, "scale": scale, "cosine": cos}, ok
 
 
+def _sdpa_backward_ms(heads, dout, causal, fast):
+    """SDPA's backward alone (dq, dk, dv from a retained graph) by graph
+    replay: the forward runs on the capture stream, so autograd runs the
+    backward there and the capture takes it."""
+    import torch
+    import torch.nn.functional as F
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        leaves = [x.detach().requires_grad_() for x in heads]
+        out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+    torch.cuda.current_stream().wait_stream(side)
+
+    def backward():
+        return torch.autograd.grad(out, leaves, dout, retain_graph=True)
+
+    return graph_ms(backward, stream=side, **fast)
+
+
 def _flash_case(label, b, sq, skv, h, hd, causal, dtype, gen, timed):
     """Kernels 4, 5 and 6 against their plain versions on one shape; the
     backward kernels get the plain forward's out and lse, so each kernel is
     held alone.  Timed cases add kernel, plain and SDPA times (SDPA's
-    backward alone, by autograd.grad over a retained graph, for 5 and 6)."""
+    backward alone, by autograd.grad over a retained graph, for 5 and 6):
+    kernels and SDPA by graph replay, the kernels' event time beside."""
     import torch
     import torch.nn.functional as F
 
@@ -471,34 +530,31 @@ def _flash_case(label, b, sq, skv, h, hd, causal, dtype, gen, timed):
     if timed:
         fast = dict(runs=5, calls=3, warmup=1) if sq * skv > 1e6 else {}
         heads = [x.transpose(1, 2) for x in (q, k, v)]
-        leaves = [x.detach().requires_grad_() for x in heads]
-        sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
-        sdpa_grad = dout.transpose(1, 2)
+        sdpa_bwd_ms = _sdpa_backward_ms(heads, dout.transpose(1, 2), causal, fast)
         plain_bwd_ms = time_ms(lambda: fa.flash_attention_backward_reference(
             q, k, v, out, lse, dout, causal), **fast)
-        library_bwd_ms = time_ms(lambda: torch.autograd.grad(
-            sdpa_out, leaves, sdpa_grad, retain_graph=True), **fast)
-        timings = {
+        bwd_call = ("SDPA backward alone (dq, dk, dv together, graph replay); plain "
+                    "computes all three")
+        calls = {
             "flash_attention": (
-                time_ms(lambda: fa.flash_attention_forward(q, k, v, causal), **fast),
+                lambda: fa.flash_attention_forward(q, k, v, causal),
                 time_ms(lambda: fa.flash_attention_reference(q, k, v, causal), **fast),
-                time_ms(lambda: F.scaled_dot_product_attention(*heads, is_causal=causal),
-                        **fast),
-                "torch.nn.functional.scaled_dot_product_attention"),
+                graph_ms(lambda: F.scaled_dot_product_attention(*heads, is_causal=causal),
+                         **fast),
+                "torch.nn.functional.scaled_dot_product_attention (graph replay)"),
             "flash_attention_dq": (
-                time_ms(lambda: fa.flash_attention_dq(q, k, v, dout, lse, delta, causal),
-                        **fast),
-                plain_bwd_ms, library_bwd_ms,
-                "SDPA backward alone (dq, dk, dv together); plain computes all three"),
+                lambda: fa.flash_attention_dq(q, k, v, dout, lse, delta, causal),
+                plain_bwd_ms, sdpa_bwd_ms, bwd_call),
             "flash_attention_dkv": (
-                time_ms(lambda: fa.flash_attention_dkv(q, k, v, dout, lse, delta, causal),
-                        **fast),
-                plain_bwd_ms, library_bwd_ms,
-                "SDPA backward alone (dq, dk, dv together); plain computes all three"),
+                lambda: fa.flash_attention_dkv(q, k, v, dout, lse, delta, causal),
+                plain_bwd_ms, sdpa_bwd_ms, bwd_call),
         }
         bounds = _flash_bounds(b, sq, skv, h, hd, causal, dtype, q.element_size())
-        for name, (ms, plain_ms, library_ms, call) in timings.items():
-            rows[name].update({"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        for name, (fn, plain_ms, library_ms, call) in calls.items():
+            # device time by graph replay; "events_ms" is the kernel timed as
+            # PRs 3-5 timed it, with its wrapper's host time behind it
+            rows[name].update({"ms": graph_ms(fn, **fast), "events_ms": time_ms(fn, **fast),
+                               "plain_ms": plain_ms, "library_ms": library_ms,
                                "library_call": call})
             rows[name]["bound_ms"], rows[name]["bound_by"] = bounds[name]
     for name, row in rows.items():
@@ -523,9 +579,11 @@ def _flash_cases(gen):
                  ("long_bf16", 4, 4096, 4096, 16, 64, False, bf16, True),
                  ("long_causal_bf16", 4, 4096, 4096, 16, 64, True, bf16, True),
                  ("ragged_cross_f32", 2, 1000, 77, 8, 64, False, f32, False),
+                 ("ragged_cross_bf16", 2, 1000, 77, 8, 64, False, bf16, False),
                  ("hd32_causal_bf16", 8, 197, 197, 8, 32, True, bf16, False),
                  ("hd128_f32", 4, 257, 257, 4, 128, False, f32, False),
-                 ("hd128_causal_cross_bf16", 2, 300, 200, 4, 128, True, bf16, False)]:
+                 ("hd128_causal_cross_bf16", 2, 300, 200, 4, 128, True, bf16, False),
+                 ("causal_short_q_bf16", 2, 77, 300, 4, 64, True, bf16, False)]:
         rows = _flash_case(*case[:8], gen, case[8])
         for name, row in rows.items():
             results[name].append(row)
@@ -614,6 +672,40 @@ def _stream(rng, shape, n_batches):
     return [(rng.integers(0, 256, shape, dtype=np.uint8), m) for m in metas]
 
 
+def _batchnorm_check(gen):
+    """``InferenceBatchNorm`` (one ``F.batch_norm`` pass) against the JAX
+    module's formula ``x * inv + shift`` in f32, rounded once, at RN50's five
+    BatchNorm widths (64 images, bf16, channels-last): within one bf16
+    rounding at the output's scale (the card may reassociate the f32 terms)
+    and equal on at least 99.9 % of the elements."""
+    import torch
+
+    from debiasing_multi_modal_tpu_torch.models.layers import InferenceBatchNorm
+
+    rows = []
+    for c, hw in ((64, 112), (256, 56), (512, 28), (1024, 14), (2048, 7)):
+        bn = InferenceBatchNorm(c).cuda()
+        with torch.no_grad():  # statistics as _realistic_bn_stats draws them
+            bn.weight.copy_(torch.randn(c, device="cuda", generator=gen))
+            bn.bias.copy_(torch.randn(c, device="cuda", generator=gen))
+            bn.running_mean.copy_(torch.randn(c, device="cuda", generator=gen) * 0.2)
+            bn.running_var.copy_(torch.rand(c, device="cuda", generator=gen) * 1.5 + 0.5)
+        x = torch.randn(64, c, hw, hw, device="cuda", generator=gen).to(torch.bfloat16)
+        x = x.contiguous(memory_format=torch.channels_last)
+        with torch.inference_mode():
+            out = bn(x)
+            inv = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
+            shift = bn.bias - bn.running_mean * inv
+            ref = (x.float() * inv[:, None, None] + shift[:, None, None]).to(torch.bfloat16)
+        err = (out.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        rows.append({"channels": c, "hw": hw, "max_abs_err": err, "scale": scale,
+                     "equal_share": (out == ref).float().mean().item()})
+        if not (err <= BF16_ULP * scale and rows[-1]["equal_share"] >= 0.999):
+            raise AssertionError(f"InferenceBatchNorm disagrees with the JAX formula: {rows[-1]}")
+    return rows
+
+
 def phase_slice():
     import numpy as np
     import torch
@@ -675,7 +767,9 @@ def phase_slice():
     checks = {"image_f32_cuda_vs_cpu_rel": _rel(emb_cuda, emb_cpu),
               "text_f32_cuda_vs_cpu_rel": _rel(txt_cuda, txt_cpu),
               "image_bf16_vs_f32_min_cosine": _cos_min(emb_bf16, emb_cuda),
-              "text_kernel_vs_plain_bf16_min_cosine": text_cos}
+              "text_kernel_vs_plain_bf16_min_cosine": text_cos,
+              "batchnorm_vs_jax_formula": _batchnorm_check(
+                  torch.Generator(device="cuda").manual_seed(SEED))}
     if not (checks["image_f32_cuda_vs_cpu_rel"] <= 1e-3
             and checks["text_f32_cuda_vs_cpu_rel"] <= 1e-3
             and checks["image_bf16_vs_f32_min_cosine"] >= 0.99):
@@ -687,6 +781,11 @@ def phase_slice():
             model.encode_text(tokens)
 
     uploaded = runner.upload_batch(images)
+    # one step on an uploaded batch must not make the host wait for the card
+    with no_host_sync():
+        runner.encode_batch_async(uploaded)
+    torch.cuda.synchronize()
+    checks["encode_batch_async_host_sync_free"] = True
     stream = _stream(rng, images.shape, 8)
     t = time.perf_counter()
     table = runner.run(iter(stream))
@@ -698,6 +797,7 @@ def phase_slice():
         "imgs_per_s_encode_batch": _rate(lambda: runner.encode_batch(images), 256, 5),
         "imgs_per_s_run_8_batches": run_imgs_s,
         "text_encode_ms": 256 / prompts_per_s * 1e3,
+        "host_load_avg_1_5_15_min": os.getloadavg(),
     }
     emit({"phase": "slice", "model": "RN50", "dtype": "bfloat16", "batch": 256,
           "image_hw": [256, 256], "launches": launches, "checks": checks,
@@ -788,6 +888,7 @@ def phase_fuse_bn(slice_perf):
         "imgs_per_s_run_8_batches": run_imgs_s,
         "unfused_imgs_per_s_device": _rate(lambda: u_runner.encode_batch_async(uploaded),
                                            256, 10),
+        "host_load_avg_1_5_15_min": os.getloadavg(),
     }
     emit({"phase": "fuse_bn", "model": "RN50", "dtype": "bfloat16", "batch": 256,
           "image_hw": [256, 256], "launches": launches, "checks": checks, "perf": perf,
@@ -1034,12 +1135,16 @@ def phase_vit():
             model.encode_text(tokens)
 
     uploaded = runner.upload_batch(images)
+    with no_host_sync():
+        runner.encode_batch_async(uploaded)
+    torch.cuda.synchronize()
     stream = _stream(rng, images.shape, 8)
     t = time.perf_counter()
     table = runner.run(iter(stream))
     run_imgs_s = len(table) / (time.perf_counter() - t)
     prompts_per_s = _rate(text_encode, 256, 10)
     perf = {
+        "host_load_avg_1_5_15_min": os.getloadavg(),
         "prompts_per_s": prompts_per_s,
         "imgs_per_s_device": _rate(lambda: runner.encode_batch_async(uploaded), 256, 10),
         "imgs_per_s_encode_batch": _rate(lambda: runner.encode_batch(images), 256, 5),
@@ -1051,7 +1156,7 @@ def phase_vit():
     }
     emit({"phase": "vit", "model": "ViT-B/32", "dtype": "bfloat16", "batch": 256,
           "image_hw": [256, 256], "launches": launches, "perf": perf,
-          "model_setup_s": setup_s})
+          "encode_batch_async_host_sync_free": True, "model_setup_s": setup_s})
     return launches
 
 
@@ -1187,6 +1292,12 @@ def phase_train():
         torch.cuda.synchronize()
         return (time.perf_counter() - t) / reps * 1e3
 
+    # one whole step (preprocess, forward, backward, SGD) must not make the
+    # host wait for the card
+    with no_host_sync():
+        step(model, opt)
+    torch.cuda.synchronize()
+    checks["step_host_sync_free"] = True
     perf = {"train_step_ms": step_ms(model, opt)}
     perf["train_pairs_per_s"] = n / perf["train_step_ms"] * 1e3
     perf["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1249,6 +1360,11 @@ def phase_train():
 
 TC_DESIGN = ("CUDA C++; bf16 on the tensor cores (mma.sync.m16n8k16, ldmatrix, 16-byte "
              "cp.async into swizzled shared memory), f32 on the CUDA cores")
+FLASH_BWD_DESIGN = ("CUDA C++; bf16 on the tensor cores (mma.sync.m16n8k16 with f32 "
+                    "accumulators, ldmatrix/ldmatrix.trans, double-buffered 16-byte cp.async "
+                    "into swizzled shared memory, p and ds rounded in registers; kernel 6 "
+                    "computes the transposed products), f32 on the CUDA cores")
+CUDA_CORE_DESIGN = "CUDA C++ on the CUDA cores (f32 FMAs on f32-staged shared-memory tiles)"
 
 
 def _kernel_line(name, source, replaces, cases, launches_by_path, card, design=None):
@@ -1272,6 +1388,8 @@ def _kernel_line(name, source, replaces, cases, launches_by_path, card, design=N
         "shape": main["shape"],
         "card": card,
     }
+    if "events_ms" in main:
+        line["events_ms"] = main["events_ms"]
     if design:
         line["design"] = design
     return line
@@ -1309,13 +1427,13 @@ def main():
                      cases["int8_matmul"], launches, card),
         _kernel_line("flash_attention", "flash_attention.cu",
                      "debiasing_multi_modal_tpu/ops/flash_attention.py:180",
-                     cases["flash_attention"], launches, card),
+                     cases["flash_attention"], launches, card, CUDA_CORE_DESIGN),
         _kernel_line("flash_attention_dq", "flash_attention.cu",
                      "debiasing_multi_modal_tpu/ops/flash_attention.py:244",
-                     cases["flash_attention_dq"], launches, card),
+                     cases["flash_attention_dq"], launches, card, FLASH_BWD_DESIGN),
         _kernel_line("flash_attention_dkv", "flash_attention.cu",
                      "debiasing_multi_modal_tpu/ops/flash_attention.py:298",
-                     cases["flash_attention_dkv"], launches, card),
+                     cases["flash_attention_dkv"], launches, card, FLASH_BWD_DESIGN),
         _kernel_line("fused_bottleneck_gemm", "bottleneck.cu",
                      "debiasing_multi_modal_tpu/ops/conv_gemm.py:44",
                      cases["fused_bottleneck_gemm"], launches, card),

@@ -10,10 +10,12 @@ Reference ``clip_inference.py`` ``main`` (:29-271):
   reference normalizes only the image side, :131-137) at temperature 0.02 —
   then argmax predictions and the per-image record table (:159-271).
 
-One device: each batch is uploaded (pinned host memory, asynchronous copy),
-preprocessed on the device, encoded in the model's compute dtype, and run
-through the f32 zero-shot head.  A background thread decodes and uploads the
-next batches while the device runs the current one.  Mesh, data-parallel and
+One device: each batch is uploaded (pinned host memory, an asynchronous copy
+on a side stream of its own, so the transfer overlaps the kernels of the
+batch before it), preprocessed on the device, encoded in the model's compute
+dtype, and run through the f32 zero-shot head.  A background thread decodes
+and uploads the next batches while the device runs the current one; a step
+never waits for the card on the host.  Mesh, data-parallel and
 tensor-parallel extraction are not ported yet.
 """
 
@@ -34,10 +36,12 @@ ZS_TEMPERATURE = 0.02  # clip_inference.py:124
 
 
 class UploadedBatch(NamedTuple):
-    """A batch already staged on the device, plus its row count."""
+    """A batch already staged on the device, plus its row count and, for a
+    copy on the upload stream, the event recorded after it."""
 
     images: torch.Tensor
     rows: int
+    ready: Optional[torch.cuda.Event] = None
 
 
 def _model_device(model: CLIP) -> torch.device:
@@ -84,6 +88,9 @@ class ExtractionRunner:
         # the reference's text-normalization lines are commented out, :63-65)
         w = np.ascontiguousarray(zeroshot_text.T, np.float32)
         self.zs_weights = torch.from_numpy(w).to(self.device)
+        # the stream upload_batch copies on (the card only)
+        self._upload_stream = (torch.cuda.Stream(self.device)
+                               if self.device.type == "cuda" else None)
 
     @torch.inference_mode()
     def _step(self, images: torch.Tensor):
@@ -101,11 +108,19 @@ class ExtractionRunner:
     def upload_batch(self, images: np.ndarray) -> UploadedBatch:
         """Stage one uint8 batch on the device — the host-to-device half of a
         step, separated so ``run`` can overlap the next batch's upload with
-        the current batch's compute."""
+        the current batch's compute.  On the card the copy runs from pinned
+        memory on the runner's upload stream, and an event marks its end:
+        the step that uses the batch waits on that event on the card, so the
+        transfer overlaps whatever the compute stream is running."""
         host = torch.from_numpy(np.ascontiguousarray(images))
-        if self.device.type == "cuda":
-            host = host.pin_memory()
-        return UploadedBatch(host.to(self.device, non_blocking=True), len(images))
+        if self.device.type != "cuda":
+            return UploadedBatch(host.to(self.device), len(images))
+        host = host.pin_memory()
+        with torch.cuda.stream(self._upload_stream):
+            staged = host.to(self.device, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(self._upload_stream)
+        return UploadedBatch(staged, len(images), ready)
 
     def encode_batch_async(self, images):
         """Launch one batch; returns device tensors (no host sync).
@@ -115,6 +130,12 @@ class ExtractionRunner:
         """
         if not isinstance(images, UploadedBatch):
             images = self.upload_batch(images)
+        if images.ready is not None:
+            # the compute stream waits for the copy on the card, and the
+            # allocator keeps the batch until the compute stream is done
+            compute = torch.cuda.current_stream(self.device)
+            compute.wait_event(images.ready)
+            images.images.record_stream(compute)
         emb, preds = self._step(images.images)
         return emb, preds, images.rows
 
@@ -314,6 +335,11 @@ def _read_manifest(shard_dir: str) -> Dict:
         return {"shards": []}
     with open(path) as f:
         return json.load(f)
+
+
+def completed_batches(shard_dir: str) -> int:
+    """Batches already persisted by a previous (possibly crashed) run."""
+    return sum(s["batches"] for s in _read_manifest(shard_dir)["shards"])
 
 
 def completed_rows(shard_dir: str) -> int:

@@ -3,6 +3,7 @@ from debiasing_multi_modal_tpu_torch.models.clip import (  # noqa: F401
     create_clip,
     init_weights,
     l2_normalize,
+    reference_scratch_init,
 )
 from debiasing_multi_modal_tpu_torch.models.config import (  # noqa: F401
     CONFIGS,

@@ -20,8 +20,15 @@ import torch
 from torch import nn
 
 from debiasing_multi_modal_tpu_torch.models.config import CLIPConfig, get_config
-from debiasing_multi_modal_tpu_torch.models.layers import MultiHeadAttentionBlock
-from debiasing_multi_modal_tpu_torch.models.resnet import AttentionPool2d, ModifiedResNet
+from debiasing_multi_modal_tpu_torch.models.layers import (
+    InferenceBatchNorm,
+    MultiHeadAttentionBlock,
+)
+from debiasing_multi_modal_tpu_torch.models.resnet import (
+    AttentionPool2d,
+    Bottleneck,
+    ModifiedResNet,
+)
 from debiasing_multi_modal_tpu_torch.models.text import TextTransformer
 from debiasing_multi_modal_tpu_torch.models.vit import VisionTransformer
 from debiasing_multi_modal_tpu_torch.utils.platform import DeviceLike, resolve_device
@@ -116,11 +123,58 @@ def init_weights(model: CLIP, generator: torch.Generator) -> None:
     model.logit_scale.fill_(math.log(1 / 0.07))
 
 
+SCRATCH_INITS = ("flax", "reference")
+
+
+@torch.no_grad()
+def reference_scratch_init(model: CLIP, generator: torch.Generator) -> None:
+    """Re-draw, in place, the tensors the reference's
+    ``CLIP.initialize_parameters`` (clip/model.py:306-334) draws with its own
+    stds, as the JAX package's ``reference_scratch_init`` does:
+
+    - token embedding ~ N(0, 0.02), text positional embedding ~ N(0, 0.01);
+    - ResNet attention pool q/k/v/c projections ~ N(0, c_proj.in_features^-0.5)
+      and every Bottleneck's bn3 weight zeroed (residual branches start as
+      identity);
+    - text blocks: attention in-projection ~ N(0, width^-0.5), attention out
+      and MLP c_proj ~ N(0, width^-0.5 * (2 * layers)^-0.5), MLP c_fc ~
+      N(0, (2 * width)^-0.5); text projection ~ N(0, width^-0.5).
+
+    The ViT tower keeps its draws (the reference loops over the text
+    transformer only); every other tensor keeps :func:`init_weights`'s.
+    Draws are made on the CPU from ``generator``."""
+
+    def normal_(p: torch.Tensor, std: float):
+        p.copy_(torch.randn(p.shape, generator=generator) * std)
+
+    normal_(model.token_embedding.weight, 0.02)
+    normal_(model.positional_embedding, 0.01)
+    width = model.positional_embedding.shape[1]
+    blocks = model.transformer.resblocks
+    attn_std = width ** -0.5
+    proj_std = width ** -0.5 * (2 * len(blocks)) ** -0.5
+    fc_std = (2 * width) ** -0.5
+    for blk in blocks:
+        normal_(blk.attn.in_proj_weight, attn_std)
+        normal_(blk.attn.out_proj.weight, proj_std)
+        normal_(blk.mlp.c_fc.weight, fc_std)
+        normal_(blk.mlp.c_proj.weight, proj_std)
+    normal_(model.text_projection, attn_std)
+    if isinstance(model.visual, ModifiedResNet):
+        pool = model.visual.attnpool
+        std = pool.c_proj.in_features ** -0.5
+        for proj in (pool.q_proj, pool.k_proj, pool.v_proj, pool.c_proj):
+            normal_(proj.weight, std)
+        for block in model.visual.modules():
+            if isinstance(block, Bottleneck) and isinstance(block.bn3, InferenceBatchNorm):
+                block.bn3.weight.zero_()
+
+
 def create_clip(name_or_config, dtype=None, attn_impl: str = "auto",
                 remat: bool = False, device: DeviceLike = None,
                 generator: Optional[torch.Generator] = None,
                 fuse_bn: bool = False, quant: str = "none",
-                fuse_qkv: bool = False) -> CLIP:
+                fuse_qkv: bool = False, scratch_init: str = "flax") -> CLIP:
     """A frozen CLIP model in eval mode on ``device`` (``cuda`` unless
     ``"cpu"`` is asked for) with seeded random weights (``generator``,
     default seed 0).  Its parameters do not require grad: a caller that
@@ -134,7 +188,12 @@ def create_clip(name_or_config, dtype=None, attn_impl: str = "auto",
     package; ``fuse_qkv`` feeds one fused in-projection GEMM to kernel 3.
     ``fuse_bn`` builds the ResNet tower with its BatchNorms folded into the
     convs (biased convs, no BatchNorm modules: load weights from
-    ``weights/fold.py``); a ViT ignores it, as in the JAX package."""
+    ``weights/fold.py``); a ViT ignores it, as in the JAX package.
+    ``scratch_init="reference"`` then re-draws the tensors the reference's
+    own init scheme covers (:func:`reference_scratch_init`, from the same
+    generator); the default ``"flax"`` keeps :func:`init_weights`'s draws."""
+    if scratch_init not in SCRATCH_INITS:
+        raise ValueError(f"unknown scratch_init {scratch_init!r}; known: {SCRATCH_INITS}")
     dev = resolve_device(device)
     if isinstance(name_or_config, CLIPConfig):
         cfg = name_or_config if dtype is None else name_or_config.with_dtype(dtype)
@@ -142,6 +201,8 @@ def create_clip(name_or_config, dtype=None, attn_impl: str = "auto",
         cfg = get_config(name_or_config, dtype=torch.float32 if dtype is None else dtype)
     model = CLIP(cfg, attn_impl=attn_impl, quant=quant, fuse_qkv=fuse_qkv, remat=remat,
                  fuse_bn=fuse_bn)
-    init_weights(model, generator if generator is not None
-                 else torch.Generator().manual_seed(0))
+    gen = generator if generator is not None else torch.Generator().manual_seed(0)
+    init_weights(model, gen)
+    if scratch_init == "reference":
+        reference_scratch_init(model, gen)
     return model.to(dev).eval().requires_grad_(False)

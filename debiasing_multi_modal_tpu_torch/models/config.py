@@ -42,6 +42,13 @@ class CLIPConfig:
             return self.vision_width // 64
         return self.vision_width * 32 // 64
 
+    @property
+    def image_seq_len(self) -> int:
+        """Token count seen by the vision transformer / attention pool."""
+        if self.is_vit:
+            return (self.image_resolution // self.vision_patch_size) ** 2 + 1
+        return (self.image_resolution // 32) ** 2 + 1
+
     def with_dtype(self, dtype) -> "CLIPConfig":
         return dataclasses.replace(self, dtype=dtype)
 

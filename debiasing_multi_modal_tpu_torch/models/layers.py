@@ -83,9 +83,19 @@ class InferenceBatchNorm(nn.Module):
     """BatchNorm that always uses its stored running statistics, in f32.
 
     The CLIP encoders are frozen feature extractors, so each BatchNorm is an
-    affine map of its running statistics.  Keys match ``nn.BatchNorm2d``
+    affine map of its running statistics, which the JAX module writes as
+    ``x * inv + shift`` with ``inv = weight * rsqrt(var + eps)`` and
+    ``shift = bias - mean * inv`` in f32.  Here it is one
+    ``F.batch_norm(training=False)`` on the f32 statistics and parameters:
+    one pass that reads x once, computes in f32 and rounds once to x's
+    dtype (widening, multiplying, adding and narrowing as four passes moved
+    seven times the bytes).  On the CPU PyTorch computes the JAX form; on
+    the card it may reassociate the same f32 terms (``chip_smoke.py`` holds
+    it to the JAX form within one bf16 rounding at the output's scale at
+    RN50's BatchNorm shapes).  Keys match ``nn.BatchNorm2d``
     (weight, bias, running_mean, running_var, num_batches_tracked); the
-    channel axis is 1 (NCHW)."""
+    channel axis is 1 (NCHW).
+    """
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -97,10 +107,9 @@ class InferenceBatchNorm(nn.Module):
         self.register_buffer("num_batches_tracked", torch.zeros((), dtype=torch.long))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        inv = self.weight.float() * torch.rsqrt(self.running_var.float() + self.eps)
-        shift = self.bias.float() - self.running_mean.float() * inv
-        out = x.float() * inv[:, None, None] + shift[:, None, None]
-        return out.to(x.dtype)
+        return F.batch_norm(x, self.running_mean.float(), self.running_var.float(),
+                            self.weight.float(), self.bias.float(), training=False,
+                            eps=self.eps)
 
 
 class MultiHeadAttentionBlock(nn.Module):

@@ -8,6 +8,10 @@ Three kernels in ``csrc/flash_attention.cu``:
 - kernel 5 (``_bwd_dq_kernel``): dQ over the saved logsumexp;
 - kernel 6 (``_bwd_dkv_kernel``): dK and dV.
 
+Kernels 5 and 6 run on the tensor cores in bf16 (``mma.sync``,
+``ldmatrix``, ``cp.async``) and on the CUDA cores in f32; kernel 4 runs on
+the CUDA cores in both.
+
 :func:`flash_attention` takes q ``[B, Sq, H, hd]`` and k, v
 ``[B, Skv, H, hd]`` (the layout of ``dot_product_attention``: the ``[B, S, D]``
 projection outputs viewed head-split) and returns ``[B, Sq, H, hd]``.  It is
@@ -23,8 +27,9 @@ Each kernel counts its launches: ``flash_attention.launches`` (kernel 4),
 ``causal`` masks key j from query i when j > i (top-left aligned, so Sq may
 differ from Skv); a ragged S edge is masked inside the kernels, never padded.
 The H100 gate (:func:`supported`) is derived from the kernels' shared memory
-(64-row q and kv tiles staged in f32, which depends on hd only).  The TPU
-knobs do not carry over: ``_pick_blocks``, ``_heads_per_cell``,
+(64-row q and kv tiles, staged in f32 by kernel 4 and by f32 kernels 5-6, in
+bf16 by the tensor-core kernels 5-6: it depends on hd and the dtype only).
+The TPU knobs do not carry over: ``_pick_blocks``, ``_heads_per_cell``,
 ``_BWD_VMEM_BUDGET``, ``block_q``/``block_kv``/``heads_per_cell``,
 ``interpret``, and the auto-dispatch thresholds ``MIN_AUTO_SEQ_LEN`` and
 ``SCORE_BYTES_THRESHOLD`` (see ``ops/attention.py``).
@@ -40,6 +45,7 @@ from debiasing_multi_modal_tpu_torch.ops import cuda_build
 from debiasing_multi_modal_tpu_torch.ops.short_attention import (
     HEAD_DIMS,
     SMEM_LIMIT_BYTES,
+    _need_aligned,
 )
 
 _NEG_INF = -1e30
@@ -53,20 +59,30 @@ def _tile_bytes(hd: int) -> int:
     return TILE * (hd + 1) * _F32  # a staged [64, hd] f32 tile, rows padded
 
 
+def _tc_tile_bytes(hd: int) -> int:
+    return TILE * hd * 2  # a staged [64, hd] bf16 tile, swizzled, unpadded
+
+
 def fwd_smem_bytes(hd: int) -> int:
-    """Kernel 4's shared memory: q, k, v tiles and the p tile (mirrors
-    ``fwd_smem_bytes`` in the CUDA source)."""
+    """Kernel 4's shared memory, either dtype: q, k, v tiles and the p tile,
+    staged in f32 (mirrors ``fwd_smem_bytes`` in the CUDA source)."""
     return 3 * _tile_bytes(hd) + TILE * (TILE + 1) * _F32
 
 
-def dq_smem_bytes(hd: int) -> int:
-    """Kernel 5's: q, dO, k, v tiles and the ds tile."""
+def dq_smem_bytes(hd: int, dtype: torch.dtype) -> int:
+    """Kernel 5's: bf16 (tensor cores) q and dO tiles and two K/V buffers;
+    f32 q, dO, k, v tiles and the ds tile."""
+    if dtype == torch.bfloat16:
+        return 6 * _tc_tile_bytes(hd)
     return 4 * _tile_bytes(hd) + TILE * (TILE + 1) * _F32
 
 
-def dkv_smem_bytes(hd: int) -> int:
-    """Kernel 6's: k, v, q, dO tiles, the p^T and ds^T tiles, a q tile's
-    logsumexp and delta."""
+def dkv_smem_bytes(hd: int, dtype: torch.dtype) -> int:
+    """Kernel 6's: bf16 (tensor cores) k and v tiles and two q/dO buffers,
+    each with its q tile's logsumexp and delta; f32 k, v, q, dO tiles, the
+    p^T and ds^T tiles, a q tile's logsumexp and delta."""
+    if dtype == torch.bfloat16:
+        return 6 * _tc_tile_bytes(hd) + 2 * 2 * TILE * _F32
     return 4 * _tile_bytes(hd) + 2 * TILE * (TILE + 1) * _F32 + 2 * TILE * _F32
 
 
@@ -85,7 +101,8 @@ def supported(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return False
     if sq < 1 or k.shape[1] < 1 or not (1 <= b <= _MAX_GRID_YZ and 1 <= h <= _MAX_GRID_YZ):
         return False
-    smem = max(fwd_smem_bytes(hd), dq_smem_bytes(hd), dkv_smem_bytes(hd))
+    smem = max(fwd_smem_bytes(hd), dq_smem_bytes(hd, q.dtype),
+               dkv_smem_bytes(hd, q.dtype))
     return hd in HEAD_DIMS and smem <= SMEM_LIMIT_BYTES
 
 
@@ -163,7 +180,10 @@ def flash_attention_forward(q, k, v, causal: bool = False):
 
 
 def flash_attention_dq(q, k, v, dout, lse, delta, causal: bool = False):
-    """Kernel 5: dq, counted in ``flash_attention_dq.launches``."""
+    """Kernel 5: dq, counted in ``flash_attention_dq.launches``.  In bf16 the
+    kernel stages tiles by 16-byte ``cp.async``: q, k, v and dout must be
+    16-byte aligned."""
+    _need_aligned("flash_attention_dq", q, k, v, dout)
     dq = torch.empty_like(q)
     b, sq, skv, h, hd = _dims(q, k)
     cuda_build.launch("flash_attention", "flash_attention_dq",
@@ -177,7 +197,9 @@ flash_attention_dq.launches = 0
 
 
 def flash_attention_dkv(q, k, v, dout, lse, delta, causal: bool = False):
-    """Kernel 6: ``(dk, dv)``, counted in ``flash_attention_dkv.launches``."""
+    """Kernel 6: ``(dk, dv)``, counted in ``flash_attention_dkv.launches``;
+    aligned as kernel 5."""
+    _need_aligned("flash_attention_dkv", q, k, v, dout)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     b, sq, skv, h, hd = _dims(q, k)
     cuda_build.launch("flash_attention", "flash_attention_dkv",

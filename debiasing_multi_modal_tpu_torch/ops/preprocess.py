@@ -12,6 +12,12 @@ as a row slice, so cropped-away rows are never computed.  The matmuls run in
 f32 at full precision (no TF32), as ``Precision.HIGHEST`` does in the JAX
 package.  The host only decodes; the whole transform runs on the tensor's
 device.
+
+The constants (the normalization vectors and the two cropped resize
+matrices) are copied to a device once, on first use, from pinned host memory
+without blocking, and reused after that (:func:`_upload` behind two caches):
+a step never makes the host wait for the card, as the JAX package's
+constants are folded into its traced step.
 """
 
 from __future__ import annotations
@@ -69,9 +75,33 @@ def resize_matrix(in_size: int, out_size: int, antialias: bool = True,
     return weights
 
 
+def _upload(array: np.ndarray, device: torch.device) -> torch.Tensor:
+    """An f32 copy of ``array`` on ``device``; to the card from pinned host
+    memory with ``non_blocking=True``, so not even the first use waits for
+    the card (the copy is ordered on the current stream before the uses)."""
+    host = torch.from_numpy(np.array(array, np.float32))  # a copy: cached arrays are read-only
+    if device.type == "cuda":
+        host = host.pin_memory()
+    return host.to(device, non_blocking=True)
+
+
+@functools.lru_cache(maxsize=8)
+def _norm_constants(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """CLIP's mean and std on ``device``, built once per device."""
+    return _upload(np.array(CLIP_MEAN), device), _upload(np.array(CLIP_STD), device)
+
+
+@functools.lru_cache(maxsize=64)
+def _cropped_resize(in_size: int, out_size: int, antialias: bool, method: str,
+                    offset: int, length: int, device: torch.device) -> torch.Tensor:
+    """Rows ``[offset, offset + length)`` of :func:`resize_matrix` on
+    ``device``, built once per (sizes, method, crop, device)."""
+    return _upload(resize_matrix(in_size, out_size, antialias, method)[offset:offset + length],
+                   device)
+
+
 def _normalize(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    mean = torch.tensor(CLIP_MEAN, dtype=torch.float32, device=x.device)
-    std = torch.tensor(CLIP_STD, dtype=torch.float32, device=x.device)
+    mean, std = _norm_constants(x.device)
     return ((x - mean) / std).to(dtype)
 
 
@@ -88,9 +118,7 @@ def preprocess_uint8(images: torch.Tensor, resolution: int = 224,
     if (rh, rw) != (h, w):
         x = x.permute(0, 3, 1, 2)  # [n, c, h, w]: spatial axes minor for the matmuls
         if rh != h:
-            mh = torch.from_numpy(
-                resize_matrix(h, rh, antialias, method)[top:top + resolution].copy()
-            ).to(x.device)
+            mh = _cropped_resize(h, rh, antialias, method, top, resolution, x.device)
             x = torch.einsum("oh,nchw->ncow", mh, x)
             if dtype == torch.bfloat16 and rw != w:
                 # the JAX package stores the intermediate between the two
@@ -99,9 +127,7 @@ def preprocess_uint8(images: torch.Tensor, resolution: int = 224,
         else:
             x = x[:, :, top:top + resolution]
         if rw != w:
-            mw = torch.from_numpy(
-                resize_matrix(w, rw, antialias, method)[left:left + resolution].copy()
-            ).to(x.device)
+            mw = _cropped_resize(w, rw, antialias, method, left, resolution, x.device)
             x = torch.einsum("pw,ncow->ncop", mw, x)
         else:
             x = x[:, :, :, left:left + resolution]

@@ -1,7 +1,8 @@
 """Profiling for the port (counterpart of ``utils/profiling.py``).
 
 :func:`trace` records a ``torch.profiler`` trace of a region into
-``log_dir`` (TensorBoard / Chrome trace format).
+``log_dir`` (TensorBoard / Chrome trace format); :func:`annotate` names a
+region inside it.
 
 Run as a module, it breaks a Stage-A slice down on one card (bf16, seeded
 random weights, the shapes ``chip_smoke.py`` drives):
@@ -79,6 +80,16 @@ def trace(log_dir: str, enabled: bool = True):
         on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir),
     ) as prof:
         yield prof
+
+
+@contextlib.contextmanager
+def annotate(name: str):
+    """Named region visible in profiler timelines
+    (``torch.profiler.record_function``)."""
+    import torch
+
+    with torch.profiler.record_function(name):
+        yield
 
 
 def _event():

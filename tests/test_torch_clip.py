@@ -176,3 +176,94 @@ def test_vit_and_options_not_yet_ported():
     keys = set(folded.state_dict())
     assert "visual.layer1.0.downsample.0.bias" in keys and "visual.conv1.bias" in keys
     assert not any(".bn" in k or "downsample.1" in k for k in keys)
+
+
+def test_image_seq_len_matches_jax_config():
+    from debiasing_multi_modal_tpu.models.config import get_config as jax_get_config
+
+    for name in ("RN50", "RN50x4", "RN50x64", "ViT-B/32", "ViT-B/16", "ViT-L/14@336px"):
+        assert get_config(name).image_seq_len == jax_get_config(name).image_seq_len, name
+    assert CLIPConfig(**SMALL_RN).image_seq_len == JaxConfig(**SMALL_RN).image_seq_len == 5
+    assert get_config("ViT-B/32").image_seq_len == 50
+
+
+TINY_RN = dict(name="tiny-rn", embed_dim=64, image_resolution=64, vision_layers=(1, 1, 1, 1),
+               vision_width=8, vision_patch_size=None, transformer_width=64,
+               transformer_heads=1, transformer_layers=2)
+
+
+def _reference_std_pairs(tm, jp):
+    """(name, port tensor, JAX tensor, closed-form std) of every tensor the
+    reference's initialize_parameters draws (the JAX test's list)."""
+    width, layers = 64, 2
+    attn_std, fc_std = width ** -0.5, (2 * width) ** -0.5
+    proj_std = width ** -0.5 * (2 * layers) ** -0.5
+    text = jp["text"]
+    pairs = [("token_embedding", tm.token_embedding.weight,
+              text["token_embedding"]["embedding"], 0.02),
+             ("positional_embedding", tm.positional_embedding,
+              text["positional_embedding"], 0.01),
+             ("text_projection", tm.text_projection, text["text_projection"], attn_std)]
+    for i, blk in enumerate(tm.transformer.resblocks):
+        jblk = text["transformer"][f"resblocks_{i}"]
+        w = blk.attn.in_proj_weight
+        for j, proj in enumerate(("q_proj", "k_proj", "v_proj")):
+            pairs.append((f"{i}.{proj}", w[j * width:(j + 1) * width],
+                          jblk["attn"][proj]["kernel"], attn_std))
+        pairs += [(f"{i}.out_proj", blk.attn.out_proj.weight,
+                   jblk["attn"]["out_proj"]["kernel"], proj_std),
+                  (f"{i}.c_fc", blk.mlp.c_fc.weight, jblk["mlp"]["c_fc"]["kernel"], fc_std),
+                  (f"{i}.c_proj", blk.mlp.c_proj.weight, jblk["mlp"]["c_proj"]["kernel"],
+                   proj_std)]
+    pool, jpool = tm.visual.attnpool, jp["visual"]["attnpool"]
+    pool_std = pool.c_proj.in_features ** -0.5
+    for proj in ("q_proj", "k_proj", "v_proj", "c_proj"):
+        pairs.append((f"attnpool.{proj}", getattr(pool, proj).weight, jpool[proj]["kernel"],
+                      pool_std))
+    return pairs
+
+
+def test_reference_scratch_init_matches_jax_stds_and_zeros():
+    """``scratch_init="reference"`` against the JAX package's
+    ``init_clip(scratch_init="reference")``: the same tensors drawn, each
+    sample std within 10 % of the closed form in both packages (the draws
+    differ: torch and jax generators), every Bottleneck's bn3 weight zeroed
+    in both, and an unknown mode refused by both."""
+    jm = jax_create_clip(JaxConfig(**TINY_RN))
+    jp = jax.device_get(init_clip(jm, jax.random.PRNGKey(0), scratch_init="reference"))["params"]
+    tm = create_clip(CLIPConfig(**TINY_RN), device="cpu", scratch_init="reference")
+    for name, ours, theirs, std in _reference_std_pairs(tm, jp):
+        tol = 0.05 if name == "token_embedding" else 0.10
+        assert abs(ours.float().std().item() - std) < std * tol, (name, "port")
+        assert abs(float(np.std(np.asarray(theirs, np.float32))) - std) < std * tol, (name, "jax")
+    from debiasing_multi_modal_tpu_torch.models.resnet import Bottleneck
+
+    blocks = [m for m in tm.visual.modules() if isinstance(m, Bottleneck)]
+    jax_bn3 = [sub["bn3"]["scale"] for name, sub in jp["visual"].items()
+               if name.startswith("layer") and "bn3" in sub]
+    assert len(blocks) == len(jax_bn3) == 4
+    assert all(not b.bn3.weight.any() for b in blocks)
+    assert all(not np.asarray(s).any() for s in jax_bn3)
+    # everything else keeps the default draws: the stem conv, the other BatchNorms
+    base = create_clip(CLIPConfig(**TINY_RN), device="cpu")
+    assert torch.equal(base.visual.conv1.weight, tm.visual.conv1.weight)
+    assert torch.equal(base.visual.layer1[0].bn1.weight, tm.visual.layer1[0].bn1.weight)
+    assert torch.equal(base.visual.bn3.weight, tm.visual.bn3.weight)  # the stem's bn3
+    with pytest.raises(ValueError, match="scratch_init"):
+        create_clip(CLIPConfig(**TINY_RN), device="cpu", scratch_init="torch")
+    with pytest.raises(ValueError, match="scratch_init"):
+        init_clip(jm, jax.random.PRNGKey(0), scratch_init="torch")
+
+
+def test_reference_scratch_init_keeps_the_vit_tower():
+    """As in the JAX package, a ViT tower keeps its draws; the text side
+    changes."""
+    cfg = CLIPConfig(name="tiny-vit", embed_dim=64, image_resolution=64, vision_layers=2,
+                     vision_width=64, vision_patch_size=16, transformer_width=64,
+                     transformer_heads=1, transformer_layers=2)
+    base = create_clip(cfg, device="cpu")
+    ref = create_clip(cfg, device="cpu", scratch_init="reference")
+    for (name, a), (_, b) in zip(base.visual.state_dict().items(),
+                                 ref.visual.state_dict().items()):
+        assert torch.equal(a, b), name
+    assert not torch.equal(base.text_projection, ref.text_projection)

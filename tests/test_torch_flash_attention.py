@@ -165,22 +165,39 @@ def test_gate_is_pinned_to_shared_memory():
     assert fa.supported(*(torch.zeros(1, 1, 1, 32),) * 3)
     assert not fa.supported(bf(2, 8, 2, 64), bf(2, 8, 3, 64), bf(2, 8, 3, 64))  # heads
     assert not fa.supported(bf(2, 8, 2, 48), bf(2, 8, 2, 48), bf(2, 8, 2, 48))  # hd 48
-    # the shared memory of each kernel, in bytes, and the widest head it fits
+    # the shared memory of each kernel, in bytes, and the widest head it fits:
+    # kernel 4 stages f32 tiles in both dtypes; kernels 5 and 6 stage f32
+    # tiles in f32 and swizzled bf16 tiles (two buffers of the streamed
+    # tile) on the tensor cores in bf16
+    f32, bf16 = torch.float32, torch.bfloat16
     assert [fa.fwd_smem_bytes(hd) for hd in (32, 64, 128)] == [41984, 66560, 115712]
-    assert [fa.dq_smem_bytes(hd) for hd in (32, 64, 128)] == [50432, 83200, 148736]
-    assert [fa.dkv_smem_bytes(hd) for hd in (32, 64, 128)] == [67584, 100352, 165888]
-    assert fa.dkv_smem_bytes(128) <= sa.SMEM_LIMIT_BYTES < fa.dkv_smem_bytes(256)
+    assert [fa.dq_smem_bytes(hd, f32) for hd in (32, 64, 128)] == [50432, 83200, 148736]
+    assert [fa.dkv_smem_bytes(hd, f32) for hd in (32, 64, 128)] == [67584, 100352, 165888]
+    assert [fa.dq_smem_bytes(hd, bf16) for hd in (32, 64, 128)] == [24576, 49152, 98304]
+    assert [fa.dkv_smem_bytes(hd, bf16) for hd in (32, 64, 128)] == [25600, 50176, 99328]
+    assert fa.dkv_smem_bytes(128, f32) <= sa.SMEM_LIMIT_BYTES < fa.dkv_smem_bytes(256, f32)
+    assert fa.supported(*(torch.zeros(1, 1, 1, 128),) * 3)
+    assert fa.supported(*(bf(1, 1, 1, 128),) * 3)
     wide = bf(1, 8, 1, 256)
     assert not fa.supported(wide, wide, wide)
 
 
 # ------------------------------------------------------------- on the card --
 
+# bf16 runs kernels 5-6 on the tensor cores, f32 on the CUDA cores: the
+# training image and text shapes, hd 32 and 128, causal, ragged cross shapes
+# (Sq > Skv, and causal Sq < Skv, where kv tiles past the last row see no
+# query and their dk, dv are zeros)
 CARD = [(128, 50, 50, 12, 64, False, torch.bfloat16),
         (128, 77, 77, 8, 64, True, torch.bfloat16),
         (2, 1000, 77, 8, 64, False, torch.float32),
+        (2, 1000, 77, 8, 64, False, torch.bfloat16),
         (8, 197, 197, 8, 32, True, torch.bfloat16),
-        (2, 300, 200, 4, 128, True, torch.float32)]
+        (4, 100, 100, 4, 32, False, torch.bfloat16),
+        (2, 300, 200, 4, 128, True, torch.float32),
+        (2, 300, 200, 4, 128, True, torch.bfloat16),
+        (2, 129, 129, 4, 128, False, torch.bfloat16),
+        (2, 77, 300, 4, 64, True, torch.bfloat16)]
 
 
 def _close_on_card(got, want, dtype):
@@ -239,6 +256,41 @@ def test_autograd_runs_kernels_5_and_6_on_card(card):
     for a, b, w in zip(*grads, want):
         assert torch.equal(a, b)
         assert _close_on_card(a, w, torch.float32)
+
+
+def test_autograd_runs_bf16_kernels_5_and_6_on_card(card):
+    """The bf16 twin: kernels 5 and 6 on the tensor cores, one launch each
+    per backward, two runs bit-equal (one output tile per block, no
+    atomics), the gradients within the bf16 limits of the plain versions'."""
+    g = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v = (torch.randn(16, 77, 8, 64, device="cuda", generator=g).to(torch.bfloat16)
+               .requires_grad_() for _ in range(3))
+    t = torch.randn(16, 77, 8, 64, device="cuda", generator=g).to(torch.bfloat16)
+    counts = (fa.flash_attention.launches, fa.flash_attention_dq.launches,
+              fa.flash_attention_dkv.launches)
+    grads = [torch.autograd.grad((fa.flash_attention(q, k, v, causal=True) * t).sum(),
+                                 (q, k, v)) for _ in range(2)]
+    assert (fa.flash_attention.launches, fa.flash_attention_dq.launches,
+            fa.flash_attention_dkv.launches) == tuple(c + 2 for c in counts)
+    qd, kd, vd = q.detach(), k.detach(), v.detach()
+    out, lse = fa.flash_attention_forward(qd, kd, vd, True)
+    want = fa.flash_attention_backward_reference(qd, kd, vd, out, lse, t, True)
+    for a, b, w in zip(*grads, want):
+        assert a.dtype == torch.bfloat16
+        assert torch.equal(a, b)
+        assert _close_on_card(a, w, torch.bfloat16)
+
+
+def test_bf16_backward_needs_aligned_inputs_on_card(card):
+    """Kernels 5 and 6 stage bf16 tiles by 16-byte ``cp.async``: their
+    wrappers refuse a base pointer off 16 bytes; kernel 4 takes it."""
+    x = torch.zeros(2 * 77 * 8 * 64 + 1, device="cuda", dtype=torch.bfloat16)
+    off = x[1:].view(2, 77, 8, 64)
+    out, lse = fa.flash_attention_forward(off, off, off)
+    delta = fa.flash_attention_delta(out, off)
+    for wrapper in (fa.flash_attention_dq, fa.flash_attention_dkv):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            wrapper(off, off, off, off, lse, delta)
 
 
 def test_auto_takes_kernel_4_past_the_short_kernels_on_card(card):

@@ -5,6 +5,7 @@ the CPU.  Tolerance 1e-5: the same f32 math in another reduction order."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from debiasing_multi_modal_tpu.models import layers as jl
@@ -165,3 +166,53 @@ def test_quantized_mlp_matches_flax():
         scale = np.abs(ref).max()
         np.testing.assert_allclose(out, ref, rtol=0, atol=2 / 127 * scale)
         assert (np.abs(out - ref) <= 1e-5 * scale).mean() >= 0.99
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_inference_batchnorm_matches_flax(dtype):
+    """One pass (``F.batch_norm``: reads x once, f32 math, one rounding to
+    x's dtype), which on the CPU computes the JAX module's formula
+    ``x * inv + shift``: f32 within 1e-6 of the output's scale (XLA may
+    contract the multiply-add into one FMA, and computes ``rsqrt`` its own
+    way); bf16 within one bf16 rounding step of each value, for the same
+    reason, and equal on nearly every element."""
+    rng = np.random.default_rng(6)
+    c = 24
+    x = (rng.standard_normal((2, c, 5, 7)) * 3).astype(np.float32)
+    weight = rng.standard_normal(c).astype(np.float32)
+    bias = rng.standard_normal(c).astype(np.float32)
+    mean = (rng.standard_normal(c) * 0.2).astype(np.float32)
+    var = rng.uniform(0.5, 2.0, c).astype(np.float32)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = getattr(torch, dtype)
+    ref = jl.InferenceBatchNorm(c).apply(
+        {"params": {"scale": jnp.asarray(weight), "bias": jnp.asarray(bias)},
+         "batch_stats": {"mean": jnp.asarray(mean), "var": jnp.asarray(var)}},
+        jnp.asarray(x.transpose(0, 2, 3, 1)).astype(jdt))
+    ref = np.asarray(ref.astype(jnp.float32)).transpose(0, 3, 1, 2)
+    bn = tl.InferenceBatchNorm(c)
+    bn.load_state_dict({"weight": torch.from_numpy(weight), "bias": torch.from_numpy(bias),
+                        "running_mean": torch.from_numpy(mean),
+                        "running_var": torch.from_numpy(var),
+                        "num_batches_tracked": torch.zeros((), dtype=torch.long)})
+    xt = torch.from_numpy(x).to(tdt)
+    with torch.no_grad():
+        out = bn(xt)
+    assert out.dtype == tdt and out.shape == xt.shape
+    got = out.float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6 * np.abs(ref).max())
+    else:
+        np.testing.assert_array_less(np.abs(got - ref), 2.0 ** -8 * np.abs(ref) + 1e-30)
+        assert np.mean(got == ref) >= 0.99
+    # channels-last activations (the ResNet tower's layout) keep their layout
+    xc = xt.contiguous(memory_format=torch.channels_last)
+    with torch.no_grad():
+        outc = bn(xc)
+    assert outc.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(outc, out)
+    # under autograd the same values, with a gradient
+    w = bn.weight.detach().clone().requires_grad_()
+    bn.weight = torch.nn.Parameter(w)
+    y = bn(xt)
+    assert torch.equal(y.detach(), out) and y.requires_grad

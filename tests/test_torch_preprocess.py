@@ -57,3 +57,52 @@ def test_normalize_only_and_resized_dims():
     )
     for h, w in ((96, 72), (72, 96), (300, 300), (500, 333)):
         assert tp.resized_dims(h, w, 224) == jp.resized_dims(h, w, 224)
+
+
+def _uncached(images, res, method, dtype):
+    """The transform with every constant built afresh (the port's code
+    before the device cache), as the bit-for-bit reference of the cache."""
+    n, h, w, _ = images.shape
+    x = images.float() / 255.0
+    rh, rw = tp.resized_dims(h, w, res)
+    top, left = int(round((rh - res) / 2.0)), int(round((rw - res) / 2.0))
+    x = x.permute(0, 3, 1, 2)
+    if rh != h:
+        mh = torch.from_numpy(tp.resize_matrix(h, rh, True, method)[top:top + res].copy())
+        x = torch.einsum("oh,nchw->ncow", mh, x)
+        if dtype == torch.bfloat16 and rw != w:
+            x = x.to(torch.bfloat16).float()
+    else:
+        x = x[:, :, top:top + res]
+    if rw != w:
+        mw = torch.from_numpy(tp.resize_matrix(w, rw, True, method)[left:left + res].copy())
+        x = torch.einsum("pw,ncow->ncop", mw, x)
+    else:
+        x = x[:, :, :, left:left + res]
+    x = x.clamp(0.0, 1.0).permute(0, 2, 3, 1)
+    mean = torch.tensor(tp.CLIP_MEAN, dtype=torch.float32)
+    std = torch.tensor(tp.CLIP_STD, dtype=torch.float32)
+    return ((x - mean) / std).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cached_constants_are_bit_equal_across_calls_and_sizes(dtype):
+    """The normalization vectors and cropped resize matrices are built once
+    per (device, sizes, method, crop) and reused: repeat calls and calls at
+    other sizes in between give the uncached transform bit for bit."""
+    rng = np.random.default_rng(9)
+    shapes = [(96, 72, 64, "bilinear"), (72, 96, 64, "bicubic"), (80, 80, 64, "bilinear")]
+    batches = {s: torch.from_numpy(rng.integers(0, 256, (2, s[0], s[1], 3), dtype=np.uint8))
+               for s in shapes}
+    for _ in range(2):
+        for (h, w, res, method), imgs in batches.items():
+            ours = tp.preprocess_uint8(imgs, res, dtype=dtype, method=method)
+            assert torch.equal(ours, _uncached(imgs, res, method, dtype))
+    cpu = torch.device("cpu")
+    cached = tp._cropped_resize(96, 85, True, "bilinear", 10, 64, cpu)
+    misses = tp._cropped_resize.cache_info().misses
+    tp.preprocess_uint8(batches[shapes[0]], 64, dtype=dtype)
+    assert tp._cropped_resize(96, 85, True, "bilinear", 10, 64, cpu) is cached  # reused
+    assert tp._cropped_resize.cache_info().misses == misses
+    assert cached.dtype == torch.float32 and cached.shape == (64, 96)
+    assert tp._norm_constants(cpu)[0] is tp._norm_constants(cpu)[0]
