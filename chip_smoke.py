@@ -11,9 +11,10 @@ line.
              (nvidia-smi); turn TF32 off for f32 matmuls and convolutions.
 2. build   — compile every kernel under debiasing_multi_modal_tpu_torch/csrc
              with nvcc (one process per source, all started together); print
-             the registers and spills of kernels 1 and 3 and of every flash
-             instantiation (-Xptxas=-v); bf16 kernels 5 and 6 must not spill
-             at hd 32 and 64.
+             the registers and spills of kernels 1 and 3, of every flash
+             instantiation and of kernel 7 (-Xptxas=-v); bf16 kernel 4 must
+             not spill at hd 32, 64 and 128, bf16 kernels 5 and 6 at hd 32
+             and 64, kernel 7 at all.
 3. kernels — hold each kernel against its plain PyTorch version on the card
              at the main paths' shapes, and time kernel, plain version and the
              PyTorch library call that computes the same function (yardstick
@@ -26,8 +27,12 @@ line.
              bf16 S from 1 to the gate's largest (832 at hd 64) for kernels 1
              and 3, and the order checks (kernel 3 bit-equal to kernel 1 in
              both dtypes, kernel 2 bit-equal to kernel 1 in f32 and within the
-             bf16 limits in bf16), kernel 7 (int8 GEMM), and
-             kernels 4, 5, 6 (flash forward, dQ, dK/dV; 5 and 6 on the
+             bf16 limits in bf16), kernel 7 (int8 GEMM on wgmma fed by TMA,
+             at the three ViT-B/32 int8_pallas shapes, timed by graph replay
+             with the event time beside, against torch._int_mm alone and
+             torch._int_mm with the plain epilogue, and the host cost of one
+             activation tensor map), and
+             kernels 4, 5, 6 (flash forward, dQ, dK/dV; all three on the
              tensor cores in bf16) at the training step's two shapes, a long
              S=4096 shape (plain and causal), ragged cross shapes and hd=32
              and hd=128, timed by CUDA-graph replay with the event time
@@ -194,17 +199,25 @@ def phase_build():
     seconds = cuda_build.build_all()
     emit({"phase": "build", "kernels": cuda_build.kernel_names(),
           "seconds": seconds})
-    # registers and spills of kernels 1 and 3 and of every flash
-    # instantiation (nvcc -Xptxas=-v)
+    # registers and spills of kernels 1 and 3, of every flash instantiation
+    # and of kernel 7 (nvcc -Xptxas=-v)
     emit({"phase": "build", "ptxas": "short_attention.cu",
           "functions": cuda_build.ptxas_usage("short_attention")})
     flash = cuda_build.ptxas_usage("flash_attention")
     emit({"phase": "build", "ptxas": "flash_attention.cu", "functions": flash})
-    spilled = [row["function"] for row in flash
-               if re.search(r"(dq|dkv)_tc_kernelILi(32|64)E", row["function"])
-               and (row.get("spill_store_bytes") or row.get("spill_load_bytes"))]
+    gemm = cuda_build.ptxas_usage("quant_gemm")
+    emit({"phase": "build", "ptxas": "quant_gemm.cu", "functions": gemm})
+    # bf16 kernel 4 at every hd, bf16 kernels 5-6 at hd 32/64, kernel 7
+    must_not_spill = r"fwd_tc_kernelILi(32|64|128)E|(dq|dkv)_tc_kernelILi(32|64)E|int8_gemm"
+    checked = [row for row in flash + gemm if re.search(must_not_spill, row["function"])]
+    if {"flash_attention", "quant_gemm"} - set(cuda_build.build_logs):
+        emit({"phase": "build", "ptxas": "libraries built by an earlier run: not re-read"})
+    elif len(checked) != 3 + 4 + 2:
+        raise AssertionError(f"expected 9 no-spill instantiations, found {len(checked)}")
+    spilled = [row["function"] for row in checked
+               if row.get("spill_store_bytes") or row.get("spill_load_bytes")]
     if spilled:
-        raise AssertionError(f"bf16 kernels 5-6 spill registers at hd 32/64: {spilled}")
+        raise AssertionError(f"kernels that must not spill registers do: {spilled}")
 
 
 def _attention_bound_ms(b, s, d, h, causal, dtype, itemsize):
@@ -333,7 +346,12 @@ def _int8_case(label, m, k, n, with_bias, out_dtype, gen, timed):
     """Kernel 7 against its plain version (exact integer product, the same
     roundings: they may differ only where float64's rounding of the fused
     bias add lands on an f32 tie, so the tolerance is one ulp of the output
-    dtype at the output's scale)."""
+    dtype at the output's scale).  Timed cases: kernel, plain version and
+    the two library yardsticks by graph replay (a ~0.05 ms kernel is shorter
+    than its wrapper's host time), the kernel's event time beside, and the
+    host cost of encoding one activation tensor map."""
+    import ctypes
+
     import torch
 
     from debiasing_multi_modal_tpu_torch.ops import quant_gemm as qg
@@ -359,11 +377,25 @@ def _int8_case(label, m, k, n, with_bias, out_dtype, gen, timed):
     if not err <= tol:
         raise AssertionError(f"int8_matmul disagrees with its plain version: {row}")
     if timed:
-        row["ms"] = time_ms(lambda: qg.int8_matmul(qx, qk, sx, sk, bias, out_dtype=out_dtype))
-        row["plain_ms"] = time_ms(
+        from debiasing_multi_modal_tpu_torch.ops import cuda_build
+
+        def kernel():
+            return qg.int8_matmul(qx, qk, sx, sk, bias, out_dtype=out_dtype)
+
+        row["ms"] = graph_ms(kernel)
+        row["events_ms"] = time_ms(kernel)
+        row["plain_ms"] = graph_ms(
             lambda: qg.int8_matmul_reference(qx, qk, sx, sk, bias, out_dtype=out_dtype))
-        row["library_ms"] = time_ms(lambda: torch._int_mm(qx, qk))
+        row["library_ms"] = graph_ms(lambda: torch._int_mm(qx, qk))
         row["library_call"] = "torch._int_mm (the integer product alone, no epilogue)"
+        row["library2_ms"] = graph_ms(lambda: qg.dequantize(
+            torch._int_mm(qx, qk), sx, sk, bias, fused=False).to(out_dtype))
+        row["library2_call"] = ("torch._int_mm + the plain epilogue (quant='int8' on the "
+                                "card)")
+        encode = cuda_build.library("quant_gemm").int8_matmul_encode_us
+        encode.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        encode.restype = ctypes.c_double
+        row["tensor_map_encode_us"] = encode(qx.data_ptr(), m, k, 1000)
         row["bound_ms"], row["bound_by"] = _int8_bound_ms(
             m, k, n, out.element_size(), with_bias)
     emit({"phase": "kernels", "kernel": "int8_matmul", **row})
@@ -420,11 +452,14 @@ def phase_kernels():
             sa.short_attention_packed, sa.short_attention_packed_reference, *case[:8],
             gen, case[8], packed=True))
     emit({"phase": "kernels", "check": "kernel_order", **_order_checks(gen)})
-    # every shape the ViT-B/32 int8_pallas path launches: q/k/v/out_proj, c_fc, c_proj
+    # every shape the ViT-B/32 int8_pallas path launches, each timed:
+    # c_fc, q/k/v/out_proj, c_proj; then ragged M with K = 588 (padded to 640)
     for case in [("vitb32_c_fc_bf16", 12800, 768, 3072, True, bf16, True),
-                 ("vitb32_qkv_out_bf16", 12800, 768, 768, True, bf16, False),
-                 ("vitb32_c_proj_bf16", 12800, 3072, 768, True, bf16, False),
-                 ("ragged_m_unaligned_k_f32", 1000, 588, 256, False, f32, False)]:
+                 ("vitb32_qkv_out_bf16", 12800, 768, 768, True, bf16, True),
+                 ("vitb32_c_proj_bf16", 12800, 3072, 768, True, bf16, True),
+                 ("vitb32_c_fc_f32_no_bias", 12800, 768, 3072, False, f32, False),
+                 ("ragged_m_unaligned_k_f32", 1000, 588, 256, False, f32, False),
+                 ("ragged_m_unaligned_k_bias_bf16", 1000, 588, 256, True, bf16, False)]:
         results["int8_matmul"].append(_int8_case(*case[:6], gen, case[6]))
     results.update(_flash_cases(gen))
     return results
@@ -1364,7 +1399,15 @@ FLASH_BWD_DESIGN = ("CUDA C++; bf16 on the tensor cores (mma.sync.m16n8k16 with 
                     "accumulators, ldmatrix/ldmatrix.trans, double-buffered 16-byte cp.async "
                     "into swizzled shared memory, p and ds rounded in registers; kernel 6 "
                     "computes the transposed products), f32 on the CUDA cores")
-CUDA_CORE_DESIGN = "CUDA C++ on the CUDA cores (f32 FMAs on f32-staged shared-memory tiles)"
+FLASH_FWD_DESIGN = ("CUDA C++; bf16 on the tensor cores (mma.sync.m16n8k16 with f32 "
+                    "accumulators, Q fragments held in registers, ldmatrix/ldmatrix.trans, "
+                    "double-buffered 16-byte cp.async into swizzled shared memory, the online "
+                    "softmax in registers with p rounded in the accumulator layout), f32 on "
+                    "the CUDA cores")
+INT8_DESIGN = ("CUDA C++; wgmma.mma_async m64n128k32 s8 from 128-byte-swizzled shared "
+               "memory, fed by TMA (cp.async.bulk.tensor.2d) through a 3-stage mbarrier "
+               "ring from one producer warp, two consumer warpgroups per 128x128 tile, the "
+               "f32 epilogue staged in shared memory and stored in 16-byte rows")
 
 
 def _kernel_line(name, source, replaces, cases, launches_by_path, card, design=None):
@@ -1388,8 +1431,9 @@ def _kernel_line(name, source, replaces, cases, launches_by_path, card, design=N
         "shape": main["shape"],
         "card": card,
     }
-    if "events_ms" in main:
-        line["events_ms"] = main["events_ms"]
+    for key in ("events_ms", "library2_ms", "library2_call"):
+        if key in main:
+            line[key] = main[key]
     if design:
         line["design"] = design
     return line
@@ -1424,10 +1468,10 @@ def main():
                      cases["short_attention_packed"], launches, card, TC_DESIGN),
         _kernel_line("int8_matmul", "quant_gemm.cu",
                      "debiasing_multi_modal_tpu/ops/quant_gemm.py:36",
-                     cases["int8_matmul"], launches, card),
+                     cases["int8_matmul"], launches, card, INT8_DESIGN),
         _kernel_line("flash_attention", "flash_attention.cu",
                      "debiasing_multi_modal_tpu/ops/flash_attention.py:180",
-                     cases["flash_attention"], launches, card, CUDA_CORE_DESIGN),
+                     cases["flash_attention"], launches, card, FLASH_FWD_DESIGN),
         _kernel_line("flash_attention_dq", "flash_attention.cu",
                      "debiasing_multi_modal_tpu/ops/flash_attention.py:244",
                      cases["flash_attention_dq"], launches, card, FLASH_BWD_DESIGN),

@@ -1,5 +1,6 @@
 // Device helpers shared by the attention kernels (short_attention.cu,
-// short_attention_qtiled.cu, flash_attention.cu) and bottleneck.cu.
+// short_attention_qtiled.cu, flash_attention.cu), bottleneck.cu and
+// quant_gemm.cu.
 // ops/cuda_build.py hashes every .cuh here into each library's name, so an
 // edit here rebuilds every kernel.
 
@@ -105,6 +106,86 @@ __device__ __forceinline__ void stage_rows(uint32_t dst, const __nv_bfloat16* sr
     const bool ok = r < n_valid;
     cp_async16(dst + swz<HD>(r, c), src + (size_t)(ok ? r : 0) * ld + c * 8, ok ? 16 : 0);
   }
+}
+
+// ------------------------------------ wgmma, TMA and mbarrier building blocks
+// (kernel 7 in quant_gemm.cu; sm_90a only)
+
+// wgmma shared-memory descriptor of a K-major tile of 128-byte rows that TMA
+// wrote in its 128-byte swizzle (tile 1024-byte aligned): start address >> 4,
+// leading offset 1 (unused when swizzled), stride 64 (1024 bytes from one
+// 8-row group to the next), layout 1 (128-byte swizzle).  Adding b >> 4 steps
+// b bytes along K inside the row; the hardware swizzles the final address.
+__device__ __forceinline__ uint64_t wgmma_desc_sw128(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+// Orders this thread's register and shared-memory accesses before the wgmmas after it.
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+// Closes the wgmmas issued since the last commit into one group.
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Waits until at most N committed wgmma groups are still running.
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// Keeps the compiler from moving accesses of an accumulator register across
+// the asynchronous wgmmas that write it.
+__device__ __forceinline__ void fence_operand(int& x) { asm volatile("" : "+r"(x) :: "memory"); }
+
+// An mbarrier that completes a phase after `count` arrivals (one thread).
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+// Makes the initialized barriers visible to the other threads and to TMA.
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// One arrival.
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+// One arrival that also expects `bytes` of asynchronous (TMA) writes before
+// the phase completes.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+// Whether the phase of parity `parity` has completed (a fresh barrier is in
+// phase 0, so parity 1 has).
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile("{\n.reg .pred p;\n"
+               "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+               "selp.u32 %0, 1, 0, p;\n}\n"
+               : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
+}
+// Waits for that phase.  A wrong parity would wait forever: after 2^32
+// cycles (~2 s) the kernel traps instead, which the launch reports as an
+// error.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - t0 > (1ll << 32)) __trap();
+}
+// TMA: the box at (c0 innermost, c1) of a 2-D tensor map into shared memory
+// at dst, completing `bar`'s expected bytes (out-of-bounds elements read as
+// zeros and still count).
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+               " [%0], [%1, {%3, %4}], [%2];\n"
+               :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+               : "memory");
+}
+// Barrier `id` (1-15; 0 is __syncthreads) over `n` threads, a multiple of 32.
+__device__ __forceinline__ void named_bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
 }
 
 }  // namespace dmt

@@ -1,7 +1,8 @@
 // Blockwise (flash) attention for Hopper (sm_90a): kernels 4, 5 and 6.
 //
 // Replaces the TPU kernels of debiasing_multi_modal_tpu/ops/flash_attention.py:
-//   kernel 4  flash_fwd_kernel  <- _attn_fwd_kernel  (forward + row logsumexp)
+//   kernel 4  flash_fwd_kernel (f32), flash_fwd_tc_kernel (bf16)
+//                               <- _attn_fwd_kernel  (forward + row logsumexp)
 //   kernel 5  flash_dq_kernel (f32), flash_dq_tc_kernel (bf16)
 //                               <- _bwd_dq_kernel    (dQ)
 //   kernel 6  flash_dkv_kernel (f32), flash_dkv_tc_kernel (bf16)
@@ -37,43 +38,47 @@
 // flops per byte in bf16, under the ~295 the tensor cores need, so the bound
 // is bytes; at S=4096 it is operations (989 TFLOP/s bf16).
 //
-// Kernels 5 and 6 in bf16 (flash_dq_tc_kernel, flash_dkv_tc_kernel) run on
-// the tensor cores: 4 warps, 16 owned rows each; mma.sync.m16n8k16 with f32
-// accumulators for all four products; ldmatrix / ldmatrix.trans fragments
-// of XOR-swizzled tiles staged by 16-byte cp.async (rows past the ragged
-// edge zero-filled, then masked out of every product and store); the
-// streamed tiles double-buffered so the next tile's copies overlap this
-// tile's products (64 tiles at S=4096).  Kernel 6 computes the transposed
-// products s^T = K.Q^T and dp^T = V.dO^T, so p^T and ds^T come out as the
-// A fragments of p^T.dO and ds^T.Q; p and ds are rounded to bf16 in the
-// accumulator layout and never touch shared memory.  exp(s*scale - lse) is
-// computed as exp2f(s * scale*log2e - lse*log2e) on the f32 logits (the
-// card tests hold it to the plain version's expf within the bf16 limits).
-// Against the bytes bound the design reads each input once per tile pass
-// (K/V once per q tile, Q/dO once per kv tile) and keeps every [Sq, Skv]
-// tensor out of device memory; against the operations bound it runs every
-// product on the tensor cores and skips causal tiles and 16-row steps
-// wholly above the diagonal.
+// In bf16 all three run on the tensor cores (flash_fwd_tc_kernel,
+// flash_dq_tc_kernel, flash_dkv_tc_kernel): 4 warps, 16 owned rows each;
+// mma.sync.m16n8k16 with f32 accumulators for every product; ldmatrix /
+// ldmatrix.trans fragments of XOR-swizzled tiles staged by 16-byte cp.async
+// (rows past the ragged edge zero-filled, then masked out of every product
+// and store); the streamed tiles double-buffered so the next tile's copies
+// overlap this tile's products (64 tiles at S=4096).  Kernel 4 keeps each
+// warp's Q fragments in registers and runs the online softmax in registers
+// on the f32 logits of a whole 64-key tile (running max, corr, l of the
+// unrounded p); kernel 6 computes the transposed products s^T = K.Q^T and
+// dp^T = V.dO^T, so p^T and ds^T come out as the A fragments of p^T.dO and
+// ds^T.Q.  p and ds are rounded to bf16 in the accumulator layout, straight
+// into the next product's A fragment, and never touch shared memory.
+// exp(s*scale - m) is computed as exp2f(s * scale*log2e - m * scale*log2e)
+// on the f32 logits (the card tests hold it to the plain version's expf
+// within the bf16 limits).  Against the bytes bound the design reads each
+// input once per tile pass (K/V once per q tile, Q/dO once per kv tile) and
+// keeps every [Sq, Skv] tensor out of device memory; against the
+// operations bound it runs every product on the tensor cores, skips causal
+// tiles and 16-key (16-row) steps wholly above the diagonal per warp, and
+// tests the mask only on edge tiles (ragged Skv, the causal diagonal).
 //
-// Kernel 4 (both dtypes) and kernels 5 and 6 in f32 run on CUDA-core FMAs:
+// In f32 the three run on CUDA-core FMAs (flash_fwd_kernel, flash_dq_kernel,
+// flash_dkv_kernel; the f32 limit of 1e-4 of scale rules out plain TF32):
 // 256 threads, the 16x16 threads each owning 4 rows x 4 columns of the
 // 64x64 score tile (rows ty + 16i, columns tx + 16j) and 4 rows x hd/16
 // columns of the [64, hd] accumulators (columns tx + 16t); the 16 threads of
 // a row group are one half-warp, so row max and row sum are four shuffles.
 // Staged tiles are f32 with rows padded by one word, so each inner step is
 // conflict-free shared-memory loads: 8 loads per 16 FMAs for q.k^T (16 per
-// 32 in the backward's paired products).  These are bound by those loads
-// at every shape (tensor cores for kernel 4, and TF32 for f32, are later
-// work).
+// 32 in the backward's paired products).  These are bound by those loads.
 //
-// Shared memory (fwd/dq/dkv_smem_bytes and dq/dkv_tc_smem_bytes below,
+// Shared memory (fwd/dq/dkv_smem_bytes and fwd/dq/dkv_tc_smem_bytes below,
 // mirrored per dtype by ops/flash_attention.py) is the gate for supported():
 // it depends on hd and the dtype only, and hd <= 128 fits every kernel.
 //
 // C interface for ctypes, as in short_attention.cu: each entry launches on
 // the given stream, allocates nothing, does not synchronize, and returns
 // cudaGetLastError() (0 on success).  The bf16 backward entries need
-// 16-byte aligned q, k, v and dO base pointers (the wrapper checks).
+// 16-byte aligned q, k, v and dO base pointers, and the bf16 forward q, k
+// and v (the wrappers check).
 
 #include <type_traits>
 
@@ -94,7 +99,7 @@ static_assert(kSide * kSide == kThreads, "one thread per 4x4 cell of a tile");
 
 __host__ __device__ constexpr int ld_of(int hd) { return hd + 1; }
 
-size_t fwd_smem_bytes(int hd) {  // q, k, v tiles + p tile
+size_t fwd_smem_bytes(int hd) {  // f32: q, k, v tiles + p tile
   return (3 * (size_t)kTile * ld_of(hd) + (size_t)kTile * kLdS) * sizeof(float);
 }
 size_t dq_smem_bytes(int hd) {  // q, dO, k, v tiles + ds tile
@@ -484,16 +489,16 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ------------------------------------------- kernels 5 and 6, bf16, tensor cores
+// ---------------------------------------- kernels 4, 5 and 6, bf16, tensor cores
 //
 // One block of kTcWarps warps per 64-row tile it owns, one warp per 16 of
-// those rows: kernel 5 owns q rows and streams 64-key K/V tiles, kernel 6
+// those rows: kernels 4 and 5 own q rows and stream 64-key K/V tiles, kernel 6
 // owns keys and streams 64-row Q/dO tiles (with their lse and delta).  The
 // streamed tiles are double-buffered: tile i+1's 16-byte cp.async copies are
 // in flight while tile i's products run.  All bf16 tiles are XOR-swizzled
 // (common.cuh swz) and read with ldmatrix; every product is
-// mma.sync.m16n8k16 with f32 accumulators, 16 keys (kernel 5) or 16 q rows
-// (kernel 6) per step.  The step's f32 s and dp become p and ds in
+// mma.sync.m16n8k16 with f32 accumulators, 16 keys (kernels 4 and 5) or 16
+// q rows (kernel 6) per step.  The step's f32 s and dp become p and ds in
 // registers; p and ds are rounded to bf16 in the accumulator layout, which
 // is already the A fragment of the step's next products, so neither goes
 // through shared memory.
@@ -504,6 +509,8 @@ constexpr int kTcThreads = kTcWarps * 32;
 template <int HD> __host__ __device__ constexpr size_t tc_tile_bytes() {
   return (size_t)kTile * HD * 2;
 }
+// kernel 4: q and two K/V buffers
+template <int HD> constexpr size_t fwd_tc_smem_bytes() { return 5 * tc_tile_bytes<HD>(); }
 // kernel 5: q, dO and two K/V buffers
 template <int HD> constexpr size_t dq_tc_smem_bytes() { return 6 * tc_tile_bytes<HD>(); }
 // kernel 6: k, v and two Q/dO buffers, each with its tile's lse and delta
@@ -566,6 +573,168 @@ __device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[HD / 8]
     if (row + 8 < n_rows)
       *reinterpret_cast<uint32_t*>(out + (size_t)(row + 8) * ld + col) =
           pack_bf16(acc[j][2], acc[j][3]);
+  }
+}
+
+// Kernel 4, bf16.  Warp w owns q rows q0 + 16w + [0, 16): its Q A fragments
+// stay in registers for the whole key loop, its output in f32 accumulators
+// [16, HD], its running max m (of the raw logits; scale > 0, so the max of
+// the scaled logits is m * scale exactly) and its share of the row sums l in
+// registers.  Per 64-key tile: s = Q.K^T for the 16-key steps the warp sees
+// (K rows as B^T, non-transposed ldmatrix); m_new = max(m, row max of s);
+// p = exp2(s * scale * log2e - m_new * scale * log2e), against the running
+// max as the JAX kernel takes it (0 at masked keys); corr = exp2((m - m_new)
+// * scale * log2e); l = l * corr + sum of the unrounded p; acc = acc * corr
+// + P.V with p rounded to bf16 in the accumulator layout as the A fragment
+// and V read by ldmatrix.trans.  out = acc / l; lse = m * scale + log(l).
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads)
+flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, bf16* __restrict__ o,
+                    float* __restrict__ lse, int Sq, int Skv, int H, int causal,
+                    float scale, float scale_log2) {
+  constexpr uint32_t kTileB = (uint32_t)tc_tile_bytes<HD>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t q_s = smem_u32(smem_raw);
+  const uint32_t kv_s = q_s + kTileB;  // buffer i: K at kv_s + 2i*kTileB, V after it
+
+  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int ld = H * HD;
+  const size_t q_base = ((size_t)b * Sq * H + h) * HD;
+  const size_t kv_base = ((size_t)b * Skv * H + h) * HD;
+  const int nq = min(kTile, Sq - q0);
+  const int kv_end = causal ? min(Skv, q0 + nq) : Skv;  // keys any row of the tile sees
+  const int n_tiles = (kv_end + kTile - 1) / kTile;
+  // keys this warp's rows see (none for a warp wholly past Sq)
+  const int w0 = q0 + 16 * warp;
+  const int w_end = w0 >= Sq ? 0 : causal ? min(kv_end, w0 + 16) : kv_end;
+
+  stage_rows<HD>(q_s, q + q_base + (size_t)q0 * ld, kTile, nq, ld, threadIdx.x, kTcThreads);
+  stage_rows<HD>(kv_s, k + kv_base, kTile, kv_end, ld, threadIdx.x, kTcThreads);
+  stage_rows<HD>(kv_s + kTileB, v + kv_base, kTile, kv_end, ld, threadIdx.x, kTcThreads);
+  cp_async_commit();
+
+  const int row = w0 + g;  // and row + 8
+  float acc[HD / 8][4];
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf;  // running max of the raw logits, rows row, row + 8
+  float l0 = 0.f, l1 = 0.f;          // this thread's share of their sums
+  uint32_t qf[HD / 16][4];
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int j0 = it * kTile;
+    if (it + 1 < n_tiles) {  // the next K/V tile, into the buffer tile it-1 used
+      const uint32_t nb = kv_s + ((it + 1) & 1) * 2 * kTileB;
+      const int nj = j0 + kTile;
+      stage_rows<HD>(nb, k + kv_base + (size_t)nj * ld, kTile, kv_end - nj, ld, threadIdx.x,
+                     kTcThreads);
+      stage_rows<HD>(nb + kTileB, v + kv_base + (size_t)nj * ld, kTile, kv_end - nj, ld,
+                     threadIdx.x, kTcThreads);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (it == 0) load_a<HD>(qf, q_s, warp, lane);
+    const uint32_t k_t = kv_s + (it & 1) * 2 * kTileB, v_t = k_t + kTileB;
+    const int n_ks = min(kTile, max(0, w_end - j0) + 15) / 16;  // 16-key steps this warp runs
+    if (n_ks > 0) {
+      float s[kTile / 16][2][4];
+#pragma unroll
+      for (int ks = 0; ks < kTile / 16; ++ks) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[ks][hh][e] = 0.f;
+        if (ks < n_ks) {
+#pragma unroll
+          for (int kd = 0; kd < HD / 16; ++kd) mma_rows<HD>(s[ks], qf[kd], k_t, 16 * ks, kd, lane);
+        }
+      }
+      // keys past Skv and causal keys past a row (which covers the steps the
+      // warp skipped); rows past Sq are never stored
+      if (j0 + kTile > Skv || (causal && j0 + kTile - 1 > w0)) {
+#pragma unroll
+        for (int ks = 0; ks < kTile / 16; ++ks)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int key = j0 + 16 * ks + 8 * hh + 2 * t + (e & 1), r = row + 8 * (e >> 1);
+              if (key >= Skv || (causal && key > r)) s[ks][hh][e] = kNegInf;
+            }
+      }
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int ks = 0; ks < kTile / 16; ++ks)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          mx0 = fmaxf(mx0, fmaxf(s[ks][hh][0], s[ks][hh][1]));
+          mx1 = fmaxf(mx1, fmaxf(s[ks][hh][2], s[ks][hh][3]));
+        }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {  // the row's 4 threads
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float c0 = exp2f((m0 - mx0) * scale_log2), c1 = exp2f((m1 - mx1) * scale_log2);
+      const float n0 = mx0 * scale_log2, n1 = mx1 * scale_log2;
+      float sum0 = 0.f, sum1 = 0.f;
+      uint32_t pa[kTile / 16][4];
+#pragma unroll
+      for (int ks = 0; ks < kTile / 16; ++ks)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const float p0 = exp2f(fmaf(s[ks][hh][0], scale_log2, -n0));
+          const float p1 = exp2f(fmaf(s[ks][hh][1], scale_log2, -n0));
+          const float p2 = exp2f(fmaf(s[ks][hh][2], scale_log2, -n1));
+          const float p3 = exp2f(fmaf(s[ks][hh][3], scale_log2, -n1));
+          sum0 += p0 + p1;  // l sums the unrounded p
+          sum1 += p2 + p3;
+          pa[ks][2 * hh] = pack_bf16(p0, p1);  // p rounds to v's dtype
+          pa[ks][2 * hh + 1] = pack_bf16(p2, p3);
+        }
+      l0 = l0 * c0 + sum0;
+      l1 = l1 * c1 + sum1;
+      m0 = mx0;
+      m1 = mx1;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        acc[j][0] *= c0;
+        acc[j][1] *= c0;
+        acc[j][2] *= c1;
+        acc[j][3] *= c1;
+      }
+#pragma unroll
+      for (int ks = 0; ks < kTile / 16; ++ks)
+        if (ks < n_ks) mma_cols<HD>(acc, pa[ks], v_t, 16 * ks, lane);
+    }
+    __syncthreads();  // every warp is done with this buffer before it is refilled
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  // every real row sees key 0, so l > 0 there (rows past Sq are not stored)
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    acc[j][0] /= l0;
+    acc[j][1] /= l0;
+    acc[j][2] /= l1;
+    acc[j][3] /= l1;
+  }
+  store_rows<HD>(o + q_base, acc, row, Sq, ld, t);
+  if (t == 0) {
+    const size_t stat = ((size_t)b * H + h) * Sq;
+    if (row < Sq) lse[stat + row] = m0 * scale + logf(l0);
+    if (row + 8 < Sq) lse[stat + row + 8] = m1 * scale + logf(l1);
   }
 }
 
@@ -812,22 +981,33 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               (int)smem);
 }
 
+// bf16 takes the tensor-core kernels, f32 the CUDA-core ones.
 template <typename T, int HD>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                int B, int Sq, int Skv, int H, int causal, cudaStream_t st) {
-  const size_t smem = fwd_smem_bytes(HD);
-  auto kernel = flash_fwd_kernel<T, HD>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
   const dim3 grid((Sq + kTile - 1) / kTile, H, B);
-  kernel<<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), static_cast<float*>(lse), Sq, Skv, H, causal,
-      1.0f / sqrtf((float)HD));
+  const float scale = 1.0f / sqrtf((float)HD);
+  if constexpr (std::is_same<T, bf16>::value) {
+    const size_t smem = fwd_tc_smem_bytes<HD>();
+    auto kernel = flash_fwd_tc_kernel<HD>;
+    cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<grid, kTcThreads, smem, st>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<bf16*>(o), static_cast<float*>(lse), Sq, Skv, H, causal, scale,
+        scale * kLog2e);
+  } else {
+    const size_t smem = fwd_smem_bytes(HD);
+    auto kernel = flash_fwd_kernel<T, HD>;
+    cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<grid, kThreads, smem, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<T*>(o), static_cast<float*>(lse), Sq, Skv, H, causal, scale);
+  }
   return (int)cudaGetLastError();
 }
 
-// bf16 takes the tensor-core kernels, f32 the CUDA-core ones.
 template <typename T, int HD>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int B, int Sq,

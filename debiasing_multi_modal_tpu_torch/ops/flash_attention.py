@@ -8,9 +8,9 @@ Three kernels in ``csrc/flash_attention.cu``:
 - kernel 5 (``_bwd_dq_kernel``): dQ over the saved logsumexp;
 - kernel 6 (``_bwd_dkv_kernel``): dK and dV.
 
-Kernels 5 and 6 run on the tensor cores in bf16 (``mma.sync``,
-``ldmatrix``, ``cp.async``) and on the CUDA cores in f32; kernel 4 runs on
-the CUDA cores in both.
+All three run on the tensor cores in bf16 (``mma.sync``, ``ldmatrix``,
+double-buffered ``cp.async``; kernel 4 runs its online softmax in
+registers) and on the CUDA cores in f32.
 
 :func:`flash_attention` takes q ``[B, Sq, H, hd]`` and k, v
 ``[B, Skv, H, hd]`` (the layout of ``dot_product_attention``: the ``[B, S, D]``
@@ -27,8 +27,8 @@ Each kernel counts its launches: ``flash_attention.launches`` (kernel 4),
 ``causal`` masks key j from query i when j > i (top-left aligned, so Sq may
 differ from Skv); a ragged S edge is masked inside the kernels, never padded.
 The H100 gate (:func:`supported`) is derived from the kernels' shared memory
-(64-row q and kv tiles, staged in f32 by kernel 4 and by f32 kernels 5-6, in
-bf16 by the tensor-core kernels 5-6: it depends on hd and the dtype only).
+(64-row q and kv tiles, staged in f32 by the f32 kernels, in bf16 by the
+tensor-core kernels: it depends on hd and the dtype only).
 The TPU knobs do not carry over: ``_pick_blocks``, ``_heads_per_cell``,
 ``_BWD_VMEM_BUDGET``, ``block_q``/``block_kv``/``heads_per_cell``,
 ``interpret``, and the auto-dispatch thresholds ``MIN_AUTO_SEQ_LEN`` and
@@ -63,9 +63,12 @@ def _tc_tile_bytes(hd: int) -> int:
     return TILE * hd * 2  # a staged [64, hd] bf16 tile, swizzled, unpadded
 
 
-def fwd_smem_bytes(hd: int) -> int:
-    """Kernel 4's shared memory, either dtype: q, k, v tiles and the p tile,
-    staged in f32 (mirrors ``fwd_smem_bytes`` in the CUDA source)."""
+def fwd_smem_bytes(hd: int, dtype: torch.dtype) -> int:
+    """Kernel 4's shared memory (mirrors ``fwd_smem_bytes`` and
+    ``fwd_tc_smem_bytes`` in the CUDA source): bf16 (tensor cores) the q
+    tile and two K/V buffers; f32 q, k, v tiles and the p tile."""
+    if dtype == torch.bfloat16:
+        return 5 * _tc_tile_bytes(hd)
     return 3 * _tile_bytes(hd) + TILE * (TILE + 1) * _F32
 
 
@@ -101,7 +104,7 @@ def supported(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return False
     if sq < 1 or k.shape[1] < 1 or not (1 <= b <= _MAX_GRID_YZ and 1 <= h <= _MAX_GRID_YZ):
         return False
-    smem = max(fwd_smem_bytes(hd), dq_smem_bytes(hd, q.dtype),
+    smem = max(fwd_smem_bytes(hd, q.dtype), dq_smem_bytes(hd, q.dtype),
                dkv_smem_bytes(hd, q.dtype))
     return hd in HEAD_DIMS and smem <= SMEM_LIMIT_BYTES
 
@@ -169,7 +172,10 @@ def _dims(q, k):
 
 def flash_attention_forward(q, k, v, causal: bool = False):
     """Kernel 4 on CUDA tensors that :func:`supported` takes and that are
-    contiguous: ``(out, lse)``, counted in ``flash_attention.launches``."""
+    contiguous: ``(out, lse)``, counted in ``flash_attention.launches``.  In
+    bf16 the kernel stages tiles by 16-byte ``cp.async``: q, k and v must be
+    16-byte aligned."""
+    _need_aligned("flash_attention", q, k, v)
     out = torch.empty_like(q)
     b, sq, skv, h, hd = _dims(q, k)
     lse = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)

@@ -3,18 +3,19 @@
 
 :func:`int8_matmul` computes ``((float(qx @ qk) * sx) * sk + bias)`` cast to
 ``out_dtype``, with the integer product exact and the last multiply and the
-bias add fused into one rounding (:func:`dequantize`).  On a CUDA tensor it launches
-the hand-written kernel in ``csrc/quant_gemm.cu`` (``mma.sync`` int8 tensor
-cores, int32 accumulators in registers, the f32 epilogue before the one
-output write) or raises; on a CPU tensor it runs
-:func:`int8_matmul_reference`, the plain PyTorch version.  There is no fall
-back from one to the other; ``int8_matmul.launches`` counts the kernel's
-launches.
+bias add fused into one rounding (:func:`dequantize`).  On a CUDA tensor it
+launches the hand-written kernel in ``csrc/quant_gemm.cu`` (``wgmma`` int8
+tensor cores fed by TMA through an ``mbarrier`` ring, int32 accumulators in
+registers, the f32 epilogue before one coalesced output write) or raises;
+on a CPU tensor it runs :func:`int8_matmul_reference`, the plain PyTorch
+version.  There is no fall back from one to the other;
+``int8_matmul.launches`` counts the kernel's launches.
 
 The wrapper keeps the JAX wrapper's contract (``quant_gemm.py:78-99``): N a
-multiple of 128, K padded with zeros (which add exact zeros; here to a
-multiple of the kernel's 64-byte K stage), ragged M (masked in the kernel,
-never padded in device memory).  The kernel takes the weight as ``[N, K]``
+multiple of 128, K padded with zeros to a multiple of 128
+(:func:`pad_k_operands`; zeros add exact zeros, and TMA needs row strides
+that are multiples of 16 bytes), ragged M (masked in the kernel, never
+padded in device memory).  The kernel takes the weight as ``[N, K]``
 (K-contiguous); a ``qk`` that is the transposed view of such a tensor, as
 :func:`~debiasing_multi_modal_tpu_torch.ops.quant.int8_dense` makes from a
 Linear weight, is passed without a copy.
@@ -29,7 +30,7 @@ import torch.nn.functional as F
 
 from debiasing_multi_modal_tpu_torch.ops import cuda_build
 
-_K_STAGE = 64  # K bytes per shared-memory stage, csrc/quant_gemm.cu kBK
+K_MULTIPLE = 128  # K is zero-padded to this (the JAX wrapper's multiple; kBK in the kernel)
 _N_TILE = 128  # output columns per block, kBN
 _M_TILE = 128  # output rows per block, kBM
 _MAX_GRID_Y = 65535
@@ -91,6 +92,18 @@ def int8_matmul_reference(qx: torch.Tensor, qk: torch.Tensor, sx: torch.Tensor,
     return dequantize(acc, sx, sk, bias).to(out_dtype)
 
 
+def pad_k_operands(qx: torch.Tensor, qk: torch.Tensor):
+    """``(qx [M, Kp], qkT [N, Kp])``, both contiguous, with K zero-padded to
+    a multiple of :data:`K_MULTIPLE`: the kernel's operands.  Zero columns
+    of qx meet zero rows of qk, so the integer product is unchanged (only
+    the ViT-L/14 patch GEMM, K = 588, pads)."""
+    qkt = qk.t()  # [N, K]: the kernel's K-contiguous weight layout
+    pad = -qx.shape[1] % K_MULTIPLE
+    if pad:
+        qx, qkt = F.pad(qx, (0, pad)), F.pad(qkt, (0, pad))
+    return qx.contiguous(), qkt.contiguous()
+
+
 def _need(cond, msg):
     if not cond:
         raise ValueError(msg)
@@ -107,22 +120,17 @@ def int8_matmul(qx: torch.Tensor, qk: torch.Tensor, sx: torch.Tensor,
         return int8_matmul_reference(qx, qk, sx, sk, bias, out_dtype=out_dtype)
     _need(qx.device.type == "cuda", f"int8_matmul runs on cuda or cpu, not {qx.device}")
     _need(out_dtype in _OUT_CODES, f"the CUDA int8_matmul writes f32 or bf16, not {out_dtype}")
-    m, k = qx.shape
-    n = qk.shape[1]
+    m, n = qx.shape[0], qk.shape[1]
     _need(-(-m // _M_TILE) <= _MAX_GRID_Y, f"M={m} exceeds the kernel's grid")
     for name, t in (("sx", sx), ("sk", sk), ("bias", bias)):
         _need(t is None or (t.dtype == torch.float32 and t.is_contiguous()),
               f"{name} must be a contiguous f32 tensor")
-    qkt = qk.t()  # [N, K]: the kernel's K-contiguous weight layout
-    pad_k = -k % _K_STAGE
-    if pad_k:  # the JAX wrapper's contract: any K (no CLIP Dense needs it)
-        qx, qkt = F.pad(qx, (0, pad_k)), F.pad(qkt, (0, pad_k))
-    qx, qkt = qx.contiguous(), qkt.contiguous()
+    qx, qkt = pad_k_operands(qx, qk)
     _need(qx.data_ptr() % 16 == 0 and qkt.data_ptr() % 16 == 0,
-          "int8_matmul needs 16-byte aligned qx and qk")
+          "int8_matmul needs 16-byte aligned qx and qk (TMA)")
     out = torch.empty(m, n, device=qx.device, dtype=out_dtype)
     cuda_build.launch("quant_gemm", "int8_matmul_forward", (qx, qkt, sx, sk, bias, out),
-                      (m, n, k + pad_k, _OUT_CODES[out_dtype]), qx.device)
+                      (m, n, qx.shape[1], _OUT_CODES[out_dtype]), qx.device)
     int8_matmul.launches += 1
     return out
 

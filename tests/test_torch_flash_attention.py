@@ -166,11 +166,11 @@ def test_gate_is_pinned_to_shared_memory():
     assert not fa.supported(bf(2, 8, 2, 64), bf(2, 8, 3, 64), bf(2, 8, 3, 64))  # heads
     assert not fa.supported(bf(2, 8, 2, 48), bf(2, 8, 2, 48), bf(2, 8, 2, 48))  # hd 48
     # the shared memory of each kernel, in bytes, and the widest head it fits:
-    # kernel 4 stages f32 tiles in both dtypes; kernels 5 and 6 stage f32
-    # tiles in f32 and swizzled bf16 tiles (two buffers of the streamed
-    # tile) on the tensor cores in bf16
+    # the kernels stage f32 tiles in f32 and swizzled bf16 tiles (two
+    # buffers of the streamed tile) on the tensor cores in bf16
     f32, bf16 = torch.float32, torch.bfloat16
-    assert [fa.fwd_smem_bytes(hd) for hd in (32, 64, 128)] == [41984, 66560, 115712]
+    assert [fa.fwd_smem_bytes(hd, f32) for hd in (32, 64, 128)] == [41984, 66560, 115712]
+    assert [fa.fwd_smem_bytes(hd, bf16) for hd in (32, 64, 128)] == [20480, 40960, 81920]
     assert [fa.dq_smem_bytes(hd, f32) for hd in (32, 64, 128)] == [50432, 83200, 148736]
     assert [fa.dkv_smem_bytes(hd, f32) for hd in (32, 64, 128)] == [67584, 100352, 165888]
     assert [fa.dq_smem_bytes(hd, bf16) for hd in (32, 64, 128)] == [24576, 49152, 98304]
@@ -180,6 +180,12 @@ def test_gate_is_pinned_to_shared_memory():
     assert fa.supported(*(bf(1, 1, 1, 128),) * 3)
     wide = bf(1, 8, 1, 256)
     assert not fa.supported(wide, wide, wide)
+    # the per-dtype forward gate changes no answer: every head dim of
+    # HEAD_DIMS in either dtype, and none wider
+    for dtype in (f32, bf16):
+        for hd, want in ((32, True), (64, True), (128, True), (256, False)):
+            x = torch.zeros(2, 9, 2, hd, dtype=dtype)
+            assert fa.supported(x, x, x) is want, (dtype, hd)
 
 
 # ------------------------------------------------------------- on the card --
@@ -282,15 +288,52 @@ def test_autograd_runs_bf16_kernels_5_and_6_on_card(card):
 
 
 def test_bf16_backward_needs_aligned_inputs_on_card(card):
-    """Kernels 5 and 6 stage bf16 tiles by 16-byte ``cp.async``: their
-    wrappers refuse a base pointer off 16 bytes; kernel 4 takes it."""
+    """Kernels 4, 5 and 6 stage bf16 tiles by 16-byte ``cp.async``: their
+    wrappers refuse a base pointer off 16 bytes (kernel 4 too, since it
+    runs on the tensor cores in bf16)."""
     x = torch.zeros(2 * 77 * 8 * 64 + 1, device="cuda", dtype=torch.bfloat16)
     off = x[1:].view(2, 77, 8, 64)
-    out, lse = fa.flash_attention_forward(off, off, off)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_attention_forward(off, off, off)
+    out, lse = fa.flash_attention_reference(off, off, off)
     delta = fa.flash_attention_delta(out, off)
     for wrapper in (fa.flash_attention_dq, fa.flash_attention_dkv):
         with pytest.raises(ValueError, match="16-byte aligned"):
             wrapper(off, off, off, off, lse, delta)
+
+
+# bf16 kernel 4 (tensor cores) at every shape chip_smoke.py holds it to, at
+# each head dim, non-causal and causal: the training shapes, S=4096, ragged
+# cross-attention (Sq > Skv), causal Sq < Skv and Sq > Skv (top-left
+# aligned), and ragged tiles at hd 32 and 128
+FORWARD_BF16 = [(128, 50, 50, 12, 64, False), (128, 77, 77, 8, 64, True),
+                (4, 4096, 4096, 16, 64, False), (4, 4096, 4096, 16, 64, True),
+                (2, 1000, 77, 8, 64, False), (2, 1000, 77, 8, 64, True),
+                (2, 77, 300, 4, 64, True), (8, 197, 197, 8, 32, True),
+                (8, 197, 197, 8, 32, False), (2, 1000, 77, 8, 32, False),
+                (4, 257, 257, 4, 128, False), (2, 300, 200, 4, 128, True),
+                (2, 77, 300, 4, 128, True), (3, 1, 1, 2, 64, False)]
+
+
+@pytest.mark.parametrize("b,sq,skv,h,hd,causal", FORWARD_BF16)
+def test_bf16_forward_on_tensor_cores_matches_plain_on_card(card, b, sq, skv, h, hd, causal):
+    """Kernel 4 in bf16 against its plain version: out within 1e-2 of
+    scale with cosine >= 0.9999 (p rounds to bf16 against the running max,
+    the plain version against the row max), lse within 1e-4 (f32 sums in
+    another order); two runs bit-equal."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q = torch.randn(b, sq, h, hd, device="cuda", generator=g).to(torch.bfloat16)
+    k, v = (torch.randn(b, skv, h, hd, device="cuda", generator=g).to(torch.bfloat16)
+            for _ in range(2))
+    out, lse = fa.flash_attention_forward(q, k, v, causal)
+    again, lse_again = fa.flash_attention_forward(q, k, v, causal)
+    torch.cuda.synchronize()
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, causal)
+    assert out.dtype == torch.bfloat16 and lse.shape == (b, h, sq)
+    assert torch.isfinite(out.float()).all()
+    assert _close_on_card(out, ref, torch.bfloat16)
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+    assert torch.equal(out, again) and torch.equal(lse, lse_again)
 
 
 def test_auto_takes_kernel_4_past_the_short_kernels_on_card(card):

@@ -131,6 +131,36 @@ def test_int8_dense_module_keeps_linear_parameters():
         tquant.int8_dense(x, lin.weight.t(), impl="nope")
 
 
+@pytest.mark.parametrize("k", [588, 100])
+def test_k_padding_contract_matches_jax(k):
+    """The kernel's operands (:func:`pad_k_operands`): K zero-padded to the
+    next multiple of 128, the JAX wrapper's own (588 -> 640, the ViT-L/14
+    patch GEMM; 100 -> 128), qx [M, Kp] and the weight [N, Kp], both
+    contiguous; the plain product of the padded operands equals the
+    unpadded one bit for bit and the JAX kernel within its 2 ulps."""
+    jnp, jquant, jax_int8_matmul = _jax()
+    x, w, b = _normal((70, k), 11), _normal((k, 256), 12), _normal((256,), 13)
+    qx, sx = jquant.quantize_rows_int8(jnp.asarray(x))
+    qk, sk = jquant.quantize_cols_int8(jnp.asarray(w))
+    ref = np.asarray(jax_int8_matmul(qx, qk, sx, sk, bias=jnp.asarray(b),
+                                     out_dtype=jnp.float32, interpret=True))
+    tqx, tqk, tsx, tsk = (torch.from_numpy(np.array(a)) for a in (qx, qk, sx, sk))
+    pqx, pqkt = tqg.pad_k_operands(tqx, tqk)
+    kp = k + (-k) % 128
+    assert tqg.K_MULTIPLE == 128
+    assert pqx.shape == (70, kp) and pqkt.shape == (256, kp)
+    assert pqx.is_contiguous() and pqkt.is_contiguous()
+    assert (pqx[:, k:] == 0).all() and (pqkt[:, k:] == 0).all()
+    assert torch.equal(pqx[:, :k], tqx) and torch.equal(pqkt[:, :k], tqk.t())
+    tb = torch.from_numpy(b)
+    padded = tqg.int8_matmul_reference(pqx, pqkt.t(), tsx, tsk, tb)
+    assert torch.equal(padded, tqg.int8_matmul_reference(tqx, tqk, tsx, tsk, tb))
+    np.testing.assert_array_max_ulp(padded.numpy(), ref, maxulp=2)
+    # a K already on the multiple is passed through without a pad
+    aligned = torch.zeros(4, 256, dtype=torch.int8)
+    assert tqg.pad_k_operands(aligned, torch.zeros(256, 128, dtype=torch.int8))[0].shape == (4, 256)
+
+
 def test_int8_matmul_checks_its_contract():
     qx = torch.zeros(8, 64, dtype=torch.int8)
     sx, sk = torch.ones(8, 1), torch.ones(100)
@@ -151,10 +181,16 @@ def test_int8_matmul_checks_its_contract():
 
 
 @pytest.mark.parametrize("m,k,n,with_bias,out_dtype", [
-    (12800, 768, 3072, True, torch.bfloat16),
-    (12800, 768, 768, True, torch.bfloat16),
-    (12800, 3072, 768, True, torch.bfloat16),
-    (1000, 588, 256, False, torch.float32),
+    (12800, 768, 3072, True, torch.bfloat16),    # ViT-B/32 c_fc
+    (12800, 768, 768, True, torch.bfloat16),     # q, k, v, out_proj
+    (12800, 3072, 768, True, torch.bfloat16),    # c_proj
+    (1000, 588, 256, False, torch.float32),      # ragged M, K padded to 640
+    (12800, 768, 3072, False, torch.float32),
+    (12800, 3072, 768, True, torch.float32),
+    (12800, 768, 768, False, torch.bfloat16),
+    (1000, 588, 256, True, torch.bfloat16),
+    (77, 768, 384, True, torch.float32),         # one ragged row tile
+    (129, 128, 128, False, torch.bfloat16),      # one K step, a 1-row second tile
 ])
 def test_int8_kernel_equals_plain_on_card(card, m, k, n, with_bias, out_dtype):
     """The integer product is exact both ways and the kernel's epilogue
