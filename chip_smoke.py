@@ -11,21 +11,26 @@ line.
              (nvidia-smi); turn TF32 off for f32 matmuls and convolutions.
 2. build   — compile every kernel under debiasing_multi_modal_tpu_torch/csrc
              with nvcc (one process per source, all started together); print
-             the registers and spills of kernels 1 and 3, of every flash
+             the registers and spills of kernels 1-3, of every flash
              instantiation and of kernel 7 (-Xptxas=-v); bf16 kernel 4 must
              not spill at hd 32, 64 and 128, bf16 kernels 5 and 6 at hd 32
-             and 64, kernel 7 at all.
+             and 64, kernel 7 at all, f32 kernels 1-3 (every tile) at hd 32
+             and 64.
 3. kernels — hold each kernel against its plain PyTorch version on the card
              at the main paths' shapes, and time kernel, plain version and the
              PyTorch library call that computes the same function (yardstick
              only; the port never calls it): kernel 1 (whole-row attention;
              bf16 on the tensor cores, timed at the text and ViT-B/32 image
-             shapes, f32 on the CUDA cores at the text shape; the attention
+             shapes, f32 on the CUDA cores, register-tiled, at the RN50 and
+             ViT-L/14@336px text shapes and the ViT-L/14 image shape; the attention
              kernels, their plain versions and SDPA timed by CUDA-graph replay,
              so a wrapper's host time stays out), kernel 2
-             (q-tiled), kernel 3 (packed, timed at both shapes), with ragged
+             (q-tiled; f32 the same register-tiled code with K/V streamed),
+             kernel 3 (packed, timed at both shapes), with ragged
              bf16 S from 1 to the gate's largest (832 at hd 64) for kernels 1
-             and 3, and the order checks (kernel 3 bit-equal to kernel 1 in
+             and 3, ragged f32 S from 1 to each gate's largest (348 and 1,624
+             at hd 64; 592 / 1,720 at hd 32, 184 / 1,432 at hd 128) for
+             kernels 1, 3 and 2, and the order checks (kernel 3 bit-equal to kernel 1 in
              both dtypes, kernel 2 bit-equal to kernel 1 in f32 and within the
              bf16 limits in bf16), kernel 7 (int8 GEMM on wgmma fed by TMA,
              at the three ViT-B/32 int8_pallas shapes, timed by graph replay
@@ -33,7 +38,8 @@ line.
              torch._int_mm with the plain epilogue, and the host cost of one
              activation tensor map), and
              kernels 4, 5, 6 (flash forward, dQ, dK/dV; all three on the
-             tensor cores in bf16) at the training step's two shapes, a long
+             tensor cores in bf16) at the training step's two shapes (the
+             image shape also in f32), a long
              S=4096 shape (plain and causal), ragged cross shapes and hd=32
              and hd=128, timed by CUDA-graph replay with the event time
              beside (SDPA, forward and backward, as yardsticks; its backward
@@ -77,8 +83,9 @@ line.
              the CPU, and throughput with the host's load beside it; one
              encode_batch_async under the sync check.
 8. qtiled  — ViT-L/14@336px at its zoo default f32 encodes four 336x336
-             images through kernel 2, held to the same weights under the
-             plain attention formulation.
+             images through kernel 2 and 256 prompts through f32 kernel 1
+             (counts 24 and 12), both towers held to the same weights under
+             the plain attention formulation; image ms and prompts/s.
 9. train   — ViT-B/32 at full width and depth, bf16 compute, f32 parameters,
              attn_impl="pallas": 3 SGD steps of the symmetric contrastive loss
              on 128 uint8 images (preprocessed on the card) and 128 prompts,
@@ -199,21 +206,27 @@ def phase_build():
     seconds = cuda_build.build_all()
     emit({"phase": "build", "kernels": cuda_build.kernel_names(),
           "seconds": seconds})
-    # registers and spills of kernels 1 and 3, of every flash instantiation
-    # and of kernel 7 (nvcc -Xptxas=-v)
-    emit({"phase": "build", "ptxas": "short_attention.cu",
-          "functions": cuda_build.ptxas_usage("short_attention")})
+    # registers and spills of kernels 1-3, of every flash instantiation and
+    # of kernel 7 (nvcc -Xptxas=-v)
+    short = cuda_build.ptxas_usage("short_attention")
+    emit({"phase": "build", "ptxas": "short_attention.cu", "functions": short})
+    qtiled = cuda_build.ptxas_usage("short_attention_qtiled")
+    emit({"phase": "build", "ptxas": "short_attention_qtiled.cu", "functions": qtiled})
     flash = cuda_build.ptxas_usage("flash_attention")
     emit({"phase": "build", "ptxas": "flash_attention.cu", "functions": flash})
     gemm = cuda_build.ptxas_usage("quant_gemm")
     emit({"phase": "build", "ptxas": "quant_gemm.cu", "functions": gemm})
-    # bf16 kernel 4 at every hd, bf16 kernels 5-6 at hd 32/64, kernel 7
-    must_not_spill = r"fwd_tc_kernelILi(32|64|128)E|(dq|dkv)_tc_kernelILi(32|64)E|int8_gemm"
-    checked = [row for row in flash + gemm if re.search(must_not_spill, row["function"])]
-    if {"flash_attention", "quant_gemm"} - set(cuda_build.build_logs):
+    # bf16 kernel 4 at every hd, bf16 kernels 5-6 at hd 32/64, kernel 7, and
+    # every f32 kernel-1 (resident) and kernel-2 (streamed) tile at hd 32/64
+    must_not_spill = (r"fwd_tc_kernelILi(32|64|128)E|(dq|dkv)_tc_kernelILi(32|64)E|int8_gemm"
+                      r"|f32_attn_kernelILi(32|64)E")
+    checked = [row for row in short + qtiled + flash + gemm
+               if re.search(must_not_spill, row["function"])]
+    libs = {"short_attention", "short_attention_qtiled", "flash_attention", "quant_gemm"}
+    if libs - set(cuda_build.build_logs):
         emit({"phase": "build", "ptxas": "libraries built by an earlier run: not re-read"})
-    elif len(checked) != 3 + 4 + 2:
-        raise AssertionError(f"expected 9 no-spill instantiations, found {len(checked)}")
+    elif len(checked) != 3 + 4 + 2 + 2 * (2 + 3):
+        raise AssertionError(f"expected 19 no-spill instantiations, found {len(checked)}")
     spilled = [row["function"] for row in checked
                if row.get("spill_store_bytes") or row.get("spill_load_bytes")]
     if spilled:
@@ -306,6 +319,13 @@ def _attention_case(kernel, plain, label, b, s, d, h, causal, dtype, tol, gen,
 # largest S (832); causal and not.
 RAGGED_S = [(f"ragged_s{s}_{'causal' if causal else 'noncausal'}_bf16", 3, s, 512, 8, causal)
             for s in (1, 17, 50, 77, 129, 257, 577, 832) for causal in (False, True)]
+
+
+# Ragged f32 S at hd 64 (D=512, H=8), causal and not: kernels 1 and 3 up to
+# their gate's largest S (348), kernel 2 at every S up to its gate's (1,624).
+RAGGED_F32_S = (1, 31, 33, 63, 65, 129, 348, 417, 418, 1111, 1624)
+RAGGED_F32 = [(f"ragged_s{s}_{'causal' if causal else 'noncausal'}_f32", 3, s, 512, 8, causal)
+              for s in RAGGED_F32_S for causal in (False, True)]
 
 
 def _order_checks(gen):
@@ -431,23 +451,32 @@ def phase_kernels():
                "short_attention_packed": [], "int8_matmul": []}
     # (label, B, S, D, H, causal, dtype, max abs error, timed); bf16 runs on
     # the tensor cores, f32 on the CUDA cores
+    ragged32 = [(*case, f32, 1e-5, False) for case in RAGGED_F32]
+    whole32 = [case for case in ragged32 if case[2] <= 348]  # kernel 1's gate at hd 64
     for case in [("text_rn50_bf16", 256, 77, 512, 8, True, bf16, 2e-2, True),
                  ("text_rn50_f32", 256, 77, 512, 8, True, f32, 1e-5, True),
                  ("vitb32_image_bf16", 256, 50, 768, 12, False, bf16, 2e-2, True),
+                 ("vitl14_image_f32", 64, 257, 1024, 16, False, f32, 1e-5, True),
+                 ("text_vitl14_336_f32", 256, 77, 768, 12, True, f32, 1e-5, True),
                  ("ragged_noncausal_bf16", 5, 50, 768, 12, False, bf16, 2e-2, False),
                  ("ragged_noncausal_f32", 5, 50, 768, 12, False, f32, 1e-5, False),
-                 *ragged]:
+                 ("gate_largest_hd32_f32", 2, 592, 256, 8, False, f32, 1e-5, False),
+                 ("gate_largest_hd128_f32", 2, 184, 512, 4, True, f32, 1e-5, False),
+                 *ragged, *whole32]:
         results["short_attention"].append(_attention_case(
             sa.short_attention, sa.short_attention_reference, *case[:8], gen, case[8]))
     for case in [("vitl14_336_f32", 8, 577, 1024, 16, False, f32, 1e-5, True),
                  ("vitl14_448_bf16", 4, 1025, 1024, 16, False, bf16, 2e-2, False),
-                 ("ragged_causal_f32", 3, 1111, 256, 4, True, f32, 1e-5, False)]:
+                 ("ragged_causal_f32", 3, 1111, 256, 4, True, f32, 1e-5, False),
+                 ("gate_largest_hd32_f32", 2, 1720, 256, 8, False, f32, 1e-5, False),
+                 ("gate_largest_hd128_f32", 2, 1432, 512, 4, True, f32, 1e-5, False),
+                 *ragged32]:
         results["short_attention_qtiled"].append(_attention_case(
             sa.short_attention_qtiled, sa.short_attention_reference, *case[:8], gen,
             case[8]))
     for case in [("vitb32_packed_bf16", 256, 50, 768, 12, False, bf16, 2e-2, True),
                  ("text_packed_bf16", 256, 77, 512, 8, True, bf16, 2e-2, True),
-                 *ragged]:
+                 *ragged, *whole32]:
         results["short_attention_packed"].append(_attention_case(
             sa.short_attention_packed, sa.short_attention_packed_reference, *case[:8],
             gen, case[8], packed=True))
@@ -611,6 +640,7 @@ def _flash_cases(gen):
     # (label, B, Sq, Skv, H, hd, causal, dtype, timed)
     for case in [("vitb32_train_image_bf16", 128, 50, 50, 12, 64, False, bf16, True),
                  ("vitb32_train_text_bf16", 128, 77, 77, 8, 64, True, bf16, True),
+                 ("vitb32_train_image_f32", 128, 50, 50, 12, 64, False, f32, True),
                  ("long_bf16", 4, 4096, 4096, 16, 64, False, bf16, True),
                  ("long_causal_bf16", 4, 4096, 4096, 16, 64, True, bf16, True),
                  ("ragged_cross_f32", 2, 1000, 77, 8, 64, False, f32, False),
@@ -1197,9 +1227,12 @@ def phase_vit():
 
 def phase_qtiled():
     """ViT-L/14@336px at its zoo default f32: every image attention is
-    kernel 2.  Held to the same weights under the plain formulation within
-    1e-4 of the output's scale: both sum in f32 (TF32 off), in other orders,
-    through 24 layers; the measured gap is ~1e-6."""
+    kernel 2 (24 launches), every text attention f32 kernel 1 (12).  The
+    launch counts are set to 0, then four 336x336 images and 256 synthetic
+    prompts are encoded, then the counts are read.  Both towers are held to
+    the same weights under the plain attention formulation within 1e-4 of
+    the output's scale: both sum in f32 (TF32 off), in other orders, through
+    24 or 12 layers; the measured gap is ~1e-6."""
     import numpy as np
     import torch
 
@@ -1212,27 +1245,42 @@ def phase_qtiled():
     model = build()
     x = torch.randn(4, 336, 336, 3, device="cuda",
                     generator=torch.Generator(device="cuda").manual_seed(SEED))
+    tokens = torch.from_numpy(_tokens(256, np.random.default_rng(SEED + 5))).cuda()
+    # ---- the main path, with every launch count at 0 just before it
     _zero_counts()
     with torch.inference_mode():
         emb = model.encode_image(x)
+        text = model.encode_text(tokens)
     torch.cuda.synchronize()
     launches = _read_counts()
+    # ----
     _expect_counts("ViT-L/14@336px", launches,
-                   {"short_attention_qtiled": model.config.vision_layers})
+                   {"short_attention_qtiled": model.config.vision_layers,
+                    "short_attention": model.config.transformer_layers})
+
+    def text_encode():
+        with torch.inference_mode():
+            model.encode_text(tokens)
+
     image_ms = time_ms(lambda: model.encode_image(x), runs=5, calls=3, warmup=1)
+    prompts_per_s = _rate(text_encode, 256, 5)
     del model
     plain = build(attn_impl="xla")
     with torch.inference_mode():
         ref = plain.encode_image(x)
+        text_ref = plain.encode_text(tokens)
     emb, ref = emb.cpu().numpy(), ref.cpu().numpy()
-    rel = _rel(emb, ref)
+    text, text_ref = text.cpu().numpy(), text_ref.cpu().numpy()
+    rel, text_rel = _rel(emb, ref), _rel(text, text_ref)
     row = {"phase": "qtiled", "model": "ViT-L/14@336px", "dtype": "float32",
-           "images": [4, 336, 336], "launches": launches,
-           "kernel_vs_plain_attention_rel": rel, "tolerance": 1e-4,
-           "encode_image_ms": image_ms}
+           "images": [4, 336, 336], "prompts": 256, "launches": launches,
+           "kernel_vs_plain_attention_rel": rel, "text_kernel_vs_plain_attention_rel": text_rel,
+           "tolerance": 1e-4, "encode_image_ms": image_ms, "prompts_per_s": prompts_per_s,
+           "text_encode_ms": 256 / prompts_per_s * 1e3}
     emit(row)
-    if not (np.isfinite(emb).all() and emb.shape == (4, 768) and rel <= 1e-4):
-        raise AssertionError(f"ViT-L/14@336px through kernel 2 disagrees: {row}")
+    if not (np.isfinite(emb).all() and emb.shape == (4, 768) and rel <= 1e-4
+            and np.isfinite(text).all() and text.shape == (256, 768) and text_rel <= 1e-4):
+        raise AssertionError(f"ViT-L/14@336px through kernels 2 and 1 disagrees: {row}")
     return {"vit_l14_336": launches}
 
 
@@ -1393,8 +1441,13 @@ def phase_train():
     return launches
 
 
+F32_DESIGN = ("f32 on the CUDA cores from register tiles (attention_f32.cuh: 16x16 threads, "
+              "4x8 logits and 4x4 outputs a thread at 64 query rows, 16-byte cp.async into "
+              "swizzled shared memory, warp-per-row exact softmax)")
 TC_DESIGN = ("CUDA C++; bf16 on the tensor cores (mma.sync.m16n8k16, ldmatrix, 16-byte "
-             "cp.async into swizzled shared memory), f32 on the CUDA cores")
+             "cp.async into swizzled shared memory); " + F32_DESIGN)
+QTILED_DESIGN = ("CUDA C++; " + F32_DESIGN + ", K/V streamed through double-buffered key "
+                 "tiles; bf16 the first design (one warp per 4 rows, CUDA cores)")
 FLASH_BWD_DESIGN = ("CUDA C++; bf16 on the tensor cores (mma.sync.m16n8k16 with f32 "
                     "accumulators, ldmatrix/ldmatrix.trans, double-buffered 16-byte cp.async "
                     "into swizzled shared memory, p and ds rounded in registers; kernel 6 "
@@ -1462,7 +1515,7 @@ def main():
                      cases["short_attention"], launches, card, TC_DESIGN),
         _kernel_line("short_attention_qtiled", "short_attention_qtiled.cu",
                      "debiasing_multi_modal_tpu/ops/short_attention.py:308",
-                     cases["short_attention_qtiled"], launches, card),
+                     cases["short_attention_qtiled"], launches, card, QTILED_DESIGN),
         _kernel_line("short_attention_packed", "short_attention.cu",
                      "debiasing_multi_modal_tpu/ops/short_attention.py:269",
                      cases["short_attention_packed"], launches, card, TC_DESIGN),

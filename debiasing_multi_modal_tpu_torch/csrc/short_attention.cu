@@ -49,22 +49,27 @@
 // the limit here: a 0.03-0.04 ms kernel at these shapes needs ~80-100 TFLOP/s,
 // far below what mma.sync gives.  TMA is not needed at these tile sizes.
 //
-// f32 (short_attn_kernel): CUDA-core FMAs, one warp per query row (lanes
-// split the keys for the scores, then the head dims for P.V), K_h and V_h
-// staged with rows padded by one word (common.cuh padded_ld).  f32 on the
-// tensor cores would be TF32, which breaks the f32 limit against the plain
-// version; kernel 2 sums in this code's order, so in f32 the two agree bit
-// for bit.
+// f32 (attention_f32.cuh, f32_attn_kernel<HD, MQ, 0, 128>): CUDA-core FMAs
+// fed from registers.  One block of 256 threads per (tile of MQ query rows,
+// head, image): 32 rows up to S = 128, 64 past it where they fit.  It stages
+// the keys its rows see of K_h and V_h (16-byte cp.async, swizzled rows) and
+// its q rows, all at once; each thread computes a register tile of logits,
+// the warps run the exact softmax on the stored f32 score rows, and each
+// thread a register tile of P.V.  f32 on the tensor cores would be TF32,
+// which breaks the f32 limit against the plain version; kernel 2 runs the
+// same device code with K and V streamed, so in f32 the two agree bit for
+// bit.
 //
-// Shared memory (smem_bytes_bf16 / smem_bytes_f32 below, mirrored by
-// ops/short_attention.py::smem_bytes) is the gate for supported_whole_row()
+// Shared memory (smem_bytes_bf16 below and f32attn::resident_smem_bytes,
+// mirrored by ops/short_attention.py::smem_bytes) is the gate for supported_whole_row()
 // and supported_packed().
 //
 // C interface for ctypes: each entry launches on the given stream, allocates
 // nothing, does not synchronize, and returns cudaGetLastError() (0 on
-// success).  The bf16 entry needs 16-byte aligned base pointers (the wrapper
+// success).  Both entries need 16-byte aligned base pointers (the wrapper
 // checks).
 
+#include "attention_f32.cuh"
 #include "common.cuh"
 
 namespace {
@@ -339,106 +344,7 @@ int dispatch_chunk(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, 
 }
 
 // ---------------------------------------------------------- f32, CUDA cores
-
-constexpr int kRowsPerBlock = 128;  // query rows per block (one tile if S<=128)
-
-size_t smem_bytes_f32(int S, int hd) {
-  return 2 * (size_t)S * padded_ld<float>(hd) * sizeof(float)  // K_h, V_h
-         + (size_t)kWarps * (S + hd) * sizeof(float);         // per-warp scores + q row
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
-short_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, float* __restrict__ o,
-                  int S, int ld_in, int ld_out, int causal, float scale) {
-  constexpr int ld = padded_ld<float>(HD);
-  constexpr int kPerLane = HD / 32;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* ks = reinterpret_cast<float*>(smem_raw);
-  float* vs = ks + (size_t)S * ld;
-  float* warp_buf = vs + (size_t)S * ld;
-
-  const int tile0 = blockIdx.x * kRowsPerBlock;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const size_t base = (size_t)b * S * ld_in + (size_t)h * HD;
-  const size_t out_base = (size_t)b * S * ld_out + (size_t)h * HD;
-
-  // Causal rows of this tile see keys [0, last row]; stage only those.
-  const int row_end = min(tile0 + kRowsPerBlock, S);
-  const int n_stage = causal ? row_end : S;
-  for (int idx = threadIdx.x; idx < n_stage * HD; idx += kThreads) {
-    const int j = idx / HD, d = idx % HD;
-    const size_t g = base + (size_t)j * ld_in + d;
-    ks[j * ld + d] = k[g];
-    vs[j * ld + d] = v[g];
-  }
-  __syncthreads();
-
-  float* sc = warp_buf + (size_t)warp * (S + HD);  // this warp's scores
-  float* qs = sc + S;                               // this warp's query row
-
-  for (int r = tile0 + warp; r < row_end; r += kWarps) {
-    const size_t row = base + (size_t)r * ld_in;
-    for (int d = lane; d < HD; d += 32) qs[d] = q[row + d];
-    __syncwarp();
-    const int n_keys = causal ? r + 1 : S;
-
-    // scores: lanes split the keys; f32 dot over the head dim, then scale
-    float m = -INFINITY;
-    for (int j = lane; j < n_keys; j += 32) {
-      const float* kr = ks + j * ld;
-      float acc = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < HD; ++d) acc = fmaf(qs[d], kr[d], acc);
-      acc *= scale;
-      sc[j] = acc;
-      m = fmaxf(m, acc);
-    }
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int j = lane; j < n_keys; j += 32) {
-      const float e = expf(sc[j] - m);
-      sc[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int j = lane; j < n_keys; j += 32) sc[j] = sc[j] / sum;
-    __syncwarp();
-
-    // P.V: lanes split the head dims; f32 accumulation
-    float acc[kPerLane];
-#pragma unroll
-    for (int t = 0; t < kPerLane; ++t) acc[t] = 0.f;
-    for (int j = 0; j < n_keys; ++j) {
-      const float p = sc[j];
-      const float* vr = vs + j * ld;
-#pragma unroll
-      for (int t = 0; t < kPerLane; ++t) acc[t] = fmaf(p, vr[lane + 32 * t], acc[t]);
-    }
-    const size_t out_row = out_base + (size_t)r * ld_out;
-#pragma unroll
-    for (int t = 0; t < kPerLane; ++t) o[out_row + lane + 32 * t] = acc[t];
-    __syncwarp();  // qs and sc are rewritten by this warp's next row
-  }
-}
-
-template <int HD>
-int launch_f32(const float* q, const float* k, const float* v, float* o, int B, int S,
-               int H, int ld_in, int ld_out, int causal, cudaStream_t stream) {
-  const size_t smem = smem_bytes_f32(S, HD);
-  auto kernel = short_attn_kernel<HD>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + kRowsPerBlock - 1) / kRowsPerBlock, H, B);
-  kernel<<<grid, kThreads, smem, stream>>>(q, k, v, o, S, ld_in, ld_out, causal,
-                                           1.0f / sqrtf((float)HD));
-  return (int)cudaGetLastError();
-}
+// (attention_f32.cuh: register tiles, K_h and V_h resident)
 
 // ------------------------------------------------------------------ dispatch
 
@@ -468,7 +374,7 @@ template <int HD> struct LaunchBf16 {
 template <int HD> struct LaunchF32 {
   static int run(const float* q, const float* k, const float* v, float* o, int B, int S,
                  int H, int ld_in, int ld_out, int causal, cudaStream_t stream) {
-    return launch_f32<HD>(q, k, v, o, B, S, H, ld_in, ld_out, causal, stream);
+    return f32attn::launch_resident<HD>(q, k, v, o, B, S, H, ld_in, ld_out, causal, stream);
   }
 };
 

@@ -10,34 +10,39 @@
 //
 // What the TPU kernel keeps and this one cannot: the whole K/V slab resident
 // per cell.  At f32 S=577 hd=64 one head's K_h plus V_h is ~300 KB, over the
-// 227 KB a block may use.  So one block per (query tile of kQTile rows,
-// head, image) keeps only its rows' whole f32 score rows and f32 query rows
-// in shared memory, and K_h, then V_h, stream through one shared-memory tile
-// of kKTile keys: pass 1 computes every score and the row maxima, the
-// softmax runs on the rows in place, pass 2 accumulates P.V in registers.
-// The ragged S edge is masked, never padded in device memory; a causal tile
-// streams only the keys its last row sees.
+// 227 KB a block may use.  So one block per (query tile, head, image) keeps
+// only its rows' whole f32 score rows and its query rows in shared memory,
+// and K_h, then V_h, stream through 64-key tiles: pass 1 computes every
+// score, the softmax runs on the rows in place, pass 2 accumulates P.V in
+// registers.  The ragged S edge is masked, never padded in device memory; a
+// causal tile streams only the keys its last row sees.
 //
-// The arithmetic is kernel 1's f32 code in its order: lane j%32 scores key j
-// with the same in-order f32 FMA chain over the head dim, the row sum is the
-// same lane-strided sum and shuffle tree, and P.V runs over keys in order.
-// So where both kernels take an f32 shape their outputs agree bit for bit.
-// In bf16 kernel 1 runs on the tensor cores, in another order: there the two
-// agree within the bf16 limits, not bit for bit.
+// f32 (attention_f32.cuh, f32_attn_kernel<HD, MQ, Bufs, KT>): kernel 1's
+// f32 device code with K and V streamed, so where both kernels take an f32
+// shape their outputs agree bit for bit.  Register tiles on the CUDA cores,
+// fed by 16-byte shared loads; 16-byte cp.async copies, so the inputs need
+// 16-byte aligned base pointers.  The tile by S (f32attn::streamed_tile):
+// 64 query rows with two 128-key K/V buffers where they fit, then 32 rows
+// with two 64-key buffers, then 32 rows with one.  What bounds it on the
+// H100: ~4*S*hd FMA flops per query row against its share of K/V, so the
+// FMA pipe, fed at this design's limit by the shared-memory pipe.
 //
-// What bounds it on the H100: at ViT-L/14@336px (S=577, hd=64) it does
-// ~4*S*hd flops per query row against ~4*hd elements of q/o and its share of
-// K/V: compute-bound in principle, but this version runs on CUDA-core FMAs
-// and is bound by the shared-memory loads that feed them.  Each K element a
-// lane loads serves the kRows query rows its warp owns (4), which cuts those
-// loads 4x against one row per warp.  A tensor-core version is later work.
+// bf16 (qtiled_attn_kernel below, CUDA cores): it runs only past bf16
+// kernel 1's gate (S > 832 at hd 64), where no zoo model is.  One warp owns
+// 4 query rows of a 32-row tile; lane j%32 scores key j with an in-order f32
+// FMA chain, the row sum is a lane-strided sum and shuffle tree, P.V runs
+// over keys in order; K and V pass through one padded 64-key tile.  bf16
+// kernel 1 runs on the tensor cores, in another order: there the two agree
+// within the bf16 limits, not bit for bit.  It is bound by the shared-memory
+// loads that feed its FMAs.
 //
-// Shared memory (qtiled_smem_bytes below, mirrored by ops/short_attention.py::
-// qtiled_smem_bytes) is the gate for supported_qtiled(): kQTile * (S + hd)
-// f32 plus one padded [kKTile, hd] tile of the input dtype.
+// Shared memory (f32attn::streamed_smem_bytes and qtiled_smem_bytes below,
+// mirrored by ops/short_attention.py::qtiled_smem_bytes) is the gate for
+// supported_qtiled().
 //
 // C interface for ctypes, as in short_attention.cu.
 
+#include "attention_f32.cuh"
 #include "common.cuh"
 
 namespace {
@@ -194,9 +199,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_hd(const void* q, const void* k, const void* v, void* o, int B,
-                int S, int D, int H, int causal, cudaStream_t stream) {
+int dispatch_bf16(const void* q, const void* k, const void* v, void* o, int B,
+                  int S, int D, int H, int causal, cudaStream_t stream) {
+  using T = __nv_bfloat16;
   switch (D / H) {
     case 32: return launch<T, 32>(q, k, v, o, B, S, D, H, causal, stream);
     case 64: return launch<T, 64>(q, k, v, o, B, S, D, H, causal, stream);
@@ -205,19 +210,33 @@ int dispatch_hd(const void* q, const void* k, const void* v, void* o, int B,
   }
 }
 
+int dispatch_f32(const void* q, const void* k, const void* v, void* o, int B,
+                 int S, int D, int H, int causal, cudaStream_t stream) {
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  float* of = static_cast<float*>(o);
+  switch (D / H) {
+    case 32: return f32attn::launch_streamed<32>(qf, kf, vf, of, B, S, H, D, D, causal, stream);
+    case 64: return f32attn::launch_streamed<64>(qf, kf, vf, of, B, S, H, D, D, causal, stream);
+    case 128:
+      return f32attn::launch_streamed<128>(qf, kf, vf, of, B, S, H, D, D, causal, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.
+// dtype: 0 = float32 (16-byte aligned base pointers), 1 = bfloat16.
 int short_attention_qtiled_forward(const void* q, const void* k, const void* v,
                                    void* o, int B, int S, int D, int H,
                                    int causal, int dtype, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || D % H) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return dispatch_hd<__nv_bfloat16>(q, k, v, o, B, S, D, H, causal, st);
-  if (dtype == 0) return dispatch_hd<float>(q, k, v, o, B, S, D, H, causal, st);
+  if (dtype == 1) return dispatch_bf16(q, k, v, o, B, S, D, H, causal, st);
+  if (dtype == 0) return dispatch_f32(q, k, v, o, B, S, D, H, causal, st);
   return (int)cudaErrorInvalidValue;
 }
 

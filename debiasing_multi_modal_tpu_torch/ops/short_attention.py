@@ -36,14 +36,18 @@ own launches (``short_attention.launches``, ``short_attention_qtiled.launches``,
 ``short_attention_packed.launches``).
 
 The H100 gates are derived from shared memory, against the 227 KB a block
-may use: kernels 1 and 3 stage one head's K_h and V_h (``[S, hd]`` each),
-in bf16 rows rounded up to 16 and swizzled (no padding) plus one 16-row Q
-tile per warp, in f32 rows padded by one 32-bit word plus eight warps'
-score and query rows (:func:`smem_bytes`); kernel 2 stages 32 query rows'
-f32 score and query rows plus one 64-key tile (:func:`qtiled_smem_bytes`).
-In bf16 kernels 1 and 3 run on the tensor cores (``mma.sync``, ``ldmatrix``,
-16-byte ``cp.async``), which need 16-byte aligned base pointers; in f32 they
-run on the CUDA cores in kernel 2's summation order.  The TPU's VMEM
+may use (:func:`smem_bytes`, :func:`qtiled_smem_bytes`).  In bf16 kernels 1
+and 3 run on the tensor cores (``mma.sync``, ``ldmatrix``, 16-byte
+``cp.async``) and stage one head's K_h and V_h, rows rounded up to 16 and
+swizzled, plus one 16-row Q tile per warp; bf16 kernel 2 stages 32 query
+rows' f32 score and query rows plus one padded 64-key tile.  In f32 all
+three run one device code on the CUDA cores (``csrc/attention_f32.cuh``),
+with register tiles of logits and outputs, for a tile of 32 or 64 query
+rows: kernels 1 and 3 keep K_h and V_h resident beside the tile's f32 score
+rows (:func:`f32_resident_rows`), kernel 2 streams them through 128- or
+64-key tiles (:func:`f32_streamed_tile`), and all three sum in one order, so their f32
+outputs are bit-equal.  Every copy by 16-byte ``cp.async`` needs 16-byte
+aligned base pointers; the wrappers raise on a misaligned view.  The TPU's VMEM
 constants (``MAX_SEQ_LEN``, ``CELL_VMEM_LIMIT``, ``TILED_CELL_LIMIT``,
 ``pick_block_q``), batch-block pickers and image merging do not carry over.
 """
@@ -59,12 +63,12 @@ from debiasing_multi_modal_tpu_torch.ops import cuda_build
 _NEG_INF = -1e30
 # A Hopper block may use 232,448 bytes of shared memory (227 KB).
 SMEM_LIMIT_BYTES = 232448
-_WARPS = 8  # warps per block, csrc/common.cuh kWarps
-_Q_TILE = 32  # query rows per kernel-2 block, csrc/short_attention_qtiled.cu kQTile
-_K_TILE = 64  # keys per kernel-2 K/V tile, kKTile
+_Q_TILE = 32  # query rows per bf16 kernel-2 block, csrc/short_attention_qtiled.cu kQTile
+_K_TILE = 64  # keys per bf16 kernel-2 K/V tile, kKTile
 HEAD_DIMS = (32, 64, 128)  # the head widths the kernels are instantiated for
 _MAX_GRID_Z = 65535  # images ride the grid's z dimension
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_CP_ASYNC_DTYPES = (torch.float32, torch.bfloat16)  # kernels 1 and 3 copy both by cp.async
 
 
 def _padded_ld(hd: int, itemsize: int) -> int:
@@ -77,23 +81,68 @@ def _tc_warps(s: int, hd: int) -> int:
     return min(4 if hd == 128 else 8, -(-s // 16))
 
 
+def _round4(s: int) -> int:
+    return -(-s // 4) * 4
+
+
+def _score_ld(s: int) -> int:
+    """``f32attn::score_ld``: the f32 score rows' stride, S rounded up to 4,
+    plus 4 where that is a multiple of 32 (bank groups)."""
+    return _round4(s) + (4 if _round4(s) % 32 == 0 else 0)
+
+
+def _f32_resident_bytes(s: int, hd: int, rows: int) -> int:
+    """``f32attn::resident_smem_bytes``: the q rows, the f32 score rows
+    (:func:`_score_ld` apart) and K_h, V_h (``round4(S)`` rows each, at least
+    64, ``resident_kv_rows``)."""
+    return 4 * (rows * hd + rows * _score_ld(s) + 2 * max(_round4(s), 64) * hd)
+
+
+def _f32_streamed_bytes(s: int, hd: int, rows: int, bufs: int, keys: int) -> int:
+    """``f32attn::streamed_smem_bytes``: the q rows, the f32 score rows and
+    ``bufs`` K/V tiles of ``keys`` keys."""
+    return 4 * (rows * hd + rows * _score_ld(s) + bufs * keys * hd)
+
+
+def f32_resident_rows(s: int, hd: int) -> int:
+    """Query rows per f32 kernel-1 block (``f32attn::resident_rows``): 32 up
+    to S = 128, then 64 where they fit."""
+    return 64 if s > 128 and _f32_resident_bytes(s, hd, 64) <= SMEM_LIMIT_BYTES else 32
+
+
+def f32_streamed_tile(s: int, hd: int) -> tuple:
+    """(query rows, K/V buffers, keys per buffer) of an f32 kernel-2 block
+    (``f32attn::streamed_tile``): 64 rows and two 128-key buffers where they
+    fit, else 32 rows and two 64-key buffers, else 32 rows and one."""
+    if _f32_streamed_bytes(s, hd, 64, 2, 128) <= SMEM_LIMIT_BYTES:
+        return 64, 2, 128
+    if _f32_streamed_bytes(s, hd, 32, 2, 64) <= SMEM_LIMIT_BYTES:
+        return 32, 2, 64
+    return 32, 1, 64
+
+
 def smem_bytes(s: int, hd: int, itemsize: int) -> int:
     """Dynamic shared memory of one kernel-1 (or kernel-3) block (mirrors
-    ``smem_bytes_bf16`` and ``smem_bytes_f32`` in the CUDA source).  bf16:
-    K_h and V_h with rows rounded up to 16, plus one 16-row Q tile per warp.
-    f32: padded K_h and V_h, plus each of eight warps' f32 scores and query
-    row."""
+    ``smem_bytes_bf16`` in the CUDA source and ``f32attn::resident_smem_bytes``
+    in ``csrc/attention_f32.cuh``).  bf16: K_h and V_h with rows rounded up
+    to 16, plus one 16-row Q tile per warp.  f32: the block's query rows
+    (:func:`f32_resident_rows`), their f32 score rows and K_h, V_h, rows
+    rounded up to 4."""
     if itemsize == 2:
         s16 = -(-s // 16) * 16
         return 2 * s16 * hd * 2 + _tc_warps(s, hd) * 16 * hd * 2
-    return 2 * s * _padded_ld(hd, itemsize) * itemsize + _WARPS * (s + hd) * 4
+    return _f32_resident_bytes(s, hd, f32_resident_rows(s, hd))
 
 
 def qtiled_smem_bytes(s: int, hd: int, itemsize: int) -> int:
     """Dynamic shared memory of one kernel-2 block (mirrors
-    ``qtiled_smem_bytes`` in the CUDA source): the tile's f32 score and query
-    rows, plus one padded K/V tile."""
-    return _Q_TILE * (s + hd) * 4 + _K_TILE * _padded_ld(hd, itemsize) * itemsize
+    ``qtiled_smem_bytes`` in the CUDA source and
+    ``f32attn::streamed_smem_bytes``).  bf16: 32 query rows' f32 score and
+    query rows, plus one padded K/V tile.  f32: the tile of
+    :func:`f32_streamed_tile`."""
+    if itemsize == 2:
+        return _Q_TILE * (s + hd) * 4 + _K_TILE * _padded_ld(hd, itemsize) * itemsize
+    return _f32_streamed_bytes(s, hd, *f32_streamed_tile(s, hd))
 
 
 def _shape_ok(q, k, v, num_heads) -> bool:
@@ -226,17 +275,19 @@ def _need_contiguous(name, *tensors):
         raise ValueError(f"{name} needs contiguous inputs")
 
 
-def _need_aligned(name, *tensors):
-    """The bf16 kernel copies 16-byte chunks with ``cp.async``: a base
-    pointer off a 16-byte boundary (a view whose storage offset is not a
-    multiple of 8 elements) would fault, so it raises here."""
-    if any(t.dtype == torch.bfloat16 and t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"{name} needs 16-byte aligned bf16 inputs")
+def _need_aligned(name, *tensors, dtypes=(torch.bfloat16,)):
+    """A kernel copies 16-byte chunks of inputs of these dtypes with
+    ``cp.async`` (kernels 1 and 3 in both dtypes, kernel 2 in f32, the flash
+    kernels in bf16): a base pointer off a 16-byte boundary (a view whose
+    storage offset is not a multiple of 16 bytes) would fault, so it raises
+    here."""
+    if any(t.dtype in dtypes and t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name} needs 16-byte aligned inputs")
 
 
 def _whole_row(q, k, v, num_heads, causal):
     _need_contiguous("short_attention", q, k, v)
-    _need_aligned("short_attention", q, k, v)
+    _need_aligned("short_attention", q, k, v, dtypes=_CP_ASYNC_DTYPES)
     out = torch.empty_like(q)
     b, s, d = q.shape
     cuda_build.launch("short_attention", "short_attention_forward", (q, k, v, out),
@@ -270,6 +321,7 @@ short_attention.launches = 0
 
 def _qtiled(q, k, v, num_heads, causal):
     _need_contiguous("short_attention_qtiled", q, k, v)
+    _need_aligned("short_attention_qtiled", q, k, v, dtypes=(torch.float32,))
     out = torch.empty_like(q)
     b, s, d = q.shape
     cuda_build.launch("short_attention_qtiled", "short_attention_qtiled_forward",
@@ -302,7 +354,7 @@ short_attention_qtiled.launches = 0
 
 def _packed(qkv, num_heads, causal):
     _need_contiguous("short_attention_packed", qkv)
-    _need_aligned("short_attention_packed", qkv)
+    _need_aligned("short_attention_packed", qkv, dtypes=_CP_ASYNC_DTYPES)
     b, s, d3 = qkv.shape
     out = qkv.new_empty(b, s, d3 // 3)
     cuda_build.launch("short_attention", "short_attention_packed_forward", (qkv, out),

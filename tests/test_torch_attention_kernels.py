@@ -101,9 +101,11 @@ def test_gates_pick_whole_row_first_then_qtiled():
     # the largest S each kernel takes at hd=64 (PERF.md records the table);
     # bf16 kernel 1 (tensor cores, swizzled K_h/V_h, one Q tile per warp)
     assert sa.smem_bytes(832, 64, 2) <= sa.SMEM_LIMIT_BYTES < sa.smem_bytes(833, 64, 2)
-    assert sa.smem_bytes(417, 64, 4) <= sa.SMEM_LIMIT_BYTES < sa.smem_bytes(418, 64, 4)
-    assert (sa.qtiled_smem_bytes(1622, 64, 4) <= sa.SMEM_LIMIT_BYTES
-            < sa.qtiled_smem_bytes(1623, 64, 4))
+    # f32 kernel 1 (register tiles, K_h/V_h resident beside the score rows)
+    # and kernel 2 (K/V streamed; at least every S the 32-row design took)
+    assert sa.smem_bytes(348, 64, 4) <= sa.SMEM_LIMIT_BYTES < sa.smem_bytes(349, 64, 4)
+    assert (sa.qtiled_smem_bytes(1624, 64, 4) <= sa.SMEM_LIMIT_BYTES
+            < sa.qtiled_smem_bytes(1625, 64, 4))
     # kernel 3 is whole-row only, as the JAX gate
     assert sa.supported_packed(torch.zeros(2, 50, 3 * 768, dtype=torch.bfloat16), 12)
     assert not sa.supported_packed(torch.zeros(1, 577, 3 * 1024), 16)
@@ -176,6 +178,30 @@ def test_qtiled_kernel_matches_plain_on_card(card, b, s, d, h, causal, dtype, at
     assert sa.short_attention_qtiled.launches == before + 1
     ref = sa.short_attention_reference(q, k, v, h, causal)
     assert (out.float() - ref.float()).abs().max().item() <= atol
+
+
+# Ragged f32 S for kernels 1-3 and 2 (hd 64), causal and not: one key tile,
+# ragged against 32-row, 64-row and 64-key tiles, and each gate's largest S.
+RAGGED_F32_S = (1, 31, 33, 63, 65, 129, 348, 417, 418, 1111, 1624)
+
+
+@pytest.mark.parametrize("s", RAGGED_F32_S)
+@pytest.mark.parametrize("causal", [False, True])
+def test_f32_kernels_match_plain_at_ragged_s_on_card(card, s, causal):
+    """Every f32 kernel that takes the shape, within 1e-5 of the plain
+    version; where kernel 1 takes it, kernel 2 and kernel 3 equal it bit for
+    bit (one device code, one summation order)."""
+    g = torch.Generator(device="cuda").manual_seed(s)
+    q, k, v = (torch.randn(2, s, 512, device="cuda", generator=g) for _ in range(3))
+    ref = sa.short_attention_reference(q, k, v, 8, causal)
+    tiled = sa.short_attention_qtiled(q, k, v, 8, causal=causal)
+    torch.cuda.synchronize()
+    assert (tiled - ref).abs().max().item() <= 1e-5
+    if sa.supported_whole_row(q, k, v, 8):
+        whole = sa.short_attention(q, k, v, 8, causal=causal)
+        packed = sa.short_attention_packed(torch.cat([q, k, v], -1), 8, causal=causal)
+        assert (whole - ref).abs().max().item() <= 1e-5
+        assert torch.equal(whole, tiled) and torch.equal(packed, whole)
 
 
 def test_qtiled_kernel_equals_whole_row_kernel_on_card(card):

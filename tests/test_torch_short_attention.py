@@ -131,11 +131,24 @@ def test_supported_gate():
 
 
 def test_f32_and_qtiled_footprints_unchanged():
-    """Only kernel 1's bf16 footprint follows the tensor-core design: the
-    f32 footprint (padded K_h/V_h plus eight warps' score and query rows)
-    and kernel 2's stay, with the largest S each takes at hd 32/64/128."""
-    assert sa.smem_bytes(577, 64, 4) == 2 * 577 * 65 * 4 + 8 * (577 + 64) * 4
-    assert sa.qtiled_smem_bytes(577, 64, 4) == 32 * (577 + 64) * 4 + 64 * 65 * 4
+    """The footprints the CUDA sources compute, with the largest S each
+    kernel takes at hd 32/64/128.  f32 kernels 1-3 share one register-tiled
+    device code (csrc/attention_f32.cuh): kernel 1 holds 32 query rows (64
+    past S = 128, where they fit), their f32 score rows (S rounded up to 4,
+    plus 4 at a multiple of 32) and K_h, V_h (rows rounded up to 4, at least
+    64); kernel 2 holds 64 query rows and two 128-key K/V tiles, or 32 rows
+    and two or one 64-key tiles.  bf16 kernel 2 keeps the 32-row design
+    (score and query rows plus one padded tile)."""
+    assert sa.smem_bytes(77, 64, 4) == 4 * (32 * 64 + 32 * 80 + 2 * 80 * 64)
+    assert sa.smem_bytes(257, 64, 4) == 4 * (64 * 64 + 64 * 260 + 2 * 260 * 64)
+    assert sa.smem_bytes(5, 32, 4) == 4 * (32 * 32 + 32 * 8 + 2 * 64 * 32)
+    assert sa.smem_bytes(128, 64, 4) == 4 * (32 * 64 + 32 * 132 + 2 * 128 * 64)  # 128 % 32 == 0
+    assert sa.f32_streamed_tile(577, 64) == (64, 2, 128)
+    assert sa.qtiled_smem_bytes(577, 64, 4) == 4 * (64 * 64 + 64 * 580 + 2 * 128 * 64)
+    assert sa.f32_streamed_tile(1025, 64) == (32, 2, 64)
+    assert sa.qtiled_smem_bytes(1025, 64, 4) == 4 * (32 * 64 + 32 * 1028 + 2 * 64 * 64)
+    assert sa.f32_streamed_tile(1622, 64) == (32, 1, 64)
+    assert sa.qtiled_smem_bytes(1622, 64, 4) == 4 * (32 * 64 + 32 * 1624 + 64 * 64)
     assert sa.qtiled_smem_bytes(1025, 64, 2) == 32 * (1025 + 64) * 4 + 64 * 66 * 2
 
     def largest(fn, hd, itemsize):
@@ -144,12 +157,41 @@ def test_f32_and_qtiled_footprints_unchanged():
             s += 1
         return s
 
-    assert [largest(sa.smem_bytes, hd, 4) for hd in (32, 64, 128)] == [781, 417, 214]
-    assert [largest(sa.qtiled_smem_bytes, hd, 4) for hd in (32, 64, 128)] == [1718, 1622, 1430]
+    assert [largest(sa.smem_bytes, hd, 4) for hd in (32, 64, 128)] == [592, 348, 184]
+    assert [largest(sa.qtiled_smem_bytes, hd, 4) for hd in (32, 64, 128)] == [1720, 1624, 1432]
     assert [largest(sa.qtiled_smem_bytes, hd, 2) for hd in (32, 64, 128)] == [1750, 1686, 1558]
     # bf16 kernel 1 takes at least every S it took before the tensor-core
     # design (1,377 / 778 / 413)
     assert [largest(sa.smem_bytes, hd, 2) for hd in (32, 64, 128)] == [1744, 832, 416]
+
+
+def _old_smem_bytes(s, hd, itemsize):
+    """Kernel 1's footprint before the register-tiled f32 design."""
+    if itemsize == 2:
+        return 2 * (-(-s // 16) * 16) * hd * 2 + min(4 if hd == 128 else 8, -(-s // 16)) * 16 * hd * 2
+    return 2 * s * (hd + 1) * 4 + 8 * (s + hd) * 4
+
+
+def _old_qtiled_smem_bytes(s, hd, itemsize):
+    """Kernel 2's footprint before the register-tiled f32 design."""
+    return 32 * (s + hd) * 4 + 64 * (hd + (2 if itemsize == 2 else 1)) * itemsize
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gates_take_every_shape_they_took_before(dtype):
+    """Every (S, hd) that supported() took with the earlier footprints
+    (written out as literals above) it still takes; in f32 S <= 257 at hd 64
+    and S = 77 at every hd stay on kernel 1."""
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    for hd in sa.HEAD_DIMS:
+        for s in range(1, 1801):
+            before = (_old_smem_bytes(s, hd, itemsize) <= sa.SMEM_LIMIT_BYTES
+                      or _old_qtiled_smem_bytes(s, hd, itemsize) <= sa.SMEM_LIMIT_BYTES)
+            q = torch.empty(1, s, 2 * hd, dtype=dtype, device="meta")
+            if before:
+                assert sa.supported(q, q, q, 2), (s, hd, dtype)
+            if dtype == torch.float32 and (s == 77 or (hd == 64 and s <= 257)):
+                assert sa.supported_whole_row(q, q, q, 2), (s, hd)
 
 
 def test_wrapper_rejects_bad_shapes():
@@ -239,6 +281,28 @@ def test_kernel_refuses_a_misaligned_bf16_view_on_card(card):
     with pytest.raises(ValueError, match="aligned"):
         sa.short_attention(q, q, q, 8)
     assert sa.short_attention.launches == before
+
+
+def test_kernels_refuse_a_misaligned_f32_view_on_card(card):
+    """f32 kernels 1-3 copy 16-byte chunks with cp.async too: a contiguous
+    f32 view off a 16-byte boundary raises in each wrapper, with no launch
+    and no fall back to the plain version."""
+    flat = torch.zeros(2 * 50 * 512 + 1, device="cuda")
+    q = flat[1:].view(2, 50, 512)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    flat3 = torch.zeros(2 * 50 * 1536 + 1, device="cuda")
+    qkv = flat3[1:].view(2, 50, 1536)
+    long = torch.zeros(1 * 577 * 1024 + 1, device="cuda")[1:].view(1, 577, 1024)
+    before = (sa.short_attention.launches, sa.short_attention_qtiled.launches,
+              sa.short_attention_packed.launches)
+    for call in (lambda: sa.short_attention(q, q, q, 8),
+                 lambda: sa.short_attention_qtiled(q, q, q, 8),
+                 lambda: sa.short_attention(long, long, long, 16),
+                 lambda: sa.short_attention_packed(qkv, 8)):
+        with pytest.raises(ValueError, match="aligned"):
+            call()
+    assert (sa.short_attention.launches, sa.short_attention_qtiled.launches,
+            sa.short_attention_packed.launches) == before
 
 
 def _grads_through(fn, inputs, t):
