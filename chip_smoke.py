@@ -2,6 +2,8 @@
 """Drive the PyTorch port (debiasing_multi_modal_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only flash_f32   # the timed f32 flash cases and the
+                                             # f32 training step alone
 
 Phases, in order, each printing one JSON line per case; any failure raises
 and exits nonzero, and only a run where every phase passed prints the final
@@ -13,9 +15,9 @@ line.
              with nvcc (one process per source, all started together); print
              the registers and spills of kernels 1-3, of every flash
              instantiation and of kernel 7 (-Xptxas=-v); bf16 kernel 4 must
-             not spill at hd 32, 64 and 128, bf16 kernels 5 and 6 at hd 32
-             and 64, kernel 7 at all, f32 kernels 1-3 (every tile) at hd 32
-             and 64.
+             not spill at hd 32, 64 and 128, kernels 5 and 6 (bf16 and f32)
+             at hd 32 and 64, kernel 7 at all, f32 kernels 1-3 (every tile)
+             at hd 32 and 64.
 3. kernels — hold each kernel against its plain PyTorch version on the card
              at the main paths' shapes, and time kernel, plain version and the
              PyTorch library call that computes the same function (yardstick
@@ -38,12 +40,14 @@ line.
              torch._int_mm with the plain epilogue, and the host cost of one
              activation tensor map), and
              kernels 4, 5, 6 (flash forward, dQ, dK/dV; all three on the
-             tensor cores in bf16) at the training step's two shapes (the
-             image shape also in f32), a long
-             S=4096 shape (plain and causal), ragged cross shapes and hd=32
-             and hd=128, timed by CUDA-graph replay with the event time
-             beside (SDPA, forward and backward, as yardsticks; its backward
-             alone, autograd's backward captured in the graph).
+             tensor cores in bf16, 5 and 6 as split-TF32 on the tensor cores
+             in f32) at the training step's two shapes in both dtypes, a long
+             shape (bf16 S=4096, plain and causal; f32 S=2048), ragged cross
+             shapes and hd=32 and hd=128, timed by CUDA-graph replay with the
+             event time beside (SDPA, forward and backward, as yardsticks; its
+             backward alone, autograd's backward captured in the graph); the
+             delta pass timed beside kernels 5 and 6, and in f32 the backend
+             SDPA takes (each backend forced in turn, compared bit for bit).
 4. slice   — RN50 at full width in bf16 with seeded random weights: launch
              counts set to 0, then the text tower encodes 256 synthetic
              prompts and ExtractionRunner.encode_batch extracts a uint8
@@ -96,11 +100,14 @@ line.
              against "xla", remat against plain, and an f32 step on 4 pairs
              against the CPU; one whole step (preprocess, forward, backward,
              SGD) under torch.cuda.set_sync_debug_mode("error"); the step's
-             time and pairs per second.
+             time and pairs per second.  Then the step in f32, the JAX
+             package's default dtype, on all 128 pairs (kernels 4, 5, 6: 24
+             each), finite, under the same sync check, and its time.
 10. summary — the wall seconds, one {"kernels": [...]} line, the card line, and
              {"ok": true, "device": {...}} as the last line.
 """
 
+import argparse
 import contextlib
 import json
 import os
@@ -113,6 +120,7 @@ import time
 # Published H100 SXM peaks (NVIDIA data sheet, dense), for bound_ms.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
+PEAK_TF32_FLOPS = 495e12  # f32 kernels 5-6: three TF32 products per product
 PEAK_INT8_OPS = 1979e12
 SEED = 0
 BF16_ULP = 2.0 ** -8
@@ -200,12 +208,16 @@ def phase_device():
     return info
 
 
-def phase_build():
+def phase_build(check=True):
+    """Build every kernel; with ``check``, print and check registers and
+    spills."""
     from debiasing_multi_modal_tpu_torch.ops import cuda_build
 
     seconds = cuda_build.build_all()
     emit({"phase": "build", "kernels": cuda_build.kernel_names(),
           "seconds": seconds})
+    if not check:
+        return
     # registers and spills of kernels 1-3, of every flash instantiation and
     # of kernel 7 (nvcc -Xptxas=-v)
     short = cuda_build.ptxas_usage("short_attention")
@@ -216,17 +228,18 @@ def phase_build():
     emit({"phase": "build", "ptxas": "flash_attention.cu", "functions": flash})
     gemm = cuda_build.ptxas_usage("quant_gemm")
     emit({"phase": "build", "ptxas": "quant_gemm.cu", "functions": gemm})
-    # bf16 kernel 4 at every hd, bf16 kernels 5-6 at hd 32/64, kernel 7, and
-    # every f32 kernel-1 (resident) and kernel-2 (streamed) tile at hd 32/64
-    must_not_spill = (r"fwd_tc_kernelILi(32|64|128)E|(dq|dkv)_tc_kernelILi(32|64)E|int8_gemm"
-                      r"|f32_attn_kernelILi(32|64)E")
+    # bf16 kernel 4 at every hd, bf16 and f32 (split-TF32) kernels 5-6 at hd
+    # 32/64, kernel 7, and every f32 kernel-1 (resident) and kernel-2
+    # (streamed) tile at hd 32/64
+    must_not_spill = (r"fwd_tc_kernelILi(32|64|128)E|(dq|dkv)_(f32)?tc_kernelILi(32|64)E"
+                      r"|int8_gemm|f32_attn_kernelILi(32|64)E")
     checked = [row for row in short + qtiled + flash + gemm
                if re.search(must_not_spill, row["function"])]
     libs = {"short_attention", "short_attention_qtiled", "flash_attention", "quant_gemm"}
     if libs - set(cuda_build.build_logs):
         emit({"phase": "build", "ptxas": "libraries built by an earlier run: not re-read"})
-    elif len(checked) != 3 + 4 + 2 + 2 * (2 + 3):
-        raise AssertionError(f"expected 19 no-spill instantiations, found {len(checked)}")
+    elif len(checked) != 3 + 4 + 4 + 2 + 2 * (2 + 3):
+        raise AssertionError(f"expected 23 no-spill instantiations, found {len(checked)}")
     spilled = [row["function"] for row in checked
                if row.get("spill_store_bytes") or row.get("spill_load_bytes")]
     if spilled:
@@ -497,19 +510,27 @@ def phase_kernels():
 def _flash_bounds(b, sq, skv, h, hd, causal, dtype, itemsize):
     """bound_ms and what bounds it, per kernel: the (query, key) pairs this
     run's mask keeps; 4, 6 and 8 flops per pair and head dim (two, three and
-    four products); each tensor read or written once (lse and delta f32)."""
+    four products); each tensor read or written once (lse and delta f32).
+    f32 kernels 5 and 6 run each product as three TF32 products: their
+    operations bound is 3x the flops at the TF32 peak.  Also returns, per
+    kernel, the bound at the dtype's PEAK_FLOPS, in f32 the CUDA cores' FMA
+    peak (f32 kernel 4's route, and f32 kernels 5 and 6's before)."""
     pairs = sum(min(i + 1, skv) for i in range(sq)) if causal else sq * skv
     pairs *= b * h
     q_el, kv_el, stats = b * sq * h * hd, b * skv * h * hd, 4 * b * h * sq
     work = {"flash_attention": (4, 2 * q_el + 2 * kv_el, 1),        # q, k, v, out; lse
             "flash_attention_dq": (6, 3 * q_el + 2 * kv_el, 2),     # q, dO, dq, k, v; lse, delta
             "flash_attention_dkv": (8, 2 * q_el + 4 * kv_el, 2)}    # q, dO, k, v, dk, dv
-    out = {}
+    out, at_peak = {}, {}
     for name, (flops_per, elements, n_stats) in work.items():
         bytes_ms = (elements * itemsize + n_stats * stats) / HBM_BYTES_PER_S * 1e3
-        flops_ms = flops_per * pairs * hd / PEAK_FLOPS[str(dtype)] * 1e3
+        flops = flops_per * pairs * hd
+        flops_ms = flops / PEAK_FLOPS[str(dtype)] * 1e3
+        at_peak[name] = max(bytes_ms, flops_ms)
+        if str(dtype) == "torch.float32" and name != "flash_attention":
+            flops_ms = 3 * flops / PEAK_TF32_FLOPS * 1e3
         out[name] = (max(bytes_ms, flops_ms), "bytes" if bytes_ms >= flops_ms else "operations")
-    return out
+    return out, at_peak
 
 
 def _close(out, ref, dtype):
@@ -547,6 +568,44 @@ def _sdpa_backward_ms(heads, dout, causal, fast):
         return torch.autograd.grad(out, leaves, dout, retain_graph=True)
 
     return graph_ms(backward, stream=side, **fast)
+
+
+def _sdpa_backend(heads, dout, causal):
+    """Which backend SDPA takes here: its outputs and gradients by default,
+    then under ``torch.nn.attention.sdpa_kernel`` with each backend in turn
+    (the largest gap to the default, or "not available"); the backends whose
+    results equal the default's bit for bit; and the attention kernels the
+    profiler names in one default forward and backward."""
+    import warnings
+
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def run():
+        leaves = [x.detach().requires_grad_() for x in heads]
+        out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+        return (out.detach(), *torch.autograd.grad(out, leaves, dout))
+
+    default = run()
+    gaps = {}
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with warnings.catch_warnings(), sdpa_kernel(backend):
+                warnings.simplefilter("ignore")
+                got = run()
+        except RuntimeError:
+            gaps[backend.name] = "not available"
+            continue
+        gaps[backend.name] = max((a - b).abs().max().item() for a, b in zip(got, default))
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    words = ("fmha", "attention", "attn", "flash", "cudnn", "efficient")
+    names = sorted({e.key for e in prof.key_averages() if any(w in e.key.lower() for w in words)})
+    return {"sdpa_backend": [name for name, gap in gaps.items() if gap == 0.0],
+            "sdpa_backend_gaps": gaps, "sdpa_kernels": [n[:120] for n in names[:6]]}
 
 
 def _flash_case(label, b, sq, skv, h, hd, causal, dtype, gen, timed):
@@ -613,7 +672,10 @@ def _flash_case(label, b, sq, skv, h, hd, causal, dtype, gen, timed):
                 lambda: fa.flash_attention_dkv(q, k, v, dout, lse, delta, causal),
                 plain_bwd_ms, sdpa_bwd_ms, bwd_call),
         }
-        bounds = _flash_bounds(b, sq, skv, h, hd, causal, dtype, q.element_size())
+        bounds, peak_bounds = _flash_bounds(b, sq, skv, h, hd, causal, dtype, q.element_size())
+        # the backward's row term, a plain reduction before kernels 5 and 6:
+        # delta + 5 + 6 is what compares with SDPA's whole backward
+        delta_ms = graph_ms(lambda: fa.flash_attention_delta(out, dout), **fast)
         for name, (fn, plain_ms, library_ms, call) in calls.items():
             # device time by graph replay; "events_ms" is the kernel timed as
             # PRs 3-5 timed it, with its wrapper's host time behind it
@@ -621,6 +683,14 @@ def _flash_case(label, b, sq, skv, h, hd, causal, dtype, gen, timed):
                                "plain_ms": plain_ms, "library_ms": library_ms,
                                "library_call": call})
             rows[name]["bound_ms"], rows[name]["bound_by"] = bounds[name]
+            if dtype == torch.float32:
+                rows[name]["bound_f32_fma_ms"] = peak_bounds[name]
+        for name in ("flash_attention_dq", "flash_attention_dkv"):
+            rows[name]["delta_ms"] = delta_ms
+        rows["flash_attention_dkv"]["delta_dq_dkv_ms"] = (
+            delta_ms + rows["flash_attention_dq"]["ms"] + rows["flash_attention_dkv"]["ms"])
+        if dtype == torch.float32:
+            rows["flash_attention_dkv"].update(_sdpa_backend(heads, dout.transpose(1, 2), causal))
     for name, row in rows.items():
         emit({"phase": "kernels", "kernel": name, **row})
     if bad:
@@ -629,26 +699,36 @@ def _flash_case(label, b, sq, skv, h, hd, causal, dtype, gen, timed):
     return rows
 
 
-def _flash_cases(gen):
+# the timed f32 cases of kernels 4-6: (label, B, Sq, Skv, H, hd, causal)
+F32_FLASH_CASES = [("vitb32_train_image_f32", 128, 50, 50, 12, 64, False),
+                   ("vitb32_train_text_f32", 128, 77, 77, 8, 64, True),
+                   ("long_f32", 4, 2048, 2048, 16, 64, False)]
+
+
+def _flash_cases(gen, f32_only=False):
     """Kernels 4-6 at the shapes listed in the module docstring; the first
     timed case (the ViT-B/32 image tower of the training step) is the one
-    the summary line reports."""
+    the summary line reports.  ``f32_only``: the timed f32 cases alone."""
     import torch
 
     bf16, f32 = torch.bfloat16, torch.float32
     results = {"flash_attention": [], "flash_attention_dq": [], "flash_attention_dkv": []}
+    timed32 = [(*case, f32, True) for case in F32_FLASH_CASES]
     # (label, B, Sq, Skv, H, hd, causal, dtype, timed)
-    for case in [("vitb32_train_image_bf16", 128, 50, 50, 12, 64, False, bf16, True),
+    for case in timed32 if f32_only else [
+                 ("vitb32_train_image_bf16", 128, 50, 50, 12, 64, False, bf16, True),
                  ("vitb32_train_text_bf16", 128, 77, 77, 8, 64, True, bf16, True),
-                 ("vitb32_train_image_f32", 128, 50, 50, 12, 64, False, f32, True),
+                 *timed32,
                  ("long_bf16", 4, 4096, 4096, 16, 64, False, bf16, True),
                  ("long_causal_bf16", 4, 4096, 4096, 16, 64, True, bf16, True),
                  ("ragged_cross_f32", 2, 1000, 77, 8, 64, False, f32, False),
                  ("ragged_cross_bf16", 2, 1000, 77, 8, 64, False, bf16, False),
                  ("hd32_causal_bf16", 8, 197, 197, 8, 32, True, bf16, False),
+                 ("hd32_causal_f32", 8, 197, 197, 8, 32, True, f32, False),
                  ("hd128_f32", 4, 257, 257, 4, 128, False, f32, False),
                  ("hd128_causal_cross_bf16", 2, 300, 200, 4, 128, True, bf16, False),
-                 ("causal_short_q_bf16", 2, 77, 300, 4, 64, True, bf16, False)]:
+                 ("causal_short_q_bf16", 2, 77, 300, 4, 64, True, bf16, False),
+                 ("causal_short_q_f32", 2, 77, 300, 4, 64, True, f32, False)]:
         rows = _flash_case(*case[:8], gen, case[8])
         for name, row in rows.items():
             results[name].append(row)
@@ -1301,9 +1381,9 @@ def _grad_cosines(a, b):
     return per, flat
 
 
-def phase_train():
+def phase_train(f32_only=False):
     """A gradient step through the full ViT-B/32 CLIP on the card (see the
-    module docstring)."""
+    module docstring).  ``f32_only``: the f32 128-pair step alone."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1354,18 +1434,6 @@ def phase_train():
         opt.step()
         return model, opt, loss.item(), counts, grads
 
-    layers = 24  # 12 image + 12 text blocks
-    flash = {"flash_attention": layers, "flash_attention_dq": layers,
-             "flash_attention_dkv": layers}
-    launches, checks = {}, {}
-    model, opt, loss1, launches["vit_b32_train"], g_pallas = first_step(
-        "ViT-B/32 train", flash, attn_impl="pallas")
-    losses = [loss1] + [step(model, opt).item() for _ in range(2)]
-    finite = all(np.isfinite(losses)) and all(
-        torch.isfinite(g).all().item() for g in g_pallas.values())
-    finite = finite and all(torch.isfinite(p.grad).all().item()
-                            for p in model.parameters())
-
     def step_ms(model, opt, reps=5):
         """ms per step by the host clock around ``reps`` synchronized steps."""
         torch.cuda.synchronize()
@@ -1374,6 +1442,44 @@ def phase_train():
             step(model, opt)
         torch.cuda.synchronize()
         return (time.perf_counter() - t) / reps * 1e3
+
+    layers = 24  # 12 image + 12 text blocks
+    flash = {"flash_attention": layers, "flash_attention_dq": layers,
+             "flash_attention_dkv": layers}
+
+    def f32_step():
+        """The step at the JAX package's default dtype, f32, on all 128
+        pairs (kernel 4 on the CUDA cores, 5 and 6 as split-TF32): launch
+        counts, finite loss and gradients, no host wait, ms per step."""
+        model, opt, loss, counts, grads = first_step(
+            "ViT-B/32 train f32", flash, dtype=torch.float32, attn_impl="pallas")
+        finite = bool(np.isfinite(loss)) and all(
+            torch.isfinite(g).all().item() for g in grads.values())
+        del grads
+        with no_host_sync():
+            step(model, opt)
+        torch.cuda.synchronize()
+        ms = step_ms(model, opt, reps=3)
+        del model, opt
+        return counts, {"train_step_ms_f32": ms, "train_pairs_per_s_f32": n / ms * 1e3}, finite
+
+    if f32_only:
+        counts, perf, finite = f32_step()
+        emit({"phase": "train", "model": "ViT-B/32", "dtype": "float32", "pairs": n,
+              "launches": {"vit_b32_train_f32": counts}, "perf": perf,
+              "checks": {"f32_step_finite": finite, "step_host_sync_free": True}})
+        if not finite:
+            raise AssertionError("ViT-B/32 f32 training step: loss or gradients not finite")
+        return {"vit_b32_train_f32": counts}
+
+    launches, checks = {}, {}
+    model, opt, loss1, launches["vit_b32_train"], g_pallas = first_step(
+        "ViT-B/32 train", flash, attn_impl="pallas")
+    losses = [loss1] + [step(model, opt).item() for _ in range(2)]
+    finite = all(np.isfinite(losses)) and all(
+        torch.isfinite(g).all().item() for g in g_pallas.values())
+    finite = finite and all(torch.isfinite(p.grad).all().item()
+                            for p in model.parameters())
 
     # one whole step (preprocess, forward, backward, SGD) must not make the
     # host wait for the card
@@ -1413,6 +1519,8 @@ def phase_train():
     checks["auto_vs_xla_cosine"] = flat_auto
     checks["auto_vs_xla_min_param_cosine"] = min(per_auto.values())
     del g_xla, g_auto
+    launches["vit_b32_train_f32"], perf_f32, checks["f32_step_finite"] = f32_step()
+    perf.update(perf_f32)
 
     # f32 on 4 pairs: the card (kernels 4-6, TF32 off) against the CPU
     few = dict(u8=images[:4], toks=tokens[:4], lab=labels[:4])
@@ -1431,7 +1539,7 @@ def phase_train():
     emit({"phase": "train", "model": "ViT-B/32", "dtype": "bfloat16 compute, f32 params",
           "pairs": n, "losses": losses, "launches": launches, "checks": checks,
           "perf": perf})
-    if not (finite
+    if not (finite and checks["f32_step_finite"]
             and checks["pallas_vs_xla_min_param_cosine"] >= 0.99
             and checks["pallas_vs_xla_cosine"] >= 0.999
             and checks["auto_vs_xla_cosine"] >= 0.999
@@ -1451,7 +1559,9 @@ QTILED_DESIGN = ("CUDA C++; " + F32_DESIGN + ", K/V streamed through double-buff
 FLASH_BWD_DESIGN = ("CUDA C++; bf16 on the tensor cores (mma.sync.m16n8k16 with f32 "
                     "accumulators, ldmatrix/ldmatrix.trans, double-buffered 16-byte cp.async "
                     "into swizzled shared memory, p and ds rounded in registers; kernel 6 "
-                    "computes the transposed products), f32 on the CUDA cores")
+                    "computes the transposed products); f32 the same pattern as split-TF32 "
+                    "(flash_f32_tc.cuh: three mma.sync.m16n8k8 TF32 products per product, "
+                    "hi/lo split on each fragment load, p and ds kept in registers)")
 FLASH_FWD_DESIGN = ("CUDA C++; bf16 on the tensor cores (mma.sync.m16n8k16 with f32 "
                     "accumulators, Q fragments held in registers, ldmatrix/ldmatrix.trans, "
                     "double-buffered 16-byte cp.async into swizzled shared memory, the online "
@@ -1492,9 +1602,23 @@ def _kernel_line(name, source, replaces, cases, launches_by_path, card, design=N
     return line
 
 
-def main():
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--only", choices=["flash_f32"],
+                        help="flash_f32: build, then only the timed f32 cases of kernels 4-6 "
+                             "and the f32 128-pair training step; to time another tree's "
+                             "kernels with this script (prints no final line)")
+    args = parser.parse_args(argv)
     t0 = time.perf_counter()
     info = phase_device()
+    if args.only == "flash_f32":
+        import torch
+
+        phase_build(check=False)
+        _flash_cases(torch.Generator(device="cuda").manual_seed(SEED), f32_only=True)
+        phase_train(f32_only=True)
+        emit({"phase": "summary", "only": args.only, "seconds": time.perf_counter() - t0})
+        return 0
     phase_build()
     cases = phase_kernels()
     launches, slice_perf = phase_slice()

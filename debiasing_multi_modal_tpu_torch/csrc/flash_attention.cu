@@ -3,9 +3,9 @@
 // Replaces the TPU kernels of debiasing_multi_modal_tpu/ops/flash_attention.py:
 //   kernel 4  flash_fwd_kernel (f32), flash_fwd_tc_kernel (bf16)
 //                               <- _attn_fwd_kernel  (forward + row logsumexp)
-//   kernel 5  flash_dq_kernel (f32), flash_dq_tc_kernel (bf16)
+//   kernel 5  flash_dq_f32tc_kernel (f32, flash_f32_tc.cuh), flash_dq_tc_kernel (bf16)
 //                               <- _bwd_dq_kernel    (dQ)
-//   kernel 6  flash_dkv_kernel (f32), flash_dkv_tc_kernel (bf16)
+//   kernel 6  flash_dkv_f32tc_kernel (f32, flash_f32_tc.cuh), flash_dkv_tc_kernel (bf16)
 //                               <- _bwd_dkv_kernel   (dK and dV)
 // Same functions:
 //   s = scale * q.k^T accumulated in f32 (scale = hd^-0.5), keys masked where
@@ -60,29 +60,39 @@
 // tiles and 16-key (16-row) steps wholly above the diagonal per warp, and
 // tests the mask only on edge tiles (ragged Skv, the causal diagonal).
 //
-// In f32 the three run on CUDA-core FMAs (flash_fwd_kernel, flash_dq_kernel,
-// flash_dkv_kernel; the f32 limit of 1e-4 of scale rules out plain TF32):
-// 256 threads, the 16x16 threads each owning 4 rows x 4 columns of the
-// 64x64 score tile (rows ty + 16i, columns tx + 16j) and 4 rows x hd/16
-// columns of the [64, hd] accumulators (columns tx + 16t); the 16 threads of
-// a row group are one half-warp, so row max and row sum are four shuffles.
-// Staged tiles are f32 with rows padded by one word, so each inner step is
-// conflict-free shared-memory loads: 8 loads per 16 FMAs for q.k^T (16 per
-// 32 in the backward's paired products).  These are bound by those loads.
+// In f32 kernels 5 and 6 run on the tensor cores as split-TF32
+// (flash_f32_tc.cuh): each operand split into TF32 hi and lo parts, each
+// product three mma.sync.m16n8k8 TF32 products (lo.hi + hi.lo + hi.hi) into
+// f32 accumulators, since one TF32 product (~5e-4 relative) breaks the f32
+// limit of 1e-4 of scale and the dropped lo.lo term (~2^-22) does not.  They
+// are bound by bytes at S = 50/77 and by operations from S ~ 1k, where the
+// bound is three TF32 products per product at 495 TFLOP/s; the header says
+// how the design meets each.
 //
-// Shared memory (fwd/dq/dkv_smem_bytes and fwd/dq/dkv_tc_smem_bytes below,
-// mirrored per dtype by ops/flash_attention.py) is the gate for supported():
+// Kernel 4 in f32 runs on CUDA-core FMAs (flash_fwd_kernel): 256 threads,
+// the 16x16 threads each owning 4 rows x 4 columns of the 64x64 score tile
+// (rows ty + 16i, columns tx + 16j) and 4 rows x hd/16 columns of the
+// [64, hd] accumulator (columns tx + 16t); the 16 threads of a row group
+// are one half-warp, so row max and row sum are four shuffles.  Staged tiles
+// are f32 with rows padded by one word, so each inner step is conflict-free
+// shared-memory loads, 8 loads per 16 FMAs for q.k^T: it is bound by those
+// loads.
+//
+// Shared memory (fwd_smem_bytes, fwd/dq/dkv_tc_smem_bytes below and
+// f32tc::dq/dkv_smem_bytes, mirrored per dtype by ops/flash_attention.py) is
+// the gate for supported():
 // it depends on hd and the dtype only, and hd <= 128 fits every kernel.
 //
 // C interface for ctypes, as in short_attention.cu: each entry launches on
 // the given stream, allocates nothing, does not synchronize, and returns
-// cudaGetLastError() (0 on success).  The bf16 backward entries need
-// 16-byte aligned q, k, v and dO base pointers, and the bf16 forward q, k
-// and v (the wrappers check).
+// cudaGetLastError() (0 on success).  The backward entries need 16-byte
+// aligned q, k, v and dO base pointers in both dtypes, and the bf16 forward
+// q, k and v (the wrappers check).
 
 #include <type_traits>
 
 #include "common.cuh"
+#include "flash_f32_tc.cuh"
 
 namespace {
 
@@ -101,13 +111,6 @@ __host__ __device__ constexpr int ld_of(int hd) { return hd + 1; }
 
 size_t fwd_smem_bytes(int hd) {  // f32: q, k, v tiles + p tile
   return (3 * (size_t)kTile * ld_of(hd) + (size_t)kTile * kLdS) * sizeof(float);
-}
-size_t dq_smem_bytes(int hd) {  // q, dO, k, v tiles + ds tile
-  return (4 * (size_t)kTile * ld_of(hd) + (size_t)kTile * kLdS) * sizeof(float);
-}
-size_t dkv_smem_bytes(int hd) {  // k, v, q, dO tiles + p^T, ds^T tiles + lse, delta
-  return (4 * (size_t)kTile * ld_of(hd) + 2 * (size_t)kTile * kLdS + 2 * kTile) *
-         sizeof(float);
 }
 
 // Rows [row0, row0 + n) of one head (rows `stride` elements apart) into a
@@ -253,242 +256,6 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ---------------------------------------------------------------- kernel 5 --
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const T* __restrict__ dout,
-                const float* __restrict__ lse, const float* __restrict__ delta,
-                T* __restrict__ dq, int Sq, int Skv, int H, int causal,
-                float scale) {
-  constexpr int ld = ld_of(HD);
-  constexpr int kCols = HD / kSide;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* qs = reinterpret_cast<float*>(smem_raw);  // [kTile][ld]
-  float* dos = qs + kTile * ld;                     // [kTile][ld]
-  float* ks = dos + kTile * ld;                     // [kTile][ld]
-  float* vs = ks + kTile * ld;                      // [kTile][ld]
-  float* dss = vs + kTile * ld;                     // [kTile][kLdS]
-
-  const int q0 = blockIdx.x * kTile;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int tx = threadIdx.x % kSide, ty = threadIdx.x / kSide;
-  const size_t stride = (size_t)H * HD;
-  const size_t q_base = ((size_t)b * Sq * H + h) * HD;
-  const size_t kv_base = ((size_t)b * Skv * H + h) * HD;
-  const size_t stat_base = ((size_t)b * H + h) * Sq;
-  const int nq = min(kTile, Sq - q0);
-  const int kv_end = causal ? min(Skv, q0 + nq) : Skv;
-
-  stage<T, HD>(qs, q + q_base, q0, nq, stride);
-  stage<T, HD>(dos, dout + q_base, q0, nq, stride);
-  float row_lse[kPer], row_delta[kPer], acc[kPer][kCols];
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int r = ty + kSide * i;
-    row_lse[i] = r < nq ? lse[stat_base + q0 + r] : 0.f;
-    row_delta[i] = r < nq ? delta[stat_base + q0 + r] : 0.f;
-#pragma unroll
-    for (int t = 0; t < kCols; ++t) acc[i][t] = 0.f;
-  }
-
-  for (int j0 = 0; j0 < kv_end; j0 += kTile) {
-    const int nk = min(kTile, kv_end - j0);
-    __syncthreads();  // the previous tile is consumed
-    stage<T, HD>(ks, k + kv_base, j0, nk, stride);
-    stage<T, HD>(vs, v + kv_base, j0, nk, stride);
-    __syncthreads();
-
-    float s[kPer][kPer], dp[kPer][kPer];
-#pragma unroll
-    for (int i = 0; i < kPer; ++i)
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      float qv[kPer], dov[kPer], kv[kPer], vv[kPer];
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        qv[i] = qs[(ty + kSide * i) * ld + d];
-        dov[i] = dos[(ty + kSide * i) * ld + d];
-      }
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        kv[j] = ks[(tx + kSide * j) * ld + d];
-        vv[j] = vs[(tx + kSide * j) * ld + d];
-      }
-#pragma unroll
-      for (int i = 0; i < kPer; ++i)
-#pragma unroll
-        for (int j = 0; j < kPer; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int r = ty + kSide * i;
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        const int c = tx + kSide * j;
-        const bool ok = r < nq && c < nk && (!causal || j0 + c <= q0 + r);
-        const float p = ok ? expf(scale * s[i][j] - row_lse[i]) : 0.f;
-        // ds rounds to k's dtype before ds.k
-        dss[r * kLdS + c] = round_to<T>(p * (dp[i][j] - row_delta[i]) * scale);
-      }
-    }
-    __syncthreads();  // the ds tile is complete
-
-    for (int c = 0; c < nk; ++c) {
-      float dsv[kPer];
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) dsv[i] = dss[(ty + kSide * i) * kLdS + c];
-#pragma unroll
-      for (int t = 0; t < kCols; ++t) {
-        const float kk = ks[c * ld + tx + kSide * t];
-#pragma unroll
-        for (int i = 0; i < kPer; ++i) acc[i][t] = fmaf(dsv[i], kk, acc[i][t]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int r = ty + kSide * i;
-    if (r >= nq) continue;
-    const size_t row = q_base + (size_t)(q0 + r) * stride;
-#pragma unroll
-    for (int t = 0; t < kCols; ++t) dq[row + tx + kSide * t] = from_f32<T>(acc[i][t]);
-  }
-}
-
-// ---------------------------------------------------------------- kernel 6 --
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ dout,
-                 const float* __restrict__ lse, const float* __restrict__ delta,
-                 T* __restrict__ dk, T* __restrict__ dv, int Sq, int Skv, int H,
-                 int causal, float scale) {
-  constexpr int ld = ld_of(HD);
-  constexpr int kCols = HD / kSide;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* ks = reinterpret_cast<float*>(smem_raw);  // [kTile][ld]
-  float* vs = ks + kTile * ld;                      // [kTile][ld]
-  float* qs = vs + kTile * ld;                      // [kTile][ld]
-  float* dos = qs + kTile * ld;                     // [kTile][ld]
-  float* pts = dos + kTile * ld;                    // [kTile][kLdS], p^T
-  float* dsts = pts + kTile * kLdS;                 // [kTile][kLdS], ds^T
-  float* lse_s = dsts + kTile * kLdS;               // [kTile]
-  float* delta_s = lse_s + kTile;                   // [kTile]
-
-  const int j0 = blockIdx.x * kTile;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int tx = threadIdx.x % kSide, ty = threadIdx.x / kSide;
-  const size_t stride = (size_t)H * HD;
-  const size_t q_base = ((size_t)b * Sq * H + h) * HD;
-  const size_t kv_base = ((size_t)b * Skv * H + h) * HD;
-  const size_t stat_base = ((size_t)b * H + h) * Sq;
-  const int nk = min(kTile, Skv - j0);
-
-  stage<T, HD>(ks, k + kv_base, j0, nk, stride);
-  stage<T, HD>(vs, v + kv_base, j0, nk, stride);
-  float dk_acc[kPer][kCols], dv_acc[kPer][kCols];
-#pragma unroll
-  for (int i = 0; i < kPer; ++i)
-#pragma unroll
-    for (int t = 0; t < kCols; ++t) dk_acc[i][t] = dv_acc[i][t] = 0.f;
-
-  // a causal kv tile starts at the q tile holding its diagonal: rows above
-  // see none of its keys
-  const int start = causal ? (j0 / kTile) * kTile : 0;
-  for (int q0 = start; q0 < Sq; q0 += kTile) {
-    const int nq = min(kTile, Sq - q0);
-    __syncthreads();  // the previous q tile is consumed (and ks, vs staged)
-    stage<T, HD>(qs, q + q_base, q0, nq, stride);
-    stage<T, HD>(dos, dout + q_base, q0, nq, stride);
-    if (threadIdx.x < kTile) {
-      const int r = threadIdx.x;
-      lse_s[r] = r < nq ? lse[stat_base + q0 + r] : 0.f;
-      delta_s[r] = r < nq ? delta[stat_base + q0 + r] : 0.f;
-    }
-    __syncthreads();
-
-    // this thread: keys c = ty + 16i (rows of k), queries r = tx + 16j
-    float s[kPer][kPer], dp[kPer][kPer];
-#pragma unroll
-    for (int i = 0; i < kPer; ++i)
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      float kv[kPer], vv[kPer], qv[kPer], dov[kPer];
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        kv[i] = ks[(ty + kSide * i) * ld + d];
-        vv[i] = vs[(ty + kSide * i) * ld + d];
-      }
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        qv[j] = qs[(tx + kSide * j) * ld + d];
-        dov[j] = dos[(tx + kSide * j) * ld + d];
-      }
-#pragma unroll
-      for (int i = 0; i < kPer; ++i)
-#pragma unroll
-        for (int j = 0; j < kPer; ++j) {
-          s[i][j] = fmaf(qv[j], kv[i], s[i][j]);
-          dp[i][j] = fmaf(dov[j], vv[i], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int c = ty + kSide * i;
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        const int r = tx + kSide * j;
-        const bool ok = r < nq && c < nk && (!causal || j0 + c <= q0 + r);
-        const float p = ok ? expf(scale * s[i][j] - lse_s[r]) : 0.f;
-        const float ds = p * (dp[i][j] - delta_s[r]) * scale;
-        pts[c * kLdS + r] = round_to<T>(p);    // p rounds to dO's dtype
-        dsts[c * kLdS + r] = round_to<T>(ds);  // ds rounds to q's dtype
-      }
-    }
-    __syncthreads();  // the p^T and ds^T tiles are complete
-
-    for (int r = 0; r < nq; ++r) {
-      float pv[kPer], dsv[kPer];
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        pv[i] = pts[(ty + kSide * i) * kLdS + r];
-        dsv[i] = dsts[(ty + kSide * i) * kLdS + r];
-      }
-#pragma unroll
-      for (int t = 0; t < kCols; ++t) {
-        const float dov = dos[r * ld + tx + kSide * t];
-        const float qv = qs[r * ld + tx + kSide * t];
-#pragma unroll
-        for (int i = 0; i < kPer; ++i) {
-          dv_acc[i][t] = fmaf(pv[i], dov, dv_acc[i][t]);
-          dk_acc[i][t] = fmaf(dsv[i], qv, dk_acc[i][t]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int c = ty + kSide * i;
-    if (c >= nk) continue;
-    const size_t row = kv_base + (size_t)(j0 + c) * stride;
-#pragma unroll
-    for (int t = 0; t < kCols; ++t) {
-      dk[row + tx + kSide * t] = from_f32<T>(dk_acc[i][t]);
-      dv[row + tx + kSide * t] = from_f32<T>(dv_acc[i][t]);
-    }
-  }
-}
-
 // ---------------------------------------- kernels 4, 5 and 6, bf16, tensor cores
 //
 // One block of kTcWarps warps per 64-row tile it owns, one warp per 16 of
@@ -516,13 +283,6 @@ template <int HD> constexpr size_t dq_tc_smem_bytes() { return 6 * tc_tile_bytes
 // kernel 6: k, v and two Q/dO buffers, each with its tile's lse and delta
 template <int HD> constexpr size_t dkv_tc_smem_bytes() {
   return 6 * tc_tile_bytes<HD>() + 2 * 2 * kTile * sizeof(float);
-}
-
-// 4-byte async copy (lse, delta rows are 4-byte aligned only); src_bytes 0
-// zero-fills.
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
 }
 
 // A fragments of rows [16w, 16w + 16) of a swizzled [64, HD] tile, head dims
@@ -981,7 +741,8 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               (int)smem);
 }
 
-// bf16 takes the tensor-core kernels, f32 the CUDA-core ones.
+// bf16 takes the tensor-core kernels; f32 takes the CUDA-core kernel 4 and the
+// split-TF32 tensor-core kernels 5 and 6 (flash_f32_tc.cuh).
 template <typename T, int HD>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                int B, int Sq, int Skv, int H, int causal, cudaStream_t st) {
@@ -1025,14 +786,15 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
         static_cast<const float*>(delta), static_cast<bf16*>(dq), Sq, Skv, H, causal, scale,
         scale * kLog2e);
   } else {
-    const size_t smem = dq_smem_bytes(HD);
-    auto kernel = flash_dq_kernel<T, HD>;
+    const size_t smem = f32tc::dq_smem_bytes<HD>();
+    auto kernel = f32tc::flash_dq_f32tc_kernel<HD>;
     cudaError_t err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return (int)err;
-    kernel<<<grid, kThreads, smem, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(dout), static_cast<const float*>(lse),
-        static_cast<const float*>(delta), static_cast<T*>(dq), Sq, Skv, H, causal, scale);
+    kernel<<<grid, f32tc::kNumThreads, smem, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<float*>(dq), Sq, Skv, H, causal, scale, scale * kLog2e);
   }
   return (int)cudaGetLastError();
 }
@@ -1054,15 +816,16 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
         static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sq,
         Skv, H, causal, scale, scale * kLog2e);
   } else {
-    const size_t smem = dkv_smem_bytes(HD);
-    auto kernel = flash_dkv_kernel<T, HD>;
+    const size_t smem = f32tc::dkv_smem_bytes<HD>();
+    auto kernel = f32tc::flash_dkv_f32tc_kernel<HD>;
     cudaError_t err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return (int)err;
-    kernel<<<grid, kThreads, smem, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(dout), static_cast<const float*>(lse),
-        static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), Sq, Skv,
-        H, causal, scale);
+    kernel<<<grid, f32tc::kNumThreads, smem, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<float*>(dk), static_cast<float*>(dv), Sq, Skv, H, causal, scale,
+        scale * kLog2e);
   }
   return (int)cudaGetLastError();
 }

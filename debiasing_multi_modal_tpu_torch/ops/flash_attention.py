@@ -10,7 +10,10 @@ Three kernels in ``csrc/flash_attention.cu``:
 
 All three run on the tensor cores in bf16 (``mma.sync``, ``ldmatrix``,
 double-buffered ``cp.async``; kernel 4 runs its online softmax in
-registers) and on the CUDA cores in f32.
+registers).  In f32 kernel 4 runs on the CUDA cores and kernels 5 and 6 on
+the tensor cores as split-TF32 (``csrc/flash_f32_tc.cuh``: each operand
+split into TF32 hi and lo parts, three TF32 products per product, f32
+accumulators).
 
 :func:`flash_attention` takes q ``[B, Sq, H, hd]`` and k, v
 ``[B, Skv, H, hd]`` (the layout of ``dot_product_attention``: the ``[B, S, D]``
@@ -27,8 +30,8 @@ Each kernel counts its launches: ``flash_attention.launches`` (kernel 4),
 ``causal`` masks key j from query i when j > i (top-left aligned, so Sq may
 differ from Skv); a ragged S edge is masked inside the kernels, never padded.
 The H100 gate (:func:`supported`) is derived from the kernels' shared memory
-(64-row q and kv tiles, staged in f32 by the f32 kernels, in bf16 by the
-tensor-core kernels: it depends on hd and the dtype only).
+(64-row q and kv tiles, staged in their own dtype: it depends on hd and the
+dtype only).
 The TPU knobs do not carry over: ``_pick_blocks``, ``_heads_per_cell``,
 ``_BWD_VMEM_BUDGET``, ``block_q``/``block_kv``/``heads_per_cell``,
 ``interpret``, and the auto-dispatch thresholds ``MIN_AUTO_SEQ_LEN`` and
@@ -56,7 +59,11 @@ _F32 = 4
 
 
 def _tile_bytes(hd: int) -> int:
-    return TILE * (hd + 1) * _F32  # a staged [64, hd] f32 tile, rows padded
+    return TILE * (hd + 1) * _F32  # a staged [64, hd] f32 tile, rows padded (kernel 4)
+
+
+def _f32tc_tile_bytes(hd: int) -> int:
+    return TILE * hd * _F32  # a staged [64, hd] f32 tile, swizzled, unpadded (5, 6)
 
 
 def _tc_tile_bytes(hd: int) -> int:
@@ -73,20 +80,19 @@ def fwd_smem_bytes(hd: int, dtype: torch.dtype) -> int:
 
 
 def dq_smem_bytes(hd: int, dtype: torch.dtype) -> int:
-    """Kernel 5's: bf16 (tensor cores) q and dO tiles and two K/V buffers;
-    f32 q, dO, k, v tiles and the ds tile."""
+    """Kernel 5's (``dq_tc_smem_bytes`` and ``f32tc::dq_smem_bytes`` in the
+    CUDA source): q and dO tiles and two K/V buffers, in either dtype."""
     if dtype == torch.bfloat16:
         return 6 * _tc_tile_bytes(hd)
-    return 4 * _tile_bytes(hd) + TILE * (TILE + 1) * _F32
+    return 6 * _f32tc_tile_bytes(hd)
 
 
 def dkv_smem_bytes(hd: int, dtype: torch.dtype) -> int:
-    """Kernel 6's: bf16 (tensor cores) k and v tiles and two q/dO buffers,
-    each with its q tile's logsumexp and delta; f32 k, v, q, dO tiles, the
-    p^T and ds^T tiles, a q tile's logsumexp and delta."""
-    if dtype == torch.bfloat16:
-        return 6 * _tc_tile_bytes(hd) + 2 * 2 * TILE * _F32
-    return 4 * _tile_bytes(hd) + 2 * TILE * (TILE + 1) * _F32 + 2 * TILE * _F32
+    """Kernel 6's (``dkv_tc_smem_bytes``, ``f32tc::dkv_smem_bytes``): k and
+    v tiles and two q/dO buffers, each with its q tile's logsumexp and
+    delta, in either dtype."""
+    tile = _tc_tile_bytes(hd) if dtype == torch.bfloat16 else _f32tc_tile_bytes(hd)
+    return 6 * tile + 2 * 2 * TILE * _F32
 
 
 def supported(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -186,10 +192,11 @@ def flash_attention_forward(q, k, v, causal: bool = False):
 
 
 def flash_attention_dq(q, k, v, dout, lse, delta, causal: bool = False):
-    """Kernel 5: dq, counted in ``flash_attention_dq.launches``.  In bf16 the
-    kernel stages tiles by 16-byte ``cp.async``: q, k, v and dout must be
-    16-byte aligned."""
-    _need_aligned("flash_attention_dq", q, k, v, dout)
+    """Kernel 5: dq, counted in ``flash_attention_dq.launches``.  The kernel
+    stages tiles by 16-byte ``cp.async`` in both dtypes: q, k, v and dout
+    must be 16-byte aligned."""
+    _need_aligned("flash_attention_dq", q, k, v, dout,
+                  dtypes=(torch.bfloat16, torch.float32))
     dq = torch.empty_like(q)
     b, sq, skv, h, hd = _dims(q, k)
     cuda_build.launch("flash_attention", "flash_attention_dq",
@@ -205,7 +212,8 @@ flash_attention_dq.launches = 0
 def flash_attention_dkv(q, k, v, dout, lse, delta, causal: bool = False):
     """Kernel 6: ``(dk, dv)``, counted in ``flash_attention_dkv.launches``;
     aligned as kernel 5."""
-    _need_aligned("flash_attention_dkv", q, k, v, dout)
+    _need_aligned("flash_attention_dkv", q, k, v, dout,
+                  dtypes=(torch.bfloat16, torch.float32))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     b, sq, skv, h, hd = _dims(q, k)
     cuda_build.launch("flash_attention", "flash_attention_dkv",

@@ -95,6 +95,107 @@ def test_backward_and_lse_match_jax_flash_vjp(b, sq, skv, h, hd, causal):
     np.testing.assert_allclose(lse.numpy(), jax_lse, rtol=2e-5, atol=2e-5)
 
 
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32`` on f32 values: to 10 mantissa bits, to nearest,
+    ties away from zero (a carry into the kept bits of the magnitude), the
+    low 13 bits cleared."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(x: torch.Tensor):
+    """The kernels' split: hi = rna(x), lo = rna(x - hi) (x - hi is exact)."""
+    hi = _tf32_rna(x)
+    return hi, _tf32_rna(x - hi)
+
+
+def _split_tf32_mm(eq, a, b):
+    """One product as f32 kernels 5 and 6 run it: three TF32 products
+    (lo.hi + hi.lo + hi.hi), each exact in f32, summed in f32."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)) + torch.einsum(eq, ah, bh)
+
+
+def _tf32_mm(eq, a, b):
+    """One product as a single TF32 product would run it."""
+    return torch.einsum(eq, _tf32_rna(a), _tf32_rna(b))
+
+
+def _backward_with(mm, q, k, v, dout, lse, delta, causal):
+    """Kernels 5 and 6's function (``flash_attention_backward_reference`` in
+    f32) with every product taken by ``mm``, in the inputs' dtype."""
+    scale = q.shape[-1] ** -0.5
+    s = mm("bqhd,bkhd->bhqk", q, k) * scale
+    p = torch.exp(s - lse[..., None])
+    if causal:
+        p = p.masked_fill(~fa._keep(q.shape[1], k.shape[1], q.device), 0.0)
+    ds = p * (mm("bqhd,bkhd->bhqk", dout, v) - delta[..., None]) * scale
+    return (mm("bhqk,bkhd->bqhd", ds, k), mm("bhqk,bqhd->bkhd", ds, q),
+            mm("bhqk,bqhd->bkhd", p, dout))
+
+
+def test_tf32_split_rounds_to_nearest_ties_away():
+    """The emulated ``cvt.rna.tf32.f32``: ties go away from zero, the rest to
+    nearest; hi + lo restores x to 2^-22 relative."""
+    one_ulp = 2.0 ** -10  # TF32's spacing above 1
+    x = torch.tensor([1 + one_ulp / 2, -(1 + one_ulp / 2), 1 + one_ulp / 4,
+                      1 + 3 * one_ulp / 4, 3.0, -0.0], dtype=torch.float32)
+    assert _tf32_rna(x).tolist() == [1 + one_ulp, -(1 + one_ulp), 1.0, 1 + one_ulp, 3.0, -0.0]
+    r = torch.from_numpy(np.random.default_rng(0).standard_normal(10000).astype(np.float32))
+    hi, lo = _split(r)
+    assert ((_tf32_rna(hi) == hi) & (_tf32_rna(lo) == lo)).all()
+    gap = (r.double() - hi.double() - lo.double()).abs() / r.double().abs()
+    assert gap.max().item() <= 2.0 ** -22
+
+
+SPLIT_TF32 = [(2, 77, 77, 4, 64), (2, 50, 70, 4, 32)]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("b,sq,skv,h,hd", SPLIT_TF32)
+def test_split_tf32_backward_matches_float64_and_jax(b, sq, skv, h, hd, causal):
+    """f32 kernels 5 and 6 run each product as three TF32 products on the
+    tensor cores.  Emulated here in torch: dq, dk, dv within 1e-5 of scale
+    of the backward in float64 and within 1e-4 of scale of ``jax.grad``
+    through the JAX flash path (kernels 5 and 6 in interpret mode).  A
+    single TF32 product per product is printed beside it, and is worse."""
+    import jax
+    import jax.numpy as jnp
+
+    from debiasing_multi_modal_tpu.ops.flash_attention import flash_attention
+
+    q, k, v, t = _arrays(b, sq, skv, h, hd, seed=11 * sq + hd)
+    jq, jk, jv, jt = (jnp.asarray(x) for x in (q, k, v, t))
+    want_jax = jax.grad(lambda q, k, v: jnp.sum(
+        flash_attention(q, k, v, causal=causal, interpret=True) * jt),
+        argnums=(0, 1, 2))(jq, jk, jv)
+    tq, tk, tv, tt = (torch.from_numpy(x) for x in (q, k, v, t))
+    # float64: the forward's out and lse, then the backward
+    q64, k64, v64, t64 = (x.double() for x in (tq, tk, tv, tt))
+    s64 = torch.einsum("bqhd,bkhd->bhqk", q64, k64) * hd ** -0.5
+    if causal:
+        s64 = s64.masked_fill(~fa._keep(sq, skv, s64.device), -torch.inf)
+    lse64 = torch.logsumexp(s64, -1)
+    out64 = torch.einsum("bhqk,bkhd->bqhd", torch.exp(s64 - lse64[..., None]), v64)
+    delta64 = (t64 * out64).sum(-1).transpose(1, 2)
+    want64 = _backward_with(torch.einsum, q64, k64, v64, t64, lse64, delta64, causal)
+    # f32 kernels 5 and 6 get kernel 4's out and lse in f32, delta in f32
+    out, lse = fa.flash_attention_reference(tq, tk, tv, causal)
+    delta = fa.flash_attention_delta(out, tt)
+    got = _backward_with(_split_tf32_mm, tq, tk, tv, tt, lse, delta, causal)
+    single = _backward_with(_tf32_mm, tq, tk, tv, tt, lse, delta, causal)
+    for name, g, s1, w64, wj in zip(("dq", "dk", "dv"), got, single, want64, want_jax):
+        scale = w64.abs().max().item()
+        err = (g.double() - w64).abs().max().item()
+        err1 = (s1.double() - w64).abs().max().item()
+        print(f"{name}: split-TF32 {err / scale:.2e}, one TF32 product {err1 / scale:.2e} "
+              f"of scale against float64")
+        assert err <= 1e-5 * scale, (name, err / scale)
+        assert err < err1, name
+        wj = np.asarray(wj)
+        assert np.abs(g.numpy() - wj).max() <= 1e-4 * np.abs(wj).max(), name
+
+
 def test_plain_backward_is_autograd_of_plain_forward():
     """On the CPU the Function's backward is
     :func:`flash_attention_backward_reference`; at f32 it equals autograd of
@@ -166,13 +267,14 @@ def test_gate_is_pinned_to_shared_memory():
     assert not fa.supported(bf(2, 8, 2, 64), bf(2, 8, 3, 64), bf(2, 8, 3, 64))  # heads
     assert not fa.supported(bf(2, 8, 2, 48), bf(2, 8, 2, 48), bf(2, 8, 2, 48))  # hd 48
     # the shared memory of each kernel, in bytes, and the widest head it fits:
-    # the kernels stage f32 tiles in f32 and swizzled bf16 tiles (two
-    # buffers of the streamed tile) on the tensor cores in bf16
+    # f32 kernel 4 stages padded f32 tiles; the tensor-core kernels (5 and 6
+    # in both dtypes, 4 in bf16) swizzled tiles of their dtype, with two
+    # buffers of the streamed tile
     f32, bf16 = torch.float32, torch.bfloat16
     assert [fa.fwd_smem_bytes(hd, f32) for hd in (32, 64, 128)] == [41984, 66560, 115712]
     assert [fa.fwd_smem_bytes(hd, bf16) for hd in (32, 64, 128)] == [20480, 40960, 81920]
-    assert [fa.dq_smem_bytes(hd, f32) for hd in (32, 64, 128)] == [50432, 83200, 148736]
-    assert [fa.dkv_smem_bytes(hd, f32) for hd in (32, 64, 128)] == [67584, 100352, 165888]
+    assert [fa.dq_smem_bytes(hd, f32) for hd in (32, 64, 128)] == [49152, 98304, 196608]
+    assert [fa.dkv_smem_bytes(hd, f32) for hd in (32, 64, 128)] == [50176, 99328, 197632]
     assert [fa.dq_smem_bytes(hd, bf16) for hd in (32, 64, 128)] == [24576, 49152, 98304]
     assert [fa.dkv_smem_bytes(hd, bf16) for hd in (32, 64, 128)] == [25600, 50176, 99328]
     assert fa.dkv_smem_bytes(128, f32) <= sa.SMEM_LIMIT_BYTES < fa.dkv_smem_bytes(256, f32)
@@ -190,10 +292,12 @@ def test_gate_is_pinned_to_shared_memory():
 
 # ------------------------------------------------------------- on the card --
 
-# bf16 runs kernels 5-6 on the tensor cores, f32 on the CUDA cores: the
+# kernels 5-6 run on the tensor cores, bf16 as such, f32 as split-TF32: the
 # training image and text shapes, hd 32 and 128, causal, ragged cross shapes
 # (Sq > Skv, and causal Sq < Skv, where kv tiles past the last row see no
-# query and their dk, dv are zeros)
+# query and their dk, dv are zeros), Sq=1, and S past one 64-row tile (Sq=1
+# with Skv > 1: where every row sees one key, dq and dk are 0 up to rounding
+# noise, which no relative limit can hold)
 CARD = [(128, 50, 50, 12, 64, False, torch.bfloat16),
         (128, 77, 77, 8, 64, True, torch.bfloat16),
         (2, 1000, 77, 8, 64, False, torch.float32),
@@ -203,7 +307,16 @@ CARD = [(128, 50, 50, 12, 64, False, torch.bfloat16),
         (2, 300, 200, 4, 128, True, torch.float32),
         (2, 300, 200, 4, 128, True, torch.bfloat16),
         (2, 129, 129, 4, 128, False, torch.bfloat16),
-        (2, 77, 300, 4, 64, True, torch.bfloat16)]
+        (2, 77, 300, 4, 64, True, torch.bfloat16),
+        (128, 50, 50, 12, 64, False, torch.float32),
+        (128, 77, 77, 8, 64, True, torch.float32),
+        (8, 197, 197, 8, 32, True, torch.float32),
+        (4, 100, 100, 4, 32, False, torch.float32),
+        (2, 150, 70, 4, 32, True, torch.float32),
+        (2, 77, 300, 4, 64, True, torch.float32),
+        (2, 129, 129, 4, 128, False, torch.float32),
+        (3, 1, 9, 2, 64, False, torch.float32),
+        (3, 1, 130, 2, 32, False, torch.float32)]
 
 
 def _close_on_card(got, want, dtype):
@@ -234,12 +347,14 @@ def test_kernels_match_plain_on_card(card, b, sq, skv, h, hd, causal, dtype):
     assert _close_on_card(out, ref, dtype)
     assert (lse - ref_lse).abs().max().item() <= 1e-4
     delta = fa.flash_attention_delta(ref, dout)
-    dq = fa.flash_attention_dq(q, k, v, dout, ref_lse, delta, causal)
-    dk, dv = fa.flash_attention_dkv(q, k, v, dout, ref_lse, delta, causal)
+    runs = [(fa.flash_attention_dq(q, k, v, dout, ref_lse, delta, causal),
+             *fa.flash_attention_dkv(q, k, v, dout, ref_lse, delta, causal)) for _ in range(2)]
     torch.cuda.synchronize()
-    for got, want in zip((dq, dk, dv), fa.flash_attention_backward_reference(
+    for got, again, want in zip(*runs, fa.flash_attention_backward_reference(
             q, k, v, ref, ref_lse, dout, causal)):
+        assert torch.isfinite(got.float()).all()
         assert _close_on_card(got, want, dtype)
+        assert torch.equal(got, again)  # one output tile per block, no atomics
 
 
 def test_autograd_runs_kernels_5_and_6_on_card(card):
@@ -300,6 +415,20 @@ def test_bf16_backward_needs_aligned_inputs_on_card(card):
     for wrapper in (fa.flash_attention_dq, fa.flash_attention_dkv):
         with pytest.raises(ValueError, match="16-byte aligned"):
             wrapper(off, off, off, off, lse, delta)
+
+
+def test_f32_backward_needs_aligned_inputs_on_card(card):
+    """f32 kernels 5 and 6 stage f32 tiles by 16-byte ``cp.async`` too: a
+    base pointer off 16 bytes raises and never falls back."""
+    x = torch.zeros(2 * 77 * 8 * 64 + 1, device="cuda")
+    off = x[1:].view(2, 77, 8, 64)
+    out, lse = fa.flash_attention_reference(off, off, off)
+    delta = fa.flash_attention_delta(out, off)
+    before = (fa.flash_attention_dq.launches, fa.flash_attention_dkv.launches)
+    for wrapper in (fa.flash_attention_dq, fa.flash_attention_dkv):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            wrapper(off, off, off, off, lse, delta)
+    assert (fa.flash_attention_dq.launches, fa.flash_attention_dkv.launches) == before
 
 
 # bf16 kernel 4 (tensor cores) at every shape chip_smoke.py holds it to, at
