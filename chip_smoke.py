@@ -4,6 +4,8 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --only flash_f32   # the timed f32 flash cases and the
                                              # f32 training step alone
+    python3 chip_smoke.py --only rn50_blocks # kernels 8 and 9 at the folded RN50's
+                                             # stride-1 blocks alone
 
 Phases, in order, each printing one JSON line per case; any failure raises
 and exits nonzero, and only a run where every phase passed prints the final
@@ -14,10 +16,11 @@ line.
 2. build   — compile every kernel under debiasing_multi_modal_tpu_torch/csrc
              with nvcc (one process per source, all started together); print
              the registers and spills of kernels 1-3, of every flash
-             instantiation and of kernel 7 (-Xptxas=-v); bf16 kernel 4 must
-             not spill at hd 32, 64 and 128, kernels 5 and 6 (bf16 and f32)
-             at hd 32 and 64, kernel 7 at all, f32 kernels 1-3 (every tile)
-             at hd 32 and 64.
+             instantiation, of kernel 7 and of kernels 8-9 (-Xptxas=-v); bf16
+             kernel 4 must not spill at hd 32, 64 and 128, f32 kernel 4 and
+             kernels 5 and 6 (bf16 and f32) at hd 32 and 64, kernel 7 and the
+             bf16 (tensor-core) instantiations of kernels 8-9 at all, f32
+             kernels 1-3 (every tile) at hd 32 and 64.
 3. kernels — hold each kernel against its plain PyTorch version on the card
              at the main paths' shapes, and time kernel, plain version and the
              PyTorch library call that computes the same function (yardstick
@@ -40,8 +43,8 @@ line.
              torch._int_mm with the plain epilogue, and the host cost of one
              activation tensor map), and
              kernels 4, 5, 6 (flash forward, dQ, dK/dV; all three on the
-             tensor cores in bf16, 5 and 6 as split-TF32 on the tensor cores
-             in f32) at the training step's two shapes in both dtypes, a long
+             tensor cores, bf16 as such, f32 as split-TF32) at the training
+             step's two shapes in both dtypes, a long
              shape (bf16 S=4096, plain and causal; f32 S=2048), ragged cross
              shapes and hd=32 and hd=128, timed by CUDA-graph replay with the
              event time beside (SDPA, forward and backward, as yardsticks; its
@@ -77,7 +80,8 @@ line.
              identity blocks; each output held to xla_bottleneck (<= 2e-2 of
              scale, cosine >= 0.9999; f32 on one block <= 1e-4 of scale) and
              to the model's own Bottleneck.forward (cosine >= 0.999); kernel,
-             plain and model-block times at l1b0_ds, l1b1, l2b1, l3b1, l4b1.
+             plain and model-block times at l1b0_ds, l1b1, l2b1, l3b1, l4b1
+             (bf16: mma.sync on the tensor cores; f32: CUDA-core FMAs).
 7. vit     — ViT-B/32 at full width and depth in bf16, the same drive three
              times with the counts set to 0 before each: unfused (kernel 1),
              fuse_qkv=True (kernel 3) and quant="int8_pallas" (kernel 7 and
@@ -102,7 +106,8 @@ line.
              SGD) under torch.cuda.set_sync_debug_mode("error"); the step's
              time and pairs per second.  Then the step in f32, the JAX
              package's default dtype, on all 128 pairs (kernels 4, 5, 6: 24
-             each), finite, under the same sync check, and its time.
+             each, all split-TF32), finite, under the same sync check, and
+             its time.
 10. summary — the wall seconds, one {"kernels": [...]} line, the card line, and
              {"ok": true, "device": {...}} as the last line.
 """
@@ -120,7 +125,7 @@ import time
 # Published H100 SXM peaks (NVIDIA data sheet, dense), for bound_ms.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
-PEAK_TF32_FLOPS = 495e12  # f32 kernels 5-6: three TF32 products per product
+PEAK_TF32_FLOPS = 495e12  # f32 kernels 4-6: three TF32 products per product
 PEAK_INT8_OPS = 1979e12
 SEED = 0
 BF16_ULP = 2.0 ** -8
@@ -218,8 +223,8 @@ def phase_build(check=True):
           "seconds": seconds})
     if not check:
         return
-    # registers and spills of kernels 1-3, of every flash instantiation and
-    # of kernel 7 (nvcc -Xptxas=-v)
+    # registers and spills of kernels 1-3, of every flash instantiation, of
+    # kernel 7 and of kernels 8-9 (nvcc -Xptxas=-v)
     short = cuda_build.ptxas_usage("short_attention")
     emit({"phase": "build", "ptxas": "short_attention.cu", "functions": short})
     qtiled = cuda_build.ptxas_usage("short_attention_qtiled")
@@ -228,18 +233,23 @@ def phase_build(check=True):
     emit({"phase": "build", "ptxas": "flash_attention.cu", "functions": flash})
     gemm = cuda_build.ptxas_usage("quant_gemm")
     emit({"phase": "build", "ptxas": "quant_gemm.cu", "functions": gemm})
-    # bf16 kernel 4 at every hd, bf16 and f32 (split-TF32) kernels 5-6 at hd
-    # 32/64, kernel 7, and every f32 kernel-1 (resident) and kernel-2
-    # (streamed) tile at hd 32/64
-    must_not_spill = (r"fwd_tc_kernelILi(32|64|128)E|(dq|dkv)_(f32)?tc_kernelILi(32|64)E"
-                      r"|int8_gemm|f32_attn_kernelILi(32|64)E")
-    checked = [row for row in short + qtiled + flash + gemm
+    block = cuda_build.ptxas_usage("bottleneck")
+    emit({"phase": "build", "ptxas": "bottleneck.cu", "functions": block})
+    # bf16 kernel 4 at every hd, f32 kernel 4 and bf16 and f32 kernels 5-6
+    # at hd 32/64 (f32 all split-TF32), kernel 7, every f32 kernel-1
+    # (resident) and kernel-2 (streamed) tile at hd 32/64, and the three bf16
+    # instantiations of kernels 8-9
+    must_not_spill = (r"fwd_tc_kernelILi(32|64|128)E|(fwd|dq|dkv)_f32tc_kernelILi(32|64)E"
+                      r"|(dq|dkv)_tc_kernelILi(32|64)E|int8_gemm|f32_attn_kernelILi(32|64)E"
+                      r"|bottleneck_tc_kernel")
+    checked = [row for row in short + qtiled + flash + gemm + block
                if re.search(must_not_spill, row["function"])]
-    libs = {"short_attention", "short_attention_qtiled", "flash_attention", "quant_gemm"}
+    libs = {"short_attention", "short_attention_qtiled", "flash_attention", "quant_gemm",
+            "bottleneck"}
     if libs - set(cuda_build.build_logs):
         emit({"phase": "build", "ptxas": "libraries built by an earlier run: not re-read"})
-    elif len(checked) != 3 + 4 + 4 + 2 + 2 * (2 + 3):
-        raise AssertionError(f"expected 23 no-spill instantiations, found {len(checked)}")
+    elif len(checked) != 3 + 6 + 4 + 2 + 2 * (2 + 3) + 3:
+        raise AssertionError(f"expected 28 no-spill instantiations, found {len(checked)}")
     spilled = [row["function"] for row in checked
                if row.get("spill_store_bytes") or row.get("spill_load_bytes")]
     if spilled:
@@ -511,10 +521,10 @@ def _flash_bounds(b, sq, skv, h, hd, causal, dtype, itemsize):
     """bound_ms and what bounds it, per kernel: the (query, key) pairs this
     run's mask keeps; 4, 6 and 8 flops per pair and head dim (two, three and
     four products); each tensor read or written once (lse and delta f32).
-    f32 kernels 5 and 6 run each product as three TF32 products: their
+    f32 kernels 4, 5 and 6 run each product as three TF32 products: their
     operations bound is 3x the flops at the TF32 peak.  Also returns, per
     kernel, the bound at the dtype's PEAK_FLOPS, in f32 the CUDA cores' FMA
-    peak (f32 kernel 4's route, and f32 kernels 5 and 6's before)."""
+    peak (the f32 kernels' route before PRs 9-10)."""
     pairs = sum(min(i + 1, skv) for i in range(sq)) if causal else sq * skv
     pairs *= b * h
     q_el, kv_el, stats = b * sq * h * hd, b * skv * h * hd, 4 * b * h * sq
@@ -527,7 +537,7 @@ def _flash_bounds(b, sq, skv, h, hd, causal, dtype, itemsize):
         flops = flops_per * pairs * hd
         flops_ms = flops / PEAK_FLOPS[str(dtype)] * 1e3
         at_peak[name] = max(bytes_ms, flops_ms)
-        if str(dtype) == "torch.float32" and name != "flash_attention":
+        if str(dtype) == "torch.float32":
             flops_ms = 3 * flops / PEAK_TF32_FLOPS * 1e3
         out[name] = (max(bytes_ms, flops_ms), "bytes" if bytes_ms >= flops_ms else "operations")
     return out, at_peak
@@ -968,18 +978,16 @@ def _realistic_bn_stats(model, rng):
             mod.running_var.copy_(torch.from_numpy(rng.uniform(0.5, 2.0, n).astype(np.float32)))
 
 
-def phase_fuse_bn(slice_perf):
-    """RN50 at full width, bf16, with folded BatchNorms (see the module
-    docstring); returns the launch counts and the folded model."""
-    import numpy as np
+def _fold_rn50(rng):
+    """Seeded RN50 in bf16 on the card with non-trivial BatchNorm statistics
+    from ``rng``, and its folded state dict: ``(unfused, folded(dtype,
+    device), fold seconds)``."""
     import torch
 
-    from debiasing_multi_modal_tpu_torch.extract.runner import ExtractionRunner
     from debiasing_multi_modal_tpu_torch.models import create_clip
     from debiasing_multi_modal_tpu_torch.weights.convert import clip_from_state_dict
     from debiasing_multi_modal_tpu_torch.weights.fold import fold_resnet_bn
 
-    rng = np.random.default_rng(SEED + 3)
     unfused = create_clip("RN50", dtype=torch.bfloat16, device="cuda",
                           generator=torch.Generator().manual_seed(SEED))
     _realistic_bn_stats(unfused, rng)
@@ -991,6 +999,19 @@ def phase_fuse_bn(slice_perf):
         return clip_from_state_dict(folded_sd, name="RN50", dtype=dtype, device=device,
                                     fuse_bn=True)
 
+    return unfused, folded, fold_s
+
+
+def phase_fuse_bn(slice_perf):
+    """RN50 at full width, bf16, with folded BatchNorms (see the module
+    docstring); returns the launch counts and the folded model."""
+    import numpy as np
+    import torch
+
+    from debiasing_multi_modal_tpu_torch.extract.runner import ExtractionRunner
+
+    rng = np.random.default_rng(SEED + 3)
+    unfused, folded, fold_s = _fold_rn50(rng)
     model = folded(torch.bfloat16, "cuda")
     tokens = torch.from_numpy(_tokens(256, rng)).cuda()
     images = rng.integers(0, 256, (256, 256, 256, 3), dtype=np.uint8)
@@ -1449,7 +1470,7 @@ def phase_train(f32_only=False):
 
     def f32_step():
         """The step at the JAX package's default dtype, f32, on all 128
-        pairs (kernel 4 on the CUDA cores, 5 and 6 as split-TF32): launch
+        pairs (kernels 4, 5 and 6 as split-TF32): launch
         counts, finite loss and gradients, no host wait, ms per step."""
         model, opt, loss, counts, grads = first_step(
             "ViT-B/32 train f32", flash, dtype=torch.float32, attn_impl="pallas")
@@ -1565,8 +1586,18 @@ FLASH_BWD_DESIGN = ("CUDA C++; bf16 on the tensor cores (mma.sync.m16n8k16 with 
 FLASH_FWD_DESIGN = ("CUDA C++; bf16 on the tensor cores (mma.sync.m16n8k16 with f32 "
                     "accumulators, Q fragments held in registers, ldmatrix/ldmatrix.trans, "
                     "double-buffered 16-byte cp.async into swizzled shared memory, the online "
-                    "softmax in registers with p rounded in the accumulator layout), f32 on "
-                    "the CUDA cores")
+                    "softmax in registers with p rounded in the accumulator layout); f32 the "
+                    "same pattern as split-TF32 (flash_f32_tc.cuh: three mma.sync.m16n8k8 "
+                    "TF32 products per product, the online softmax per 32-key sub-tile, p "
+                    "kept in registers as the A fragment of P.V, one K/V buffer and Q re-read "
+                    "from shared memory so that four blocks share an SM)")
+BOTTLENECK_DESIGN = ("CUDA C++; bf16 on the tensor cores: each phase an implicit GEMM "
+                     "(rows pixels, columns channels) on mma.sync.m16n8k16 with f32 "
+                     "accumulators, 32x64 warp tiles, weights (and x for conv1 and the "
+                     "downsample) staged in 32-deep k-tiles through a ring of four swizzled "
+                     "buffers by 16-byte cp.async, conv2 and conv3 reading A by ldmatrix straight "
+                     "from the swizzled y1 / y2 tiles at each lane's shifted pixel; f32 on "
+                     "CUDA-core FMAs")
 INT8_DESIGN = ("CUDA C++; wgmma.mma_async m64n128k32 s8 from 128-byte-swizzled shared "
                "memory, fed by TMA (cp.async.bulk.tensor.2d) through a 3-stage mbarrier "
                "ring from one producer warp, two consumer warpgroups per 128x128 tile, the "
@@ -1604,10 +1635,12 @@ def _kernel_line(name, source, replaces, cases, launches_by_path, card, design=N
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", choices=["flash_f32"],
+    parser.add_argument("--only", choices=["flash_f32", "rn50_blocks"],
                         help="flash_f32: build, then only the timed f32 cases of kernels 4-6 "
-                             "and the f32 128-pair training step; to time another tree's "
-                             "kernels with this script (prints no final line)")
+                             "and the f32 128-pair training step; rn50_blocks: build, fold "
+                             "the seeded RN50, then only the rn50_blocks phase (kernels 8-9); "
+                             "either times another tree's kernels with this script (prints "
+                             "no final line)")
     args = parser.parse_args(argv)
     t0 = time.perf_counter()
     info = phase_device()
@@ -1617,6 +1650,15 @@ def main(argv=None):
         phase_build(check=False)
         _flash_cases(torch.Generator(device="cuda").manual_seed(SEED), f32_only=True)
         phase_train(f32_only=True)
+        emit({"phase": "summary", "only": args.only, "seconds": time.perf_counter() - t0})
+        return 0
+    if args.only == "rn50_blocks":
+        import numpy as np
+        import torch
+
+        phase_build(check=False)
+        _, folded, _ = _fold_rn50(np.random.default_rng(SEED + 3))
+        phase_rn50_blocks(folded(torch.bfloat16, "cuda"))
         emit({"phase": "summary", "only": args.only, "seconds": time.perf_counter() - t0})
         return 0
     phase_build()
@@ -1657,10 +1699,10 @@ def main(argv=None):
                      cases["flash_attention_dkv"], launches, card, FLASH_BWD_DESIGN),
         _kernel_line("fused_bottleneck_gemm", "bottleneck.cu",
                      "debiasing_multi_modal_tpu/ops/conv_gemm.py:44",
-                     cases["fused_bottleneck_gemm"], launches, card),
+                     cases["fused_bottleneck_gemm"], launches, card, BOTTLENECK_DESIGN),
         _kernel_line("fused_bottleneck", "bottleneck.cu",
                      "debiasing_multi_modal_tpu/ops/fused_bottleneck.py:41",
-                     cases["fused_bottleneck"], launches, card),
+                     cases["fused_bottleneck"], launches, card, BOTTLENECK_DESIGN),
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],

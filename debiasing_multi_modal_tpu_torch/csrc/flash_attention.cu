@@ -1,7 +1,7 @@
 // Blockwise (flash) attention for Hopper (sm_90a): kernels 4, 5 and 6.
 //
 // Replaces the TPU kernels of debiasing_multi_modal_tpu/ops/flash_attention.py:
-//   kernel 4  flash_fwd_kernel (f32), flash_fwd_tc_kernel (bf16)
+//   kernel 4  flash_fwd_f32tc_kernel (f32, flash_f32_tc.cuh), flash_fwd_tc_kernel (bf16)
 //                               <- _attn_fwd_kernel  (forward + row logsumexp)
 //   kernel 5  flash_dq_f32tc_kernel (f32, flash_f32_tc.cuh), flash_dq_tc_kernel (bf16)
 //                               <- _bwd_dq_kernel    (dQ)
@@ -60,34 +60,25 @@
 // tiles and 16-key (16-row) steps wholly above the diagonal per warp, and
 // tests the mask only on edge tiles (ragged Skv, the causal diagonal).
 //
-// In f32 kernels 5 and 6 run on the tensor cores as split-TF32
-// (flash_f32_tc.cuh): each operand split into TF32 hi and lo parts, each
-// product three mma.sync.m16n8k8 TF32 products (lo.hi + hi.lo + hi.hi) into
-// f32 accumulators, since one TF32 product (~5e-4 relative) breaks the f32
-// limit of 1e-4 of scale and the dropped lo.lo term (~2^-22) does not.  They
-// are bound by bytes at S = 50/77 and by operations from S ~ 1k, where the
-// bound is three TF32 products per product at 495 TFLOP/s; the header says
-// how the design meets each.
+// In f32 all three run on the tensor cores as split-TF32 (flash_f32_tc.cuh):
+// each operand split into TF32 hi and lo parts, each product three
+// mma.sync.m16n8k8 TF32 products (lo.hi + hi.lo + hi.hi) into f32
+// accumulators, since one TF32 product (~5e-4 relative) breaks the f32 limit
+// of 1e-4 of scale and the dropped lo.lo term (~2^-22) does not.  They are
+// bound by bytes at S = 50/77 and by operations from S ~ 1k, where the bound
+// is three TF32 products per product at 495 TFLOP/s; the header says how the
+// design meets each.
 //
-// Kernel 4 in f32 runs on CUDA-core FMAs (flash_fwd_kernel): 256 threads,
-// the 16x16 threads each owning 4 rows x 4 columns of the 64x64 score tile
-// (rows ty + 16i, columns tx + 16j) and 4 rows x hd/16 columns of the
-// [64, hd] accumulator (columns tx + 16t); the 16 threads of a row group
-// are one half-warp, so row max and row sum are four shuffles.  Staged tiles
-// are f32 with rows padded by one word, so each inner step is conflict-free
-// shared-memory loads, 8 loads per 16 FMAs for q.k^T: it is bound by those
-// loads.
-//
-// Shared memory (fwd_smem_bytes, fwd/dq/dkv_tc_smem_bytes below and
-// f32tc::dq/dkv_smem_bytes, mirrored per dtype by ops/flash_attention.py) is
-// the gate for supported():
-// it depends on hd and the dtype only, and hd <= 128 fits every kernel.
+// Shared memory (fwd/dq/dkv_tc_smem_bytes below and
+// f32tc::fwd/dq/dkv_smem_bytes, mirrored per dtype by ops/flash_attention.py)
+// is the gate for supported(): it depends on hd and the dtype only, and hd <=
+// 128 fits every kernel.
 //
 // C interface for ctypes, as in short_attention.cu: each entry launches on
 // the given stream, allocates nothing, does not synchronize, and returns
-// cudaGetLastError() (0 on success).  The backward entries need 16-byte
-// aligned q, k, v and dO base pointers in both dtypes, and the bf16 forward
-// q, k and v (the wrappers check).
+// cudaGetLastError() (0 on success).  Every entry needs 16-byte aligned q,
+// k and v base pointers (and dO for the backward) in both dtypes (the
+// wrappers check).
 
 #include <type_traits>
 
@@ -100,161 +91,7 @@ using namespace dmt;
 using bf16 = __nv_bfloat16;
 
 constexpr int kTile = 64;            // q rows per q tile, keys per kv tile
-constexpr int kSide = 16;            // the 16x16 thread grid of a block
-constexpr int kPer = kTile / kSide;  // rows (and columns) of a tile per thread
-constexpr int kLdS = kTile + 1;      // padded row of a staged 64x64 f32 tile
 constexpr float kNegInf = -1e30f;
-
-static_assert(kSide * kSide == kThreads, "one thread per 4x4 cell of a tile");
-
-__host__ __device__ constexpr int ld_of(int hd) { return hd + 1; }
-
-size_t fwd_smem_bytes(int hd) {  // f32: q, k, v tiles + p tile
-  return (3 * (size_t)kTile * ld_of(hd) + (size_t)kTile * kLdS) * sizeof(float);
-}
-
-// Rows [row0, row0 + n) of one head (rows `stride` elements apart) into a
-// [kTile][HD + 1] f32 tile; rows n..kTile-1 become zeros.
-template <typename T, int HD>
-__device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
-                                      int row0, int n, size_t stride) {
-  constexpr int ld = ld_of(HD);
-  for (int idx = threadIdx.x; idx < kTile * HD; idx += kThreads) {
-    const int r = idx / HD, d = idx % HD;
-    dst[r * ld + d] = r < n ? to_f32(src[(size_t)(row0 + r) * stride + d]) : 0.f;
-  }
-}
-
-// Reductions over the 16 threads of a row group (one half-warp).
-__device__ __forceinline__ float group_max(float x) {
-  for (int off = kSide / 2; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-__device__ __forceinline__ float group_sum(float x) {
-  for (int off = kSide / 2; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
-}
-
-// ---------------------------------------------------------------- kernel 4 --
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int Sq, int Skv, int H, int causal,
-                 float scale) {
-  constexpr int ld = ld_of(HD);
-  constexpr int kCols = HD / kSide;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* qs = reinterpret_cast<float*>(smem_raw);  // [kTile][ld]
-  float* ks = qs + kTile * ld;                      // [kTile][ld]
-  float* vs = ks + kTile * ld;                      // [kTile][ld]
-  float* ps = vs + kTile * ld;                      // [kTile][kLdS]
-
-  const int q0 = blockIdx.x * kTile;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int tx = threadIdx.x % kSide, ty = threadIdx.x / kSide;
-  const size_t stride = (size_t)H * HD;
-  const size_t q_base = ((size_t)b * Sq * H + h) * HD;
-  const size_t kv_base = ((size_t)b * Skv * H + h) * HD;
-  const int nq = min(kTile, Sq - q0);
-  // keys any row of this tile sees
-  const int kv_end = causal ? min(Skv, q0 + nq) : Skv;
-
-  stage<T, HD>(qs, q + q_base, q0, nq, stride);
-
-  float m[kPer], l[kPer], acc[kPer][kCols];
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int t = 0; t < kCols; ++t) acc[i][t] = 0.f;
-  }
-
-  for (int j0 = 0; j0 < kv_end; j0 += kTile) {
-    const int nk = min(kTile, kv_end - j0);
-    __syncthreads();  // the previous tile is consumed (and qs is staged)
-    stage<T, HD>(ks, k + kv_base, j0, nk, stride);
-    stage<T, HD>(vs, v + kv_base, j0, nk, stride);
-    __syncthreads();
-
-    float s[kPer][kPer];
-#pragma unroll
-    for (int i = 0; i < kPer; ++i)
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      float qv[kPer], kv[kPer];
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) qv[i] = qs[(ty + kSide * i) * ld + d];
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) kv[j] = ks[(tx + kSide * j) * ld + d];
-#pragma unroll
-      for (int i = 0; i < kPer; ++i)
-#pragma unroll
-        for (int j = 0; j < kPer; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-    // online softmax of this thread's 4 rows
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int r = ty + kSide * i;
-      const int q_pos = q0 + r;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        const int c = tx + kSide * j;
-        const bool ok = c < nk && (!causal || j0 + c <= q_pos);
-        s[i][j] = ok ? s[i][j] * scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], group_max(mx));
-      const float corr = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        const float p = s[i][j] > kNegInf ? expf(s[i][j] - m_new) : 0.f;
-        sum += p;
-        // p rounds to v's dtype before P.V; the sum l keeps it unrounded
-        ps[r * kLdS + tx + kSide * j] = round_to<T>(p);
-      }
-      l[i] = l[i] * corr + group_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int t = 0; t < kCols; ++t) acc[i][t] *= corr;
-    }
-    __syncthreads();  // the p tile is complete
-
-    for (int c = 0; c < nk; ++c) {
-      float pv[kPer];
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) pv[i] = ps[(ty + kSide * i) * kLdS + c];
-#pragma unroll
-      for (int t = 0; t < kCols; ++t) {
-        const float vv = vs[c * ld + tx + kSide * t];
-#pragma unroll
-        for (int i = 0; i < kPer; ++i) acc[i][t] = fmaf(pv[i], vv, acc[i][t]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int r = ty + kSide * i;
-    if (r >= nq) continue;
-    // every real row sees key 0, so l > 0
-    const size_t row = q_base + (size_t)(q0 + r) * stride;
-#pragma unroll
-    for (int t = 0; t < kCols; ++t) o[row + tx + kSide * t] = from_f32<T>(acc[i][t] / l[i]);
-    if (tx == 0) lse[((size_t)b * H + h) * Sq + q0 + r] = m[i] + logf(l[i]);
-  }
-}
 
 // ---------------------------------------- kernels 4, 5 and 6, bf16, tensor cores
 //
@@ -741,8 +578,8 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               (int)smem);
 }
 
-// bf16 takes the tensor-core kernels; f32 takes the CUDA-core kernel 4 and the
-// split-TF32 tensor-core kernels 5 and 6 (flash_f32_tc.cuh).
+// bf16 takes the tensor-core kernels, f32 the split-TF32 tensor-core kernels
+// of flash_f32_tc.cuh.
 template <typename T, int HD>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                int B, int Sq, int Skv, int H, int causal, cudaStream_t st) {
@@ -758,13 +595,14 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
         static_cast<bf16*>(o), static_cast<float*>(lse), Sq, Skv, H, causal, scale,
         scale * kLog2e);
   } else {
-    const size_t smem = fwd_smem_bytes(HD);
-    auto kernel = flash_fwd_kernel<T, HD>;
+    const size_t smem = f32tc::fwd_smem_bytes<HD>();
+    auto kernel = f32tc::flash_fwd_f32tc_kernel<HD>;
     cudaError_t err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return (int)err;
-    kernel<<<grid, kThreads, smem, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(o), static_cast<float*>(lse), Sq, Skv, H, causal, scale);
+    kernel<<<grid, f32tc::kNumThreads, smem, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o), static_cast<float*>(lse), Sq, Skv,
+        H, causal, scale, scale * kLog2e);
   }
   return (int)cudaGetLastError();
 }

@@ -1,19 +1,22 @@
-// Flash attention backward in f32 on the Hopper tensor cores (sm_90a), as
-// split-TF32: kernels 5 and 6 of flash_attention.cu for float inputs.
+// Flash attention forward and backward in f32 on the Hopper tensor cores
+// (sm_90a), as split-TF32: kernels 4, 5 and 6 of flash_attention.cu for float
+// inputs.
 //
 // Replaces the TPU kernels of debiasing_multi_modal_tpu/ops/flash_attention.py:
+//   kernel 4  flash_fwd_f32tc_kernel  <- _attn_fwd_kernel (out, row logsumexp)
 //   kernel 5  flash_dq_f32tc_kernel   <- _bwd_dq_kernel   (dQ)
 //   kernel 6  flash_dkv_f32tc_kernel  <- _bwd_dkv_kernel  (dK and dV)
 // with the same function as the bf16 kernels beside them in
-// flash_attention.cu: s = scale * (q.k^T) accumulated in f32, p = exp(s - lse)
-// (0 at masked keys: past Skv and, when causal, top-left kv_pos > q_pos),
-// dp = dO.v^T, ds = p * (dp - delta) * scale, dq = sum ds.k, dk = sum ds^T.q,
-// dv = sum p^T.dO, every sum in f32.  In f32 the roundings of p and ds to the
-// operand dtype are the identity.
+// flash_attention.cu: s = scale * (q.k^T) accumulated in f32; forward: an
+// online softmax over 64-key tiles, out = sum p.v / l, lse = m + log(l);
+// backward: p = exp(s - lse) (0 at masked keys: past Skv and, when causal,
+// top-left kv_pos > q_pos), dp = dO.v^T, ds = p * (dp - delta) * scale,
+// dq = sum ds.k, dk = sum ds^T.q, dv = sum p^T.dO, every sum in f32.  In f32
+// the roundings of p and ds to the operand dtype are the identity.
 //
 // Why split-TF32.  The tensor cores multiply f32 data only as TF32 (10
-// mantissa bits).  One TF32 product per product leaves dq, dk and dv ~1e-3
-// of scale off (tests/test_torch_flash_attention.py emulates it), over the
+// mantissa bits).  One TF32 product per product leaves out, dq, dk and dv
+// ~1e-4 to 1e-3 of scale off (tests/test_torch_flash_attention.py emulates it), over the
 // f32 limit of 1e-4.  So each operand is split, x = hi + lo, hi being x and
 // lo the exact remainder x - hi, each rounded to TF32 as cvt.rna.tf32.f32
 // rounds (to nearest, ties away from zero), and each product is three
@@ -26,13 +29,13 @@
 // kernel 6's six f32 tiles already take 192 KB of the 227 KB at hd 128.
 // Operands a warp holds for its whole loop (kernel 5's Q and dO rows, kernel
 // 6's K and V rows, at hd <= 64) are split once and kept as hi/lo fragments
-// in registers.
+// in registers; kernel 4 re-reads its Q rows (below: occupancy).
 //
 // What bounds them on the H100.  At the training shapes (S = 50/77, hd 64)
-// each kernel moves its inputs and outputs once, 5-6 [B, S, H, hd] f32
-// tensors, against 6-8 flops per (query, key) pair and head dim: bytes bound
+// each kernel moves its inputs and outputs once, 4-6 [B, S, H, hd] f32
+// tensors, against 4-8 flops per (query, key) pair and head dim: bytes bound
 // them (3.35 TB/s).  From S ~ 1k on the three TF32 products of every product
-// bound them: 3 * (6 or 8) * pairs * hd flops at 495 TFLOP/s, 2.4x faster
+// bound them: 3 * (4, 6 or 8) * pairs * hd flops at 495 TFLOP/s, 2.4x faster
 // than the same work on the CUDA cores at 67 TFLOP/s.  Against the bytes the
 // design reads every input once per tile pass through 16-byte cp.async,
 // double-buffered so the next streamed tile's copies overlap this tile's
@@ -47,7 +50,8 @@
 // The design follows the bf16 kernels of flash_attention.cu: one block of 4
 // warps per 64-row tile it owns, one warp per 16 of those rows, no atomics
 // (one output tile per block, so results are the same bit for bit from run to
-// run); kernel 6 computes the transposed products s^T = K.Q^T and
+// run); kernel 4 runs its online softmax in registers over 32-key
+// sub-tiles of logits; kernel 6 computes the transposed products s^T = K.Q^T and
 // dp^T = V.dO^T.  Staged tiles are f32 rows with their 16-byte chunks XORed
 // with the row (sw below): the fragment loads of a warp, 8 rows by 4 words
 // for a row-major B (or A) operand and 4 rows (2t, 2t + 1) by 8 words for a
@@ -69,6 +73,10 @@ constexpr int kNumWarps = kTile / 16;
 constexpr int kNumThreads = kNumWarps * 32;
 
 template <int HD> __host__ __device__ constexpr int tile_floats() { return kTile * HD; }
+// kernel 4: q and one K/V buffer
+template <int HD> constexpr size_t fwd_smem_bytes() {
+  return 3 * (size_t)tile_floats<HD>() * sizeof(float);
+}
 // kernel 5: q, dO and two K/V buffers
 template <int HD> constexpr size_t dq_smem_bytes() {
   return 6 * (size_t)tile_floats<HD>() * sizeof(float);
@@ -188,6 +196,167 @@ __device__ __forceinline__ void store_rows(float* out, const float (&acc)[HD / 8
     if (row + 8 < n_rows)
       *reinterpret_cast<float2*>(out + (size_t)(row + 8) * ld + col) =
           make_float2(acc[j][2], acc[j][3]);
+  }
+}
+
+// Kernel 4, f32.  Warp w owns q rows q0 + 16w + [0, 16): its output in f32
+// accumulators [16, HD], its running max m of the raw logits (scale > 0, so
+// the max of the scaled logits is m * scale exactly) and its share of the row
+// sums l in registers.  K/V tiles of 64 keys go through one buffer: a tile is
+// staged once the previous one is consumed.  Per 32-key sub-tile (kSub 8-key
+// steps): s = Q.K^T for the steps the warp's rows see, Q's A fragments read
+// and split from the staged q tile (-1e30 at masked keys, tested on edge
+// sub-tiles only); m_new = max(m, row max of s) over the 4 lanes that share
+// a row; p = exp2(s * scale * log2e - m_new * scale * log2e), against the
+// running max as the JAX kernel takes it; corr = exp2((m - m_new) * scale *
+// log2e); l = l * corr + sum p; acc = acc * corr + P.V with p as the A
+// fragment in registers (its rounding to v's dtype is the identity in f32).
+// out = acc / l; lse = m * scale + log(l).
+//
+// Why one buffer and Q not held in registers: occupancy.  The kernel waits
+// on its loads at the training shapes (one or two K/V tiles per block), and
+// what hides a wait is another block on the SM.  Three f32 tiles (48 KB at
+// hd 64) and ~125 registers let four blocks share an SM; a second K/V buffer
+// (80 KB) or Q's split fragments in registers (64 more) held it to two, and
+// measured slower at every timed shape, S = 2048 included (PERF.md).  The
+// 32-key sub-tile measured faster than a whole 64-key tile per softmax
+// update (fewer logits live) and than 16 keys (more updates).
+template <int HD>
+__global__ void __launch_bounds__(kNumThreads)
+flash_fwd_f32tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o,
+                       float* __restrict__ lse, int Sq, int Skv, int H, int causal, float scale,
+                       float scale_log2) {
+  constexpr int kTileF = tile_floats<HD>();
+  constexpr int kSub = 4;  // 8-key steps per online-softmax update
+  constexpr float kNegInf = -1e30f;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* q_t = reinterpret_cast<float*>(smem_raw);
+  float* k_t = q_t + kTileF;
+  float* v_t = k_t + kTileF;
+
+  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int ld = H * HD;
+  const size_t q_base = ((size_t)b * Sq * H + h) * HD;
+  const size_t kv_base = ((size_t)b * Skv * H + h) * HD;
+  const int nq = min(kTile, Sq - q0);
+  const int kv_end = causal ? min(Skv, q0 + nq) : Skv;  // keys any row of the tile sees
+  const int n_tiles = (kv_end + kTile - 1) / kTile;
+  // keys this warp's rows see (none for a warp wholly past Sq)
+  const int w0 = q0 + 16 * warp;
+  const int w_end = w0 >= Sq ? 0 : causal ? min(kv_end, w0 + 16) : kv_end;
+
+  stage<HD>(smem_u32(q_t), q + q_base + (size_t)q0 * ld, nq, ld, threadIdx.x);
+
+  const int row = w0 + g;  // and row + 8
+  float acc[HD / 8][4];
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf;  // running max of the raw logits, rows row, row + 8
+  float l0 = 0.f, l1 = 0.f;          // this thread's share of their sums
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int j0 = it * kTile;
+    if (it > 0) __syncthreads();  // every warp is done with the buffer before it is refilled
+    stage<HD>(smem_u32(k_t), k + kv_base + (size_t)j0 * ld, kv_end - j0, ld, threadIdx.x);
+    stage<HD>(smem_u32(v_t), v + kv_base + (size_t)j0 * ld, kv_end - j0, ld, threadIdx.x);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    const int n_ks = (min(kTile, max(0, w_end - j0)) + 7) / 8;  // 8-key steps this warp runs
+    for (int s0 = 0; s0 < n_ks; s0 += kSub) {
+      float s[kSub][4];
+#pragma unroll
+      for (int u = 0; u < kSub; ++u)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[u][e] = 0.f;
+      // head-dim chunks outer: each Q fragment is split once per sub-tile,
+      // and the steps' products are independent chains
+#pragma unroll
+      for (int kd = 0; kd < HD / 8; ++kd) {
+        Frag a;
+        load_a<HD>(a, q_t, 16 * warp, kd, g, t);
+#pragma unroll
+        for (int u = 0; u < kSub; ++u)
+          if (s0 + u < n_ks) mma_rows<HD>(s[u], a, k_t, 8 * (s0 + u), kd, g, t);
+      }
+      // keys past Skv and causal keys past a row (which covers the steps the
+      // warp skipped); rows past Sq are never stored
+      const int key0 = j0 + 8 * s0;
+      if (key0 + 8 * kSub > Skv || (causal && key0 + 8 * kSub - 1 > w0)) {
+#pragma unroll
+        for (int u = 0; u < kSub; ++u)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = key0 + 8 * u + 2 * t + (e & 1), r = row + 8 * (e >> 1);
+            if (key >= Skv || (causal && key > r)) s[u][e] = kNegInf;
+          }
+      }
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int u = 0; u < kSub; ++u) {
+        mx0 = fmaxf(mx0, fmaxf(s[u][0], s[u][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[u][2], s[u][3]));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {  // the row's 4 threads
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float c0 = exp2f((m0 - mx0) * scale_log2), c1 = exp2f((m1 - mx1) * scale_log2);
+      const float n0 = mx0 * scale_log2, n1 = mx1 * scale_log2;
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int u = 0; u < kSub; ++u) {  // s becomes p in place
+        s[u][0] = exp2f(fmaf(s[u][0], scale_log2, -n0));
+        s[u][1] = exp2f(fmaf(s[u][1], scale_log2, -n0));
+        s[u][2] = exp2f(fmaf(s[u][2], scale_log2, -n1));
+        s[u][3] = exp2f(fmaf(s[u][3], scale_log2, -n1));
+        sum0 += s[u][0] + s[u][1];
+        sum1 += s[u][2] + s[u][3];
+      }
+      l0 = l0 * c0 + sum0;
+      l1 = l1 * c1 + sum1;
+      m0 = mx0;
+      m1 = mx1;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        acc[j][0] *= c0;
+        acc[j][1] *= c0;
+        acc[j][2] *= c1;
+        acc[j][3] *= c1;
+      }
+#pragma unroll
+      for (int u = 0; u < kSub; ++u)
+        if (s0 + u < n_ks) {
+          Frag pa;
+          acc_to_a(pa, s[u]);
+          mma_cols<HD>(acc, pa, v_t, 8 * (s0 + u), g, t);
+        }
+    }
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  // every real row sees key 0, so l > 0 there (rows past Sq are not stored)
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    acc[j][0] /= l0;
+    acc[j][1] /= l0;
+    acc[j][2] /= l1;
+    acc[j][3] /= l1;
+  }
+  store_rows<HD>(o + q_base, acc, row, Sq, ld, t);
+  if (t == 0) {
+    const size_t stat = ((size_t)b * H + h) * Sq;
+    if (row < Sq) lse[stat + row] = m0 * scale + logf(l0);
+    if (row + 8 < Sq) lse[stat + row + 8] = m1 * scale + logf(l1);
   }
 }
 

@@ -8,10 +8,11 @@ downsample, the residual add and the final ReLU, on NHWC activations
 ``[B, H, W, Cin]``, with the weights in the JAX layouts (``w1 [Cin, M]``,
 ``w2 [3, 3, M, M]``, ``w3 [M, Cout]``, ``wd [Cin, Cout]``).  On a CUDA tensor
 it launches the hand-written kernel in ``csrc/bottleneck.cu`` (one block per
-image group and row strip; y1 and y2 stay in shared memory; f32 FMAs) or
-raises; on a CPU tensor it runs :func:`xla_bottleneck`, the plain PyTorch
-version with the JAX kernel's roundings.  There is no fall back from one to
-the other; ``fused_bottleneck_gemm.launches`` counts the kernel's launches.
+image group and row strip; y1 and y2 stay in shared memory; bf16 on the
+tensor cores with ``mma.sync``, f32 on CUDA-core FMAs) or raises; on a CPU
+tensor it runs :func:`xla_bottleneck`, the plain PyTorch version with the
+JAX kernel's roundings.  There is no fall back from one to the other;
+``fused_bottleneck_gemm.launches`` counts the kernel's launches.
 
 As in the JAX package, the model never calls the kernel (``models/resnet.py``
 keeps ``F.conv2d``): it is driven at the folded RN50's stride-1 blocks by
@@ -20,9 +21,11 @@ keeps ``F.conv2d``): it is driven at the folded RN50's stride-1 blocks by
 
 The H100 gate is shared memory: the kernel keeps a zero-bordered
 ``[G, S+2, W+2, M]`` y1 tile and a ``[G, S, W, M]`` y2 tile of the
-activation dtype per block (:func:`smem_bytes`), against the 232,448 bytes a
-block may use; :func:`pick_strip_rows` gives the largest strip that fits.
-The TPU's VMEM sizing does not carry over.
+activation dtype per block, and in bf16 a ring of four stage buffers of
+weight (and x) tiles (:func:`smem_bytes`), against the 232,448 bytes a block
+may use; :func:`pick_strip_rows` gives the largest strip that fits.  bf16 takes
+channel counts that are multiples of 16 (the ``k16`` step of ``mma.sync``),
+f32 multiples of 8.  The TPU's VMEM sizing does not carry over.
 """
 
 from __future__ import annotations
@@ -36,7 +39,12 @@ from debiasing_multi_modal_tpu_torch.ops import cuda_build
 
 # A Hopper block may use 232,448 bytes of shared memory (227 KB).
 SMEM_LIMIT_BYTES = 232448
-_CHANNEL_VECTOR = 8  # channels per thread tile, csrc/bottleneck.cu kRC
+# channel multiple per dtype: f32 8-element vectors (csrc/bottleneck.cu kRC),
+# bf16 the k16 step of mma.sync
+_CHANNEL_VECTOR = {torch.float32: 8, torch.bfloat16: 16}
+# the ring of stage buffers of the bf16 kernel (csrc/bottleneck.cu kStages *
+# kStageBytes)
+_BF16_STAGE_BYTES = 4 * 20480
 _MAX_GRID_Y = 65535  # image groups ride the grid's y dimension
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -45,9 +53,11 @@ def smem_bytes(w: int, m: int, strip_rows: int, images_per_cell: int,
                itemsize: int) -> int:
     """Dynamic shared memory of one kernel-8 (or kernel-9) block (mirrors
     ``smem_bytes`` in the CUDA source): the zero-bordered y1 tile of the
-    strip and its halo rows, and the strip's y2 tile."""
+    strip and its halo rows, and the strip's y2 tile, of the activation
+    dtype; in bf16 (``itemsize`` 2) also the ring of stage buffers."""
     g, s = images_per_cell, strip_rows
-    return (g * (s + 2) * (w + 2) * m + g * s * w * m) * itemsize
+    tiles = (g * (s + 2) * (w + 2) * m + g * s * w * m) * itemsize
+    return tiles + (_BF16_STAGE_BYTES if itemsize == 2 else 0)
 
 
 def pick_strip_rows(h: int, w: int, m: int, itemsize: int,
@@ -62,14 +72,16 @@ def pick_strip_rows(h: int, w: int, m: int, itemsize: int,
 def supported(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor, *, strip_rows: int,
               images_per_cell: int = 1) -> bool:
     """Whether kernel 8 takes this call on the card: f32 or bf16, channel
-    counts that are multiples of 8, and the strip's tiles in shared memory."""
+    counts that are multiples of 8 (f32) or 16 (bf16), and the strip's
+    tiles in shared memory."""
     if x.ndim != 4 or x.dtype not in _DTYPE_CODES or w1.ndim != 2 or w3.ndim != 2:
         return False
     b, h, w, cin = x.shape
     m, cout = w1.shape[1], w3.shape[1]
     if h % strip_rows or b % images_per_cell or b // images_per_cell > _MAX_GRID_Y:
         return False
-    if cin % _CHANNEL_VECTOR or m % _CHANNEL_VECTOR or cout % _CHANNEL_VECTOR:
+    vec = _CHANNEL_VECTOR[x.dtype]
+    if cin % vec or m % vec or cout % vec:
         return False
     return smem_bytes(w, m, strip_rows, images_per_cell, x.element_size()) <= SMEM_LIMIT_BYTES
 
@@ -155,9 +167,9 @@ def _card_operands(x, weights, biases, smem, who):
             continue
         _need(t.device == x.device, f"{who} operands must lie on one device")
         _need(t.data_ptr() % 16 == 0, f"{who} needs 16-byte aligned operands")
-    _need(all(d % _CHANNEL_VECTOR == 0 for d in (ws[0].shape[0], ws[0].shape[1],
-                                                ws[2].shape[1])),
-          f"{who} needs channel counts that are multiples of {_CHANNEL_VECTOR}")
+    vec = _CHANNEL_VECTOR[x.dtype]
+    _need(all(d % vec == 0 for d in (ws[0].shape[0], ws[0].shape[1], ws[2].shape[1])),
+          f"{who} in {x.dtype} needs channel counts that are multiples of {vec}")
     return x, ws, bs
 
 

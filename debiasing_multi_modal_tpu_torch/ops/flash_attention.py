@@ -10,10 +10,9 @@ Three kernels in ``csrc/flash_attention.cu``:
 
 All three run on the tensor cores in bf16 (``mma.sync``, ``ldmatrix``,
 double-buffered ``cp.async``; kernel 4 runs its online softmax in
-registers).  In f32 kernel 4 runs on the CUDA cores and kernels 5 and 6 on
-the tensor cores as split-TF32 (``csrc/flash_f32_tc.cuh``: each operand
-split into TF32 hi and lo parts, three TF32 products per product, f32
-accumulators).
+registers), and in f32 as split-TF32 (``csrc/flash_f32_tc.cuh``: each
+operand split into TF32 hi and lo parts, three TF32 products per product,
+f32 accumulators).
 
 :func:`flash_attention` takes q ``[B, Sq, H, hd]`` and k, v
 ``[B, Skv, H, hd]`` (the layout of ``dot_product_attention``: the ``[B, S, D]``
@@ -58,12 +57,8 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _F32 = 4
 
 
-def _tile_bytes(hd: int) -> int:
-    return TILE * (hd + 1) * _F32  # a staged [64, hd] f32 tile, rows padded (kernel 4)
-
-
 def _f32tc_tile_bytes(hd: int) -> int:
-    return TILE * hd * _F32  # a staged [64, hd] f32 tile, swizzled, unpadded (5, 6)
+    return TILE * hd * _F32  # a staged [64, hd] f32 tile, swizzled, unpadded
 
 
 def _tc_tile_bytes(hd: int) -> int:
@@ -71,12 +66,12 @@ def _tc_tile_bytes(hd: int) -> int:
 
 
 def fwd_smem_bytes(hd: int, dtype: torch.dtype) -> int:
-    """Kernel 4's shared memory (mirrors ``fwd_smem_bytes`` and
-    ``fwd_tc_smem_bytes`` in the CUDA source): bf16 (tensor cores) the q
-    tile and two K/V buffers; f32 q, k, v tiles and the p tile."""
+    """Kernel 4's shared memory (mirrors ``fwd_tc_smem_bytes`` and
+    ``f32tc::fwd_smem_bytes`` in the CUDA source): bf16 the q tile and two
+    K/V buffers; f32 the q tile and one K/V buffer (more blocks per SM)."""
     if dtype == torch.bfloat16:
         return 5 * _tc_tile_bytes(hd)
-    return 3 * _tile_bytes(hd) + TILE * (TILE + 1) * _F32
+    return 3 * _f32tc_tile_bytes(hd)
 
 
 def dq_smem_bytes(hd: int, dtype: torch.dtype) -> int:
@@ -178,10 +173,10 @@ def _dims(q, k):
 
 def flash_attention_forward(q, k, v, causal: bool = False):
     """Kernel 4 on CUDA tensors that :func:`supported` takes and that are
-    contiguous: ``(out, lse)``, counted in ``flash_attention.launches``.  In
-    bf16 the kernel stages tiles by 16-byte ``cp.async``: q, k and v must be
-    16-byte aligned."""
-    _need_aligned("flash_attention", q, k, v)
+    contiguous: ``(out, lse)``, counted in ``flash_attention.launches``.  The
+    kernel stages tiles by 16-byte ``cp.async`` in both dtypes: q, k and v
+    must be 16-byte aligned."""
+    _need_aligned("flash_attention", q, k, v, dtypes=(torch.bfloat16, torch.float32))
     out = torch.empty_like(q)
     b, sq, skv, h, hd = _dims(q, k)
     lse = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)

@@ -278,9 +278,9 @@ def _need_contiguous(name, *tensors):
 def _need_aligned(name, *tensors, dtypes=(torch.bfloat16,)):
     """A kernel copies 16-byte chunks of inputs of these dtypes with
     ``cp.async`` (kernels 1 and 3 in both dtypes, kernel 2 in f32, the flash
-    kernels in bf16, flash kernels 5 and 6 in f32 too): a base pointer off a 16-byte boundary (a view whose
-    storage offset is not a multiple of 16 bytes) would fault, so it raises
-    here."""
+    kernels 4-6 in both dtypes): a base pointer off a 16-byte boundary (a
+    view whose storage offset is not a multiple of 16 bytes) would fault, so
+    it raises here."""
     if any(t.dtype in dtypes and t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{name} needs 16-byte aligned inputs")
 

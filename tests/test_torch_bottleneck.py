@@ -166,18 +166,20 @@ def test_folded_block_matches_plain_of_its_block_weights(block_index):
 
 def test_shared_memory_gates_pinned():
     """The tiles the H100 kernels keep per block (y1 with its halo and zero
-    border, y2), against the 232,448 bytes a block may use."""
-    assert tcg.smem_bytes(56, 64, 8, 1, 2) == 131584     # layer1, bf16, strip 8
-    assert tcg.smem_bytes(14, 256, 14, 1, 2) == 231424   # layer3, bf16, strip 14: just fits
-    assert tcg.smem_bytes(14, 256, 7, 1, 2) == 123904    # layer3, bf16, strip 7
-    assert tcg.smem_bytes(7, 512, 7, 1, 2) == 133120     # layer4, bf16, strip 7
+    border, y2, and in bf16 the tensor-core kernel's ring of four 20,480-byte
+    stage buffers), against the 232,448 bytes a block may use."""
+    assert tcg.smem_bytes(56, 64, 8, 1, 2) == 213504     # layer1, bf16, strip 8
+    assert tcg.smem_bytes(14, 256, 14, 1, 2) == 313344   # layer3, bf16, strip 14: too big
+    assert tcg.smem_bytes(14, 256, 7, 1, 2) == 205824    # layer3, bf16, strip 7
+    assert tcg.smem_bytes(7, 512, 7, 1, 2) == 215040     # layer4, bf16, strip 7
+    assert tcg.smem_bytes(56, 64, 4, 1, 4) == 146432     # layer1, f32, strip 4
     assert tcg.smem_bytes(56, 64, 8, 1, 4) > tcg.SMEM_LIMIT_BYTES  # layer1 f32 strip 8
     # largest fitting strip per RN50 stage, bf16 / f32, and kernel 9's gate
     stages = {"layer1": (56, 64), "layer2": (28, 128), "layer3": (14, 256), "layer4": (7, 512)}
     strips = {name: (tcg.pick_strip_rows(h, h, m, 2), tcg.pick_strip_rows(h, h, m, 4))
               for name, (h, m) in stages.items()}
-    assert strips == {"layer1": (14, 4), "layer2": (14, 4), "layer3": (14, 2), "layer4": (7, 1)}
-    assert tfb.smem_bytes(7, 7, 512, 2) == 133120 and tfb.strip_rows(56, 56, 64, 2) == 14
+    assert strips == {"layer1": (8, 4), "layer2": (7, 4), "layer3": (7, 2), "layer4": (7, 1)}
+    assert tfb.smem_bytes(7, 7, 512, 2) == 215040 and tfb.strip_rows(56, 56, 64, 2) == 8
     assert tcg.pick_strip_rows(7, 7, 2048, 4) is None
     x, w1, w3 = torch.zeros(2, 56, 56, 64), torch.zeros(64, 64), torch.zeros(64, 256)
     assert not tcg.supported(x, w1, w3, strip_rows=8)           # f32 strip 8 does not fit
@@ -187,6 +189,23 @@ def test_shared_memory_gates_pinned():
     assert not tcg.supported(x.half(), w1, w3, strip_rows=4)    # the kernel takes f32 or bf16
     assert not tfb.supported(x, w1, w3)                        # Cin != Cout
     assert tfb.supported(torch.zeros(2, 56, 56, 256), w3.t(), w3)
+
+
+def test_bf16_needs_channels_in_multiples_of_16():
+    """The bf16 kernel steps K by 16 (``mma.sync.m16n8k16``): channel counts
+    that are multiples of 8 but not of 16 pass the f32 gate and fail the
+    bf16 one, for kernels 8 and 9; the CPU path keeps the JAX wrapper's
+    checks and runs the plain version in either dtype."""
+    x, w1, w3 = torch.zeros(1, 8, 8, 24), torch.zeros(24, 8), torch.zeros(8, 24)
+    assert tcg.supported(x, w1, w3, strip_rows=8)
+    assert not tcg.supported(x.bfloat16(), w1, w3, strip_rows=8)
+    assert tfb.supported(x, w1, w3) and not tfb.supported(x.bfloat16(), w1, w3)
+    assert tcg.supported(torch.zeros(1, 8, 8, 32).bfloat16(), torch.zeros(32, 16),
+                         torch.zeros(16, 32), strip_rows=8)
+    w2 = torch.zeros(3, 3, 8, 8)
+    got = tcg.fused_bottleneck_gemm(x.bfloat16(), w1, torch.zeros(8), w2, torch.zeros(8), w3,
+                                    torch.zeros(24), strip_rows=8)
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
 
 
 # ------------------------------------------------------------- on the card --
@@ -216,8 +235,14 @@ def _agree(out, ref, dtype):
     (4, 16, 64, 16, 128, True, 4, 2, torch.bfloat16),
     (2, 14, 256, 64, 256, False, 7, 1, torch.bfloat16),
     (3, 7, 512, 128, 512, False, 7, 1, torch.float32),
-    (2, 56, 64, 64, 256, True, 14, 1, torch.bfloat16),
-], ids=["f32", "ds_packed_bf16", "l1ish_bf16", "l4ish_f32", "l1b0_ds_bf16"])
+    (2, 56, 64, 64, 256, True, 8, 1, torch.bfloat16),
+    (2, 56, 256, 64, 256, False, 8, 1, torch.bfloat16),
+    (2, 28, 512, 128, 512, False, 7, 1, torch.bfloat16),
+    (2, 14, 1024, 256, 1024, False, 7, 1, torch.bfloat16),
+    (2, 7, 2048, 512, 2048, False, 7, 1, torch.bfloat16),
+    (3, 16, 64, 48, 96, True, 8, 3, torch.bfloat16),
+], ids=["f32", "ds_packed_bf16", "l1ish_bf16", "l4ish_f32", "l1b0_ds_bf16", "l1b1_bf16",
+        "l2b1_bf16", "l3b1_bf16", "l4b1_bf16", "odd_widths_packed_bf16"])
 def test_gemm_kernel_equals_plain_on_card(card, b, h, cin, m, cout, ds, strip, g, dtype):
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.default_rng(0)
@@ -257,3 +282,11 @@ def test_kernels_refuse_what_they_do_not_take_on_card(card):
         tcg.fused_bottleneck_gemm(x, **w, strip_rows=8)
     assert not tcg.supported(x, w["w1"], w["w3"], strip_rows=8)
     assert not tfb.supported(x, w["w1"], w["w3"])
+    # bf16 steps K by 16: 24 channels pass in f32 and are refused in bf16
+    x, w = _card_case(rng, 1, 8, 24, 8, 24, False, torch.bfloat16)
+    before = (tcg.fused_bottleneck_gemm.launches, tfb.fused_bottleneck.launches)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        tcg.fused_bottleneck_gemm(x, **w, strip_rows=8)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        tfb.fused_bottleneck(x, **w)
+    assert (tcg.fused_bottleneck_gemm.launches, tfb.fused_bottleneck.launches) == before

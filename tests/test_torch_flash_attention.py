@@ -196,6 +196,64 @@ def test_split_tf32_backward_matches_float64_and_jax(b, sq, skv, h, hd, causal):
         assert np.abs(g.numpy() - wj).max() <= 1e-4 * np.abs(wj).max(), name
 
 
+def _forward_with(mm, q, k, v, causal):
+    """Kernel 4's function in f32 as its kernel runs it: the online softmax
+    over 64-key tiles (running max of the raw logits, p against it, l the
+    sum of p, the accumulator rescaled by each tile's correction), with
+    ``s = Q.K^T`` and ``P.V`` taken by ``mm``.  Returns ``(out, lse)``."""
+    b, sq, h, hd = q.shape
+    scale = hd ** -0.5
+    m = torch.full((b, h, sq, 1), -1e30, dtype=q.dtype)
+    l = torch.zeros(b, h, sq, 1, dtype=q.dtype)
+    acc = torch.zeros(b, h, sq, hd, dtype=q.dtype)
+    for j0 in range(0, k.shape[1], fa.TILE):
+        kt, vt = k[:, j0:j0 + fa.TILE], v[:, j0:j0 + fa.TILE]
+        s = mm("bqhd,bkhd->bhqk", q, kt)
+        if causal:
+            keys = torch.arange(j0, j0 + kt.shape[1])
+            s = s.masked_fill(keys[None, :] > torch.arange(sq)[:, None], -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr, p = torch.exp((m - m_new) * scale), torch.exp((s - m_new) * scale)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + mm("bhqk,bkhd->bhqd", p, vt)
+        m = m_new
+    return (acc / l).permute(0, 2, 1, 3), (m * scale + torch.log(l)).squeeze(-1)
+
+
+# hd 32 / 64 / 128, Sq = Skv and ragged Sq != Skv past one 64-key tile
+SPLIT_TF32_FWD = [(2, 77, 77, 4, 64), (2, 50, 130, 4, 32), (1, 100, 60, 2, 128)]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("b,sq,skv,h,hd", SPLIT_TF32_FWD)
+def test_split_tf32_forward_matches_float64_and_jax(b, sq, skv, h, hd, causal):
+    """f32 kernel 4 runs ``s = Q.K^T`` and ``P.V`` as three TF32 products
+    each on the tensor cores, over its online softmax.  Emulated here in
+    torch: out within 1e-5 of scale of attention in float64 and of the JAX
+    flash forward (its Pallas kernel in interpret mode), lse within 1e-5 of
+    float64's.  A single TF32 product per product is printed beside it, and
+    is worse."""
+    q, k, v, _ = _arrays(b, sq, skv, h, hd, seed=13 * sq + hd)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    q64, k64, v64 = (x.double() for x in (tq, tk, tv))
+    s64 = torch.einsum("bqhd,bkhd->bhqk", q64, k64) * hd ** -0.5
+    if causal:
+        s64 = s64.masked_fill(~fa._keep(sq, skv, s64.device), -torch.inf)
+    lse64 = torch.logsumexp(s64, -1)
+    out64 = torch.einsum("bhqk,bkhd->bqhd", torch.exp(s64 - lse64[..., None]), v64)
+    got, lse = _forward_with(_split_tf32_mm, tq, tk, tv, causal)
+    single, _ = _forward_with(_tf32_mm, tq, tk, tv, causal)
+    scale = out64.abs().max().item()
+    err = (got.double() - out64).abs().max().item()
+    err1 = (single.double() - out64).abs().max().item()
+    print(f"out: split-TF32 {err / scale:.2e}, one TF32 product {err1 / scale:.2e} "
+          f"of scale against float64")
+    assert err <= 1e-5 * scale and err < err1, (err / scale, err1 / scale)
+    assert (lse.double() - lse64).abs().max().item() <= 1e-5 * lse64.abs().max().item()
+    want_jax = _jax_flash(q, k, v, causal)
+    assert np.abs(got.numpy() - want_jax).max() <= 1e-5 * np.abs(want_jax).max()
+
+
 def test_plain_backward_is_autograd_of_plain_forward():
     """On the CPU the Function's backward is
     :func:`flash_attention_backward_reference`; at f32 it equals autograd of
@@ -267,11 +325,10 @@ def test_gate_is_pinned_to_shared_memory():
     assert not fa.supported(bf(2, 8, 2, 64), bf(2, 8, 3, 64), bf(2, 8, 3, 64))  # heads
     assert not fa.supported(bf(2, 8, 2, 48), bf(2, 8, 2, 48), bf(2, 8, 2, 48))  # hd 48
     # the shared memory of each kernel, in bytes, and the widest head it fits:
-    # f32 kernel 4 stages padded f32 tiles; the tensor-core kernels (5 and 6
-    # in both dtypes, 4 in bf16) swizzled tiles of their dtype, with two
-    # buffers of the streamed tile
+    # every kernel runs on the tensor cores and stages swizzled tiles of its
+    # dtype, with two buffers of the streamed tile (f32 kernel 4: one)
     f32, bf16 = torch.float32, torch.bfloat16
-    assert [fa.fwd_smem_bytes(hd, f32) for hd in (32, 64, 128)] == [41984, 66560, 115712]
+    assert [fa.fwd_smem_bytes(hd, f32) for hd in (32, 64, 128)] == [24576, 49152, 98304]
     assert [fa.fwd_smem_bytes(hd, bf16) for hd in (32, 64, 128)] == [20480, 40960, 81920]
     assert [fa.dq_smem_bytes(hd, f32) for hd in (32, 64, 128)] == [49152, 98304, 196608]
     assert [fa.dkv_smem_bytes(hd, f32) for hd in (32, 64, 128)] == [50176, 99328, 197632]
@@ -292,8 +349,8 @@ def test_gate_is_pinned_to_shared_memory():
 
 # ------------------------------------------------------------- on the card --
 
-# kernels 5-6 run on the tensor cores, bf16 as such, f32 as split-TF32: the
-# training image and text shapes, hd 32 and 128, causal, ragged cross shapes
+# kernels 4-6 run on the tensor cores, bf16 as such, f32 as split-TF32: the
+# training image and text shapes, S=2048 in f32, hd 32 and 128, causal, ragged cross shapes
 # (Sq > Skv, and causal Sq < Skv, where kv tiles past the last row see no
 # query and their dk, dv are zeros), Sq=1, and S past one 64-row tile (Sq=1
 # with Skv > 1: where every row sees one key, dq and dk are 0 up to rounding
@@ -316,7 +373,8 @@ CARD = [(128, 50, 50, 12, 64, False, torch.bfloat16),
         (2, 77, 300, 4, 64, True, torch.float32),
         (2, 129, 129, 4, 128, False, torch.float32),
         (3, 1, 9, 2, 64, False, torch.float32),
-        (3, 1, 130, 2, 32, False, torch.float32)]
+        (3, 1, 130, 2, 32, False, torch.float32),
+        (4, 2048, 2048, 16, 64, False, torch.float32)]
 
 
 def _close_on_card(got, want, dtype):
@@ -429,6 +487,34 @@ def test_f32_backward_needs_aligned_inputs_on_card(card):
         with pytest.raises(ValueError, match="16-byte aligned"):
             wrapper(off, off, off, off, lse, delta)
     assert (fa.flash_attention_dq.launches, fa.flash_attention_dkv.launches) == before
+
+
+def test_f32_forward_needs_aligned_inputs_on_card(card):
+    """f32 kernel 4 stages f32 tiles by 16-byte ``cp.async``: a base pointer
+    off 16 bytes raises, counts no launch and never falls back."""
+    x = torch.zeros(2 * 77 * 8 * 64 + 1, device="cuda")
+    off = x[1:].view(2, 77, 8, 64)
+    before = fa.flash_attention.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_attention_forward(off, off, off)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_attention(off, off, off, causal=True)
+    assert fa.flash_attention.launches == before
+
+
+@pytest.mark.parametrize("b,sq,skv,h,hd,causal", [
+    (128, 50, 50, 12, 64, False), (128, 77, 77, 8, 64, True), (8, 197, 197, 8, 32, True),
+    (2, 300, 200, 4, 128, True), (2, 1000, 77, 8, 64, False)])
+def test_f32_forward_is_bit_equal_run_to_run_on_card(card, b, sq, skv, h, hd, causal):
+    """f32 kernel 4 writes one output tile per block and sums in a fixed
+    order: two runs give the same out and lse bit for bit."""
+    g = torch.Generator(device="cuda").manual_seed(4)
+    q = torch.randn(b, sq, h, hd, device="cuda", generator=g)
+    k, v = (torch.randn(b, skv, h, hd, device="cuda", generator=g) for _ in range(2))
+    (out, lse), (again, lse_again) = (fa.flash_attention_forward(q, k, v, causal)
+                                      for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and torch.equal(lse, lse_again)
 
 
 # bf16 kernel 4 (tensor cores) at every shape chip_smoke.py holds it to, at
