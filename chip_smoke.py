@@ -6,6 +6,7 @@
                                              # f32 training step alone
     python3 chip_smoke.py --only rn50_blocks # kernels 8 and 9 at the folded RN50's
                                              # stride-1 blocks alone
+    python3 chip_smoke.py --only stage_b     # Stage B (adapter training) alone
 
 Phases, in order, each printing one JSON line per case; any failure raises
 and exits nonzero, and only a run where every phase passed prints the final
@@ -30,7 +31,8 @@ line.
              ViT-L/14@336px text shapes and the ViT-L/14 image shape; the attention
              kernels, their plain versions and SDPA timed by CUDA-graph replay,
              so a wrapper's host time stays out), kernel 2
-             (q-tiled; f32 the same register-tiled code with K/V streamed),
+             (q-tiled; f32 the same register-tiled code with K/V streamed;
+             bf16, on no main path, timed at ViT-L/14@448's S=1025),
              kernel 3 (packed, timed at both shapes), with ragged
              bf16 S from 1 to the gate's largest (832 at hd 64) for kernels 1
              and 3, ragged f32 S from 1 to each gate's largest (348 and 1,624
@@ -81,7 +83,9 @@ line.
              scale, cosine >= 0.9999; f32 on one block <= 1e-4 of scale) and
              to the model's own Bottleneck.forward (cosine >= 0.999); kernel,
              plain and model-block times at l1b0_ds, l1b1, l2b1, l3b1, l4b1
-             (bf16: mma.sync on the tensor cores; f32: CUDA-core FMAs).
+             (bf16: mma.sync on the tensor cores); f32 (CUDA-core FMAs, on no
+             main path) at l2b1 on 8 images, timed beside the plain version
+             and the model's block run in f32.
 7. vit     — ViT-B/32 at full width and depth in bf16, the same drive three
              times with the counts set to 0 before each: unfused (kernel 1),
              fuse_qkv=True (kernel 3) and quant="int8_pallas" (kernel 7 and
@@ -108,12 +112,31 @@ line.
              package's default dtype, on all 128 pairs (kernels 4, 5, 6: 24
              each, all split-TF32), finite, under the same sync check, and
              its time.
-10. summary — the wall seconds, one {"kernels": [...]} line, the card line, and
+10. stage_b — Stage B, the adapter training that gives the worst-group
+             accuracy (no kernel of the port runs there: the JAX package's
+             Stage B is XLA only): the flagship configuration of
+             scripts/run_final_main.sh (adapter_reg_seq_alter --add_adapter
+             --warm_reg, bs 1024, bsr 256, lr 1.0, lrr 1.0, decay 0.1) on an
+             RN50-width (D=1024) synthetic cache from SEED with the Waterbirds
+             split sizes (4,795 / 1,199 / 5,794), epochs cut to 6 with the
+             phase switch after 3; train_all_epochs on the card with the
+             counts set to 0 (all stay 0), then on the CPU from the same
+             initial state: parameters after epoch 1 within 1e-4 of scale,
+             every per-epoch accuracy within 5e-3, the selected test
+             worst-group accuracy within 1e-2.  Then one train_epoch at
+             CelebA scale (162,770 x 1024 rows on the card, batch 128, 1,272
+             steps; the plan's upload included) under
+             torch.cuda.set_sync_debug_mode("error"): ms, rows/s, launches
+             per step (profiler), and one eval_epoch over 19,867 rows; then
+             cli/train_main.py --device cuda on the flagship caches written to
+             a temporary directory.
+11. summary — the wall seconds, one {"kernels": [...]} line, the card line, and
              {"ok": true, "device": {...}} as the last line.
 """
 
 import argparse
 import contextlib
+import copy
 import json
 import os
 import re
@@ -489,7 +512,8 @@ def phase_kernels():
         results["short_attention"].append(_attention_case(
             sa.short_attention, sa.short_attention_reference, *case[:8], gen, case[8]))
     for case in [("vitl14_336_f32", 8, 577, 1024, 16, False, f32, 1e-5, True),
-                 ("vitl14_448_bf16", 4, 1025, 1024, 16, False, bf16, 2e-2, False),
+                 # bf16 kernel 2, on no main path, timed for the record
+                 ("vitl14_448_bf16", 4, 1025, 1024, 16, False, bf16, 2e-2, True),
                  ("ragged_causal_f32", 3, 1111, 256, 4, True, f32, 1e-5, False),
                  ("gate_largest_hd32_f32", 2, 1720, 256, 8, False, f32, 1e-5, False),
                  ("gate_largest_hd128_f32", 2, 1432, 512, 4, True, f32, 1e-5, False),
@@ -1183,24 +1207,42 @@ def phase_rn50_blocks(model):
             cases[kname].append(row)
         del plain, model_out
 
-    # f32 on one block (l2b1 at 8 images): both kernels against the plain version
+    # f32 on one block (l2b1 at 8 images): both kernels against the plain
+    # version and the model's block run in f32 (on no main path; timed for
+    # the record, TF32 off as the f32 convolutions always run)
     entry = blocks["l2b1"]
     x = entry["x_nhwc"][:8].float()
     w = [t.float() for t in entry["weights"][:6]]
     strip = cg.pick_strip_rows(x.shape[1], x.shape[2], w[0].shape[1], 4)
+    block32 = copy.deepcopy(entry["block"])
+    block32.dtype = torch.float32
+    x_nchw = entry["x"][:8].float()
+    fast = dict(runs=10, calls=5, warmup=2)
     with torch.inference_mode():
         plain = cg.xla_bottleneck(x, *w)
-        for kname, out in (("fused_bottleneck_gemm", cg.fused_bottleneck_gemm(
-                                x, *w, strip_rows=strip)),
-                           ("fused_bottleneck", fb.fused_bottleneck(x, *w))):
+        model32 = block32(x_nchw).permute(0, 2, 3, 1)
+        timings = {"plain_ms": time_ms(lambda: cg.xla_bottleneck(x, *w), **fast),
+                   "model_block_ms": time_ms(lambda: block32(x_nchw), **fast)}
+        for kname, run in (("fused_bottleneck_gemm",
+                            lambda: cg.fused_bottleneck_gemm(x, *w, strip_rows=strip)),
+                           ("fused_bottleneck", lambda: fb.fused_bottleneck(x, *w))):
+            out = run()
             err, scale, cos = _block_close(out, plain)
+            _, _, cos_model = _block_close(out, model32)
+            b, h, _, cin = x.shape
             row = {"case": "l2b1_f32", "shape": list(x.shape) + [w[0].shape[1], w[4].shape[1]],
                    "downsample": False, "dtype": "torch.float32", "strip_rows": strip,
-                   "max_abs_err": err, "scale": scale, "cosine": cos}
-            if not err <= 1e-4 * scale:
+                   "max_abs_err": err, "scale": scale, "cosine": cos,
+                   "cosine_vs_model_block": cos_model, "ms": time_ms(run, **fast),
+                   **timings, "library_ms": None,
+                   "library_call": "none: no single call computes the block"}
+            row["bound_ms"], row["bound_by"] = _bottleneck_bound_ms(
+                b, h, cin, w[0].shape[1], w[4].shape[1], False, 4)
+            if not (err <= 1e-4 * scale and cos_model >= 0.999):
                 bad.append(f"{kname} l2b1_f32")
             emit({"phase": "rn50_blocks", "kernel": kname, **row})
             cases[kname].append(row)
+    del block32
     if bad:
         raise AssertionError(f"bottleneck kernels disagree: {bad}")
     return {"rn50_blocks": launches}, cases
@@ -1570,6 +1612,278 @@ def phase_train(f32_only=False):
     return launches
 
 
+# Stage B (the second half of the main path): the flagship configuration of
+# scripts/run_final_main.sh on an RN50-width synthetic cache with the
+# Waterbirds split sizes, epochs cut to 6 across the phase boundary.
+STAGE_B_SPEC = dict(dim=1024, n_train=4795, n_val=1199, n_test=5794)
+STAGE_B_FLAGS = dict(tl_method="adapter_reg_seq_alter", add_adapter=True, warm_reg=True,
+                     batch_size=1024, batch_size_reg=256, learning_rate=1.0,
+                     learning_rate_reg=1.0, lr_decay_rate=0.1, lr_decay_epochs=(90, 95),
+                     epochs=6, epochs_feature_learning=3, input_dim=1024, random_seed=42)
+CELEBA_TRAIN_ROWS, CELEBA_VAL_ROWS = 162770, 19867
+
+
+def _stage_b_bundle(data, device):
+    import numpy as np
+
+    from debiasing_multi_modal_tpu_torch.train.loop import bundle_from_embedding_table
+
+    meta, table, text_class, text_group, text_spurious = data
+    splits = {name: meta.take(np.where(meta.split == sid)[0])
+              for name, sid in (("train", 0), ("val", 1), ("test", 2))}
+    return bundle_from_embedding_table(table, splits, text_class, text_spurious, text_group,
+                                       device=device)
+
+
+def _stage_b_init(cfg):
+    """The initial state both runs start from: the phase-1 adapter and the
+    stage switch's new adapter, drawn from one seeded generator in the
+    reference's state-dict layout (the draws train_all_epochs makes itself)."""
+    import torch
+
+    from debiasing_multi_modal_tpu_torch.train.loop import (
+        make_classifier,
+        make_multiple_classifier,
+    )
+
+    gen = torch.Generator().manual_seed(cfg.random_seed)
+    init_sd = make_classifier(cfg, gen).state_dict()
+    new = make_multiple_classifier(cfg, gen).new_adapter.state_dict()
+    return {"init_sd": init_sd, "ma_new_sd": {f"new_adapter.{k}": v for k, v in new.items()}}
+
+
+def _epoch_one_state(cfg, bundle, init, device):
+    """The classifier after the flagship run's first epoch (phase 1, class
+    prompts), from ``init`` and the run's first plan."""
+    import numpy as np
+    import torch
+
+    from debiasing_multi_modal_tpu_torch.data.samplers import epoch_plan
+    from debiasing_multi_modal_tpu_torch.train import steps
+    from debiasing_multi_modal_tpu_torch.train.loop import make_classifier
+    from debiasing_multi_modal_tpu_torch.train.schedules import epoch_batch_lrs
+    from debiasing_multi_modal_tpu_torch.utils.staging import upload
+
+    module = make_classifier(cfg, torch.Generator())  # weights from init
+    module.load_state_dict(init["init_sd"])
+    state = steps.init_train_state(module.to(device))
+    plan = epoch_plan(len(bundle.train), cfg.batch_size, True,
+                      np.random.default_rng(cfg.random_seed))
+
+    def put(a):
+        return upload(a, torch.device(device))
+
+    steps.train_epoch(state, bundle.train.emb, put(bundle.train.labels("class")),
+                      put(bundle.train.group), put(plan.indices), put(plan.mask),
+                      epoch_batch_lrs(cfg, 1, plan.num_batches, 1), put(bundle.text_class),
+                      steps.ones_mask(state.params), n_groups=bundle.n_groups,
+                      momentum=cfg.momentum, weight_decay=cfg.weight_decay)
+    return {k: v.cpu() for k, v in module.state_dict().items()}
+
+
+def _write_stage_b_caches(data, root):
+    """The flagship cache on disk as Stage A writes it: metadata.csv in the
+    Waterbirds layout, clip.npz, clip_{class,spurious,group}.json."""
+    from debiasing_multi_modal_tpu_torch.data.embeddings_store import (
+        save_embeddings,
+        save_text_embeddings,
+    )
+
+    meta, table, text_class, text_group, text_spurious = data
+    rows = ["img_id,img_filename,y,split,place"] + [
+        f"{i},{fn},{y},{s},{p}" for i, (fn, y, s, p) in
+        enumerate(zip(meta.filenames, meta.y, meta.split, meta.place))]
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, "metadata.csv"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+    save_embeddings(os.path.join(root, "RN50", "clip.npz"), table, fmt="npz")
+    for kind, text in (("class", text_class), ("spurious", text_spurious),
+                       ("group", text_group)):
+        save_text_embeddings(os.path.join(root, f"clip_{kind}.json"),
+                             [f"{kind} prompt {c}" for c in range(text.shape[1])], text.T)
+
+
+def _stage_b_cli(data, cfg, card_best_test):
+    """cli/train_main.py --device cuda once on the flagship caches."""
+    import io
+    import tempfile
+
+    from debiasing_multi_modal_tpu_torch.cli import train_main
+
+    with tempfile.TemporaryDirectory() as tmp:
+        _write_stage_b_caches(data, tmp)
+        args = train_main.build_parser().parse_args([
+            "--dataset", "waterbirds", "--data_dir", tmp,
+            "--image_embedding_dir", os.path.join(tmp, "RN50", "clip.npz"),
+            "--text_embedding_dir", os.path.join(tmp, "clip_class.json"),
+            "--text_spurious_embedding_dir", os.path.join(tmp, "clip_spurious.json"),
+            "--text_group_embedding_dir", os.path.join(tmp, "clip_group.json"),
+            "--tl_method", cfg.tl_method, "--add_adapter", "--warm_reg",
+            "--epochs", str(cfg.epochs),
+            "--epochs_feature_learning", str(cfg.epochs_feature_learning),
+            "--batch_size", str(cfg.batch_size), "--batch_size_reg", str(cfg.batch_size_reg),
+            "--learning_rate", str(cfg.learning_rate),
+            "--learning_rate_reg", str(cfg.learning_rate_reg),
+            "--lr_decay_rate", str(cfg.lr_decay_rate), "--lr_decay_epochs", "90,95",
+            "--random_seed", str(cfg.random_seed), "--save_results",
+            "--results_dir", os.path.join(tmp, "results"), "--device", "cuda"])
+        out = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = train_main.main(args)
+        seconds = time.perf_counter() - t
+        results = sorted(os.listdir(os.path.join(tmp, "results")))
+    lines = out.getvalue().splitlines()
+    best_test = next(line for line in lines if line.startswith("best test:"))
+    worst = float(re.search(r"'worst_acc': ([0-9.]+)", best_test).group(1))
+    return {"rc": rc, "seconds": seconds, "results_files": results, "best_test_line": best_test,
+            "worst_gap_vs_library_run": abs(worst - card_best_test["worst_acc"])}
+
+
+def _celeba_epoch(cfg_flags):
+    """One train_epoch and one eval_epoch at CelebA scale on the card: the
+    timed epoch (plan upload included) under the sync check, launches per
+    step from the profiler over 32 steps."""
+    import numpy as np
+    import torch
+
+    from debiasing_multi_modal_tpu_torch.data.samplers import epoch_plan
+    from debiasing_multi_modal_tpu_torch.train import steps
+    from debiasing_multi_modal_tpu_torch.train.config import TrainConfig
+    from debiasing_multi_modal_tpu_torch.train.loop import make_classifier
+    from debiasing_multi_modal_tpu_torch.train.schedules import epoch_batch_lrs
+    from debiasing_multi_modal_tpu_torch.utils.profiling import kernel_breakdown
+    from debiasing_multi_modal_tpu_torch.utils.staging import upload
+
+    n, d, bs = CELEBA_TRAIN_ROWS, cfg_flags["input_dim"], 128
+    cfg = TrainConfig(tl_method="adapter", dataset="celeba", input_dim=d, batch_size=bs)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    emb = torch.randn(n, d, device="cuda", generator=gen)
+    y = torch.randint(0, 2, (n,), device="cuda", generator=gen, dtype=torch.int32)
+    groups = y * 2 + torch.randint(0, 2, (n,), device="cuda", generator=gen, dtype=torch.int32)
+    text = torch.randn(d, 2, device="cuda", generator=gen)
+    state = steps.init_train_state(
+        make_classifier(cfg, torch.Generator().manual_seed(SEED)).cuda())
+    mask_tree = steps.ones_mask(state.params)
+    plan = epoch_plan(n, bs, True, np.random.default_rng(SEED))
+    lrs = epoch_batch_lrs(cfg, 1, plan.num_batches, 1)
+
+    def epoch(rows=None):
+        idx, msk = plan.indices[:rows], plan.mask[:rows]
+        return steps.train_epoch(state, emb, y, groups, upload(idx, emb.device),
+                                 upload(msk, emb.device), lrs[:rows], text, mask_tree)[1]
+
+    epoch(16)  # warm-up: cuBLAS handles, allocator
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t = time.perf_counter()
+    start.record()
+    with no_host_sync():
+        stats = epoch()
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t) * 1e3
+    device_ms = start.elapsed_time(end)
+    profile = kernel_breakdown(lambda: epoch(32), reps=2, top=8)
+
+    val = emb[:CELEBA_VAL_ROWS]
+    eplan = epoch_plan(CELEBA_VAL_ROWS, bs, False)
+    eidx, emsk = upload(eplan.indices, emb.device), upload(eplan.mask, emb.device)
+
+    def evaluate():
+        return steps.eval_epoch(state.module, val, y, groups, eidx, emsk, text)
+
+    evaluate()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with no_host_sync():
+        evaluate()
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t) * 1e3
+    eval_profile = kernel_breakdown(evaluate, reps=2, top=4)
+    finite = all(torch.isfinite(p).all().item() for p in state.params.values())
+    return {"rows": n, "dim": d, "batch_size": bs, "steps": plan.num_batches,
+            "table_mb": emb.numel() * 4 / 1e6, "epoch_ms_host_clock": host_ms,
+            "epoch_ms_device_events": device_ms, "rows_per_s": n / host_ms * 1e3,
+            "step_ms": host_ms / plan.num_batches,
+            "launches_per_step": profile["kernel_launches_per_call"] / 32,
+            "idle_share_32_steps": profile["idle_share"],
+            "device_busy_ms_per_step": profile["device_busy_ms_per_call"] / 32,
+            "top_kernels_32_steps": profile["top_kernels_ms_per_call"],
+            "eval_rows": CELEBA_VAL_ROWS, "eval_ms_host_clock": eval_ms,
+            "eval_launches_per_step": eval_profile["kernel_launches_per_call"]
+            / eplan.num_batches,
+            "counts_exact": stats.counts.sum().item() == n, "params_finite": finite}
+
+
+def phase_stage_b():
+    """Stage B on the card (see the module docstring); returns the launch
+    counts of its main path (no kernel of the port runs there)."""
+    import numpy as np
+    import torch
+
+    from debiasing_multi_modal_tpu_torch.data.synthetic import (
+        SyntheticSpec,
+        make_synthetic_dataset,
+    )
+    from debiasing_multi_modal_tpu_torch.train.config import TrainConfig
+    from debiasing_multi_modal_tpu_torch.train.loop import train_all_epochs
+
+    cfg = TrainConfig(**STAGE_B_FLAGS)
+    data = make_synthetic_dataset(SyntheticSpec(**STAGE_B_SPEC, seed=SEED))
+    bundles = {dev: _stage_b_bundle(data, dev) for dev in ("cuda", "cpu")}
+    init = _stage_b_init(cfg)
+
+    # ---- the main path, with every launch count at 0 just before it
+    _zero_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    card = train_all_epochs(cfg, bundles["cuda"], verbose=False, init=init, device="cuda")
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t
+    launches = _read_counts()
+    # ----
+    _expect_counts("stage_b", launches, {})
+    t = time.perf_counter()
+    cpu = train_all_epochs(cfg, bundles["cpu"], verbose=False, init=init, device="cpu")
+    cpu_s = time.perf_counter() - t
+
+    ep1 = {dev: _epoch_one_state(cfg, bundles[dev], init, dev) for dev in ("cuda", "cpu")}
+    param_gap = max(((ep1["cuda"][k] - ep1["cpu"][k]).abs().max()
+                     / ep1["cpu"][k].abs().max()).item()
+                    for k in ep1["cpu"] if ep1["cpu"][k].is_floating_point())
+    acc_gap = max(abs(a[key] - b[key])
+                  for split in ("train", "val", "test")
+                  for a, b in zip(card[2][split], cpu[2][split]) for key in a)
+    worst_gap = abs(card[0][2]["worst_acc"] - cpu[0][2]["worst_acc"])
+    finite = all(np.isfinite(v) for split in card[2].values() for row in split
+                 for v in row.values())
+    checks = {"epoch1_params_max_rel_gap": param_gap, "per_epoch_acc_max_gap": acc_gap,
+              "selected_test_worst_acc_gap": worst_gap,
+              "card_best_test": card[0][2], "cpu_best_test": cpu[0][2],
+              "card_zero_shot": card[1], "history_finite": finite,
+              "epochs": len(card[2]["test"])}
+    emit({"phase": "stage_b", "config": {**STAGE_B_FLAGS, "lr_decay_epochs": [90, 95]},
+          "data": {**STAGE_B_SPEC, "seed": SEED}, "launches": launches,
+          "perf": {"card_run_s": card_s, "cpu_run_s": cpu_s}, "checks": checks})
+    if not (finite and checks["epochs"] == cfg.epochs and param_gap <= 1e-4
+            and acc_gap <= 5e-3 and worst_gap <= 1e-2):
+        raise AssertionError(f"Stage B on the card disagrees with the CPU: {checks}")
+    del bundles
+
+    celeba = _celeba_epoch(STAGE_B_FLAGS)
+    emit({"phase": "stage_b", "celeba_scale_epoch": celeba})
+    if not (celeba["counts_exact"] and celeba["params_finite"]):
+        raise AssertionError(f"CelebA-scale epoch: {celeba}")
+
+    cli = _stage_b_cli(data, cfg, card[0][2])
+    emit({"phase": "stage_b", "cli": cli})
+    if not (cli["rc"] == 0 and len(cli["results_files"]) == 2
+            and cli["worst_gap_vs_library_run"] <= 1e-2):
+        raise AssertionError(f"train_main on the card: {cli}")
+    return {"stage_b": launches}
+
+
 F32_DESIGN = ("f32 on the CUDA cores from register tiles (attention_f32.cuh: 16x16 threads, "
               "4x8 logits and 4x4 outputs a thread at 64 query rows, 16-byte cp.async into "
               "swizzled shared memory, warp-per-row exact softmax)")
@@ -1635,12 +1949,13 @@ def _kernel_line(name, source, replaces, cases, launches_by_path, card, design=N
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", choices=["flash_f32", "rn50_blocks"],
+    parser.add_argument("--only", choices=["flash_f32", "rn50_blocks", "stage_b"],
                         help="flash_f32: build, then only the timed f32 cases of kernels 4-6 "
                              "and the f32 128-pair training step; rn50_blocks: build, fold "
                              "the seeded RN50, then only the rn50_blocks phase (kernels 8-9); "
-                             "either times another tree's kernels with this script (prints "
-                             "no final line)")
+                             "either times another tree's kernels with this script; "
+                             "stage_b: only the stage_b phase (no kernel to build); none "
+                             "prints the final line")
     args = parser.parse_args(argv)
     t0 = time.perf_counter()
     info = phase_device()
@@ -1650,6 +1965,10 @@ def main(argv=None):
         phase_build(check=False)
         _flash_cases(torch.Generator(device="cuda").manual_seed(SEED), f32_only=True)
         phase_train(f32_only=True)
+        emit({"phase": "summary", "only": args.only, "seconds": time.perf_counter() - t0})
+        return 0
+    if args.only == "stage_b":
+        phase_stage_b()
         emit({"phase": "summary", "only": args.only, "seconds": time.perf_counter() - t0})
         return 0
     if args.only == "rn50_blocks":
@@ -1673,6 +1992,7 @@ def main(argv=None):
     launches.update(phase_vit())
     launches.update(phase_qtiled())
     launches.update(phase_train())
+    launches.update(phase_stage_b())
     emit({"phase": "summary", "seconds": time.perf_counter() - t0})
     card = info["nvidia_smi"]
     emit({"kernels": [

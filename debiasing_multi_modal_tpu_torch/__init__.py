@@ -10,7 +10,9 @@ which the wrapper takes only for tensors on the CPU.
 
 Ported so far: Stage A extraction with the ResNet and ViT CLIP towers
 (``models/``, ``ops/``, ``weights/convert.py``, ``extract/``,
-``cli/extract_main.py``), with ``fuse_qkv`` and the int8 ``quant`` modes.
+``cli/extract_main.py``), with ``fuse_qkv`` and the int8 ``quant`` modes;
+Stage B adapter training (``models/adapter.py``, ``train/``,
+``cli/train_main.py``) for every method but ``contrastive_adapter``.
 Public entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 
 Importing the package loads no kernel library and imports no Triton.

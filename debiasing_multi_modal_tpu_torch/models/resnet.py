@@ -10,7 +10,8 @@ the mean token prepended as the single query, separate q/k/v projections and
 The public input is NHWC like the JAX tower's; inside, activations are NCHW
 tensors in channels-last memory.  Convolutions are ``F.conv2d`` (the JAX
 package leaves them to XLA, outside any kernel), computed in ``dtype`` with
-the f32 weights cast at use; BatchNorms apply their running statistics in f32
+the f32 weights cast at use, and in f32 never as TF32
+(``utils/platform.full_f32``); BatchNorms apply their running statistics in f32
 (:class:`InferenceBatchNorm`).  With ``fuse_bn`` (weights from
 ``weights/fold.py``) every conv carries a bias and no BatchNorm exists: the
 conv output is rounded to ``dtype`` and the bias added in ``dtype``, as
@@ -20,6 +21,7 @@ plain attention formulation (``impl="xla"``), as the JAX tower pins.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Tuple
 
 import torch
@@ -28,11 +30,15 @@ from torch import nn
 
 from debiasing_multi_modal_tpu_torch.models.layers import InferenceBatchNorm, linear
 from debiasing_multi_modal_tpu_torch.ops.attention import dot_product_attention
+from debiasing_multi_modal_tpu_torch.utils.platform import full_f32
 
 
 def _conv(x: torch.Tensor, layer: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
-    y = F.conv2d(x.to(dtype), layer.weight.to(dtype), None, layer.stride,
-                 layer.padding)
+    # an f32 tower convolves in full f32, as the JAX reference does, even
+    # where cuDNN's process-wide TF32 switch is on (PyTorch's default)
+    with full_f32() if dtype == torch.float32 else contextlib.nullcontext():
+        y = F.conv2d(x.to(dtype), layer.weight.to(dtype), None, layer.stride,
+                     layer.padding)
     if layer.bias is not None:  # folded BatchNorm: added in dtype, as flax
         y = y + layer.bias.to(dtype)[:, None, None]
     return y

@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from debiasing_multi_modal_tpu_torch.ops import cuda_build
+from debiasing_multi_modal_tpu_torch.utils.platform import full_f32
 
 # A Hopper block may use 232,448 bytes of shared memory (227 KB).
 SMEM_LIMIT_BYTES = 232448
@@ -107,11 +108,14 @@ def xla_bottleneck(x: torch.Tensor, w1, b1, w2, b2, w3, b3, wd=None, bd=None) ->
     of ``x.dtype`` operands accumulates in f32 (``F.conv2d`` on the values
     widened to f32, which are exact), and y1, y2, y3 and the downsample
     output are each cast to ``x.dtype`` after their bias; the residual add
-    and the final ReLU run in ``x.dtype``.  NHWC in, NHWC out."""
+    and the final ReLU run in ``x.dtype``.  The f32 convolutions run in full
+    f32, never as TF32, whatever cuDNN's process-wide switch says.  NHWC in,
+    NHWC out."""
     dt = x.dtype
 
     def conv(h, kernel_oihw, padding):
-        return F.conv2d(h.float(), kernel_oihw.to(dt).float(), padding=padding)
+        with full_f32():
+            return F.conv2d(h.float(), kernel_oihw.to(dt).float(), padding=padding)
 
     def bias(b):
         return b.float()[:, None, None]

@@ -19,6 +19,10 @@ and carries the JAX package's weights across
 - a folded tree (JAX ``fold_resnet_bn``, no visual ``batch_stats``) -> conv
   ``weight`` and ``bias``, no BatchNorm keys
 
+and the Stage-B classifiers both ways
+(:func:`classifier_state_dict_from_jax_variables` and its inverse), in the
+reference's adapter key layout.
+
 Every array comes out as f32 numpy.
 """
 
@@ -246,3 +250,67 @@ def state_dict_from_jax_variables(variables: Mapping[str, Any]) -> Dict[str, np.
     _transformer(out, "transformer", text["transformer"])
     out["logit_scale"] = _f32(params["logit_scale"])
     return out
+
+
+# ---------------------------------------- Stage-B classifiers <-> JAX trees --
+
+
+def _adapter_mlp_to_sd(params, stats, prefix: str, out: Dict[str, np.ndarray]) -> None:
+    """A JAX ``AdapterMLP`` (``fc1`` / ``bn`` / ``fc2``) -> the reference
+    ``Adapter`` keys (``layers.0`` Linear, ``layers.1`` BatchNorm1d,
+    ``layers.3`` Linear; final_main.py:160-174), as the JAX package's
+    ``adapter_variables_to_torch`` lays them out."""
+    _dense(out, f"{prefix}layers.0", params["fc1"])
+    _bn(out, f"{prefix}layers.1", params["bn"], stats["bn"])
+    _dense(out, f"{prefix}layers.3", params["fc2"])
+
+
+def _adapter_mlp_from_sd(sd: Mapping[str, Any], prefix: str):
+    def dense(p):
+        return {"kernel": _f32(sd[f"{p}.weight"]).T, "bias": _f32(sd[f"{p}.bias"])}
+
+    bn = f"{prefix}layers.1"
+    params = {"fc1": dense(f"{prefix}layers.0"),
+              "bn": {"scale": _f32(sd[f"{bn}.weight"]), "bias": _f32(sd[f"{bn}.bias"])},
+              "fc2": dense(f"{prefix}layers.3")}
+    stats = {"bn": {"mean": _f32(sd[f"{bn}.running_mean"]),
+                    "var": _f32(sd[f"{bn}.running_var"])}}
+    return params, stats
+
+
+def classifier_state_dict_from_jax_variables(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """A JAX Stage-B classifier's ``{'params', 'batch_stats'}`` (arrays of
+    any array type) -> the port's module state dict, in the reference's key
+    layout: ``adapter.layers.*`` (``AdapterClassifier``),
+    ``old_cls.adapter.layers.*`` + ``new_adapter.layers.*``
+    (``MultipleAdapterClassifier``), or ``fc.*`` with the kernel transposed
+    (``LinearClassifier``)."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    out: Dict[str, np.ndarray] = {}
+    if "fc" in params:
+        _dense(out, "fc", params["fc"])
+    elif "old" in params:
+        _adapter_mlp_to_sd(params["old"], stats["old"], "old_cls.adapter.", out)
+        _adapter_mlp_to_sd(params["new"], stats["new"], "new_adapter.", out)
+    else:
+        _adapter_mlp_to_sd(params["adapter"], stats["adapter"], "adapter.", out)
+    return out
+
+
+def jax_variables_from_classifier_state_dict(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """The inverse of :func:`classifier_state_dict_from_jax_variables`: a
+    port classifier's state dict (tensors or arrays) -> the JAX package's
+    ``{'params', 'batch_stats'}`` numpy tree."""
+    sd = {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v
+          for k, v in sd.items()}
+    if "fc.weight" in sd:
+        return {"params": {"fc": {"kernel": _f32(sd["fc.weight"]).T,
+                                  "bias": _f32(sd["fc.bias"])}}}
+    if any(k.startswith("old_cls.") for k in sd):
+        old_p, old_s = _adapter_mlp_from_sd(sd, "old_cls.adapter.")
+        new_p, new_s = _adapter_mlp_from_sd(sd, "new_adapter.")
+        return {"params": {"old": old_p, "new": new_p},
+                "batch_stats": {"old": old_s, "new": new_s}}
+    p, s = _adapter_mlp_from_sd(sd, "adapter.")
+    return {"params": {"adapter": p}, "batch_stats": {"adapter": s}}

@@ -3,9 +3,11 @@ imported by tests/conftest.py), importing debiasing_multi_modal_tpu_torch and
 running tiny CPU extractions — a ResNet, unfused and folded (``fuse_bn``,
 with the bottleneck kernels' wrappers on one of its blocks), and a ViT
 plain, with ``fuse_qkv`` (the packed attention path) and with both int8
-modes — and a contrastive
-gradient step through a ViT CLIP on the flash path with ``remat`` imports
-neither ``jax`` nor anything of ``debiasing_multi_modal_tpu``; importing the
+modes — a contrastive
+gradient step through a ViT CLIP on the flash path with ``remat``, and a
+two-epoch Stage-B ``train_all_epochs`` across the phase boundary with the
+second adapter imports neither ``jax`` nor anything of
+``debiasing_multi_modal_tpu``; importing the
 package alone imports no Triton and loads no kernel library."""
 
 import json
@@ -79,6 +81,21 @@ assert all(p.grad is not None for p in train.parameters())
 assert flash_attention.launches == 0
 assert int8_matmul(torch.zeros(4, 64, dtype=torch.int8), torch.zeros(64, 128, dtype=torch.int8),
                    torch.ones(4, 1), torch.ones(128)).shape == (4, 128)
+
+from debiasing_multi_modal_tpu_torch.data.synthetic import SyntheticSpec, make_synthetic_dataset
+from debiasing_multi_modal_tpu_torch.train.config import TrainConfig
+from debiasing_multi_modal_tpu_torch.train.loop import bundle_from_embedding_table, train_all_epochs
+meta, emb_table, text_class, text_group, text_spurious = make_synthetic_dataset(
+    SyntheticSpec(dim=16, n_train=64, n_val=32, n_test=32))
+bundle = bundle_from_embedding_table(
+    emb_table, {name: meta.take(np.where(meta.split == sid)[0])
+                for name, sid in (("train", 0), ("val", 1), ("test", 2))},
+    text_class, text_spurious, text_group, device="cpu")
+cfg = TrainConfig(tl_method="adapter_reg_seq_alter", epochs=2, epochs_feature_learning=1,
+                  add_adapter=True, input_dim=16, adapter_feat_dim=8, batch_size=32,
+                  batch_size_reg=8)
+_, _, history = train_all_epochs(cfg, bundle, verbose=False, device="cpu")
+assert len(history["test"]) == 2
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "flax"))
              or m == "debiasing_multi_modal_tpu"
