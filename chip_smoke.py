@@ -121,9 +121,12 @@ line.
              split sizes (4,795 / 1,199 / 5,794), epochs cut to 6 with the
              phase switch after 3; train_all_epochs on the card with the
              counts set to 0 (all stay 0), then on the CPU from the same
-             initial state: parameters after epoch 1 within 1e-4 of scale,
-             every per-epoch accuracy within 5e-3, the selected test
-             worst-group accuracy within 1e-2.  Then one train_epoch at
+             initial state, each run checkpointing every epoch to a
+             temporary directory: the ep00001 checkpoint (parameters, BatchNorm
+             statistics, trace) within 1e-4 of each tensor's scale, the final
+             one (the frozen old_cls branch's drifting statistics included)
+             within FINAL_STATE_LIMIT, every per-epoch accuracy within 5e-3,
+             the selected test worst-group accuracy within 1e-2.  Then one train_epoch at
              CelebA scale (162,770 x 1024 rows on the card, batch 128, 1,272
              steps; the plan's upload included) under
              torch.cuda.set_sync_debug_mode("error"): ms, rows/s, launches
@@ -143,6 +146,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense), for bound_ms.
@@ -1621,6 +1625,10 @@ STAGE_B_FLAGS = dict(tl_method="adapter_reg_seq_alter", add_adapter=True, warm_r
                      learning_rate_reg=1.0, lr_decay_rate=0.1, lr_decay_epochs=(90, 95),
                      epochs=6, epochs_feature_learning=3, input_dim=1024, random_seed=42)
 CELEBA_TRAIN_ROWS, CELEBA_VAL_ROWS = 162770, 19867
+# card against CPU, final checkpoint: six epochs at lr 1.0 grow f32 rounding
+# (a 1-ulp change of the initial weights leaves ~7e-5 of scale on the CPU),
+# while the old_cls branch's BatchNorm held still in phase 2 leaves ~1.1
+FINAL_STATE_LIMIT = 1e-2
 
 
 def _stage_b_bundle(data, device):
@@ -1652,33 +1660,22 @@ def _stage_b_init(cfg):
     return {"init_sd": init_sd, "ma_new_sd": {f"new_adapter.{k}": v for k, v in new.items()}}
 
 
-def _epoch_one_state(cfg, bundle, init, device):
-    """The classifier after the flagship run's first epoch (phase 1, class
-    prompts), from ``init`` and the run's first plan."""
-    import numpy as np
-    import torch
-
-    from debiasing_multi_modal_tpu_torch.data.samplers import epoch_plan
-    from debiasing_multi_modal_tpu_torch.train import steps
-    from debiasing_multi_modal_tpu_torch.train.loop import make_classifier
-    from debiasing_multi_modal_tpu_torch.train.schedules import epoch_batch_lrs
-    from debiasing_multi_modal_tpu_torch.utils.staging import upload
-
-    module = make_classifier(cfg, torch.Generator())  # weights from init
-    module.load_state_dict(init["init_sd"])
-    state = steps.init_train_state(module.to(device))
-    plan = epoch_plan(len(bundle.train), cfg.batch_size, True,
-                      np.random.default_rng(cfg.random_seed))
-
-    def put(a):
-        return upload(a, torch.device(device))
-
-    steps.train_epoch(state, bundle.train.emb, put(bundle.train.labels("class")),
-                      put(bundle.train.group), put(plan.indices), put(plan.mask),
-                      epoch_batch_lrs(cfg, 1, plan.num_batches, 1), put(bundle.text_class),
-                      steps.ones_mask(state.params), n_groups=bundle.n_groups,
-                      momentum=cfg.momentum, weight_decay=cfg.weight_decay)
-    return {k: v.cpu() for k, v in module.state_dict().items()}
+def _payload_gaps(ours, ref, path=""):
+    """``{key path: max |ours - ref| / scale}`` over the floating tensors of
+    two checkpoint payloads (nested dicts of tensors), the scale being
+    ``max |ref|``.  fc1's bias (``layers.0.bias``) feeds a BatchNorm, so its
+    gradient is zero but for rounding: it and its trace are held to the
+    scale of fc1's weight, as the CPU parity tests hold them.  A tensor
+    whose scale is 0 (a frozen branch's trace) keeps the absolute gap."""
+    assert set(ours) == set(ref), (path, sorted(ours), sorted(ref))
+    gaps = {}
+    for k, r in ref.items():
+        if isinstance(r, dict):
+            gaps.update(_payload_gaps(ours[k], r, f"{path}/{k}"))
+        elif r.is_floating_point():
+            scale = ref[k.replace("layers.0.bias", "layers.0.weight")].abs().max().item()
+            gaps[f"{path}/{k}"] = (ours[k] - r).abs().max().item() / (scale or 1.0)
+    return gaps
 
 
 def _write_stage_b_caches(data, root):
@@ -1706,7 +1703,6 @@ def _write_stage_b_caches(data, root):
 def _stage_b_cli(data, cfg, card_best_test):
     """cli/train_main.py --device cuda once on the flagship caches."""
     import io
-    import tempfile
 
     from debiasing_multi_modal_tpu_torch.cli import train_main
 
@@ -1826,6 +1822,7 @@ def phase_stage_b():
         SyntheticSpec,
         make_synthetic_dataset,
     )
+    from debiasing_multi_modal_tpu_torch.train.checkpoint import load_checkpoint
     from debiasing_multi_modal_tpu_torch.train.config import TrainConfig
     from debiasing_multi_modal_tpu_torch.train.loop import train_all_epochs
 
@@ -1834,31 +1831,45 @@ def phase_stage_b():
     bundles = {dev: _stage_b_bundle(data, dev) for dev in ("cuda", "cpu")}
     init = _stage_b_init(cfg)
 
-    # ---- the main path, with every launch count at 0 just before it
-    _zero_counts()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    card = train_all_epochs(cfg, bundles["cuda"], verbose=False, init=init, device="cuda")
-    torch.cuda.synchronize()
-    card_s = time.perf_counter() - t
-    launches = _read_counts()
-    # ----
-    _expect_counts("stage_b", launches, {})
-    t = time.perf_counter()
-    cpu = train_all_epochs(cfg, bundles["cpu"], verbose=False, init=init, device="cpu")
-    cpu_s = time.perf_counter() - t
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = {dev: os.path.join(tmp, dev) for dev in ("cuda", "cpu")}
+        kw = dict(verbose=False, init=init, checkpoint_every=1, checkpoint_keep=cfg.epochs)
 
-    ep1 = {dev: _epoch_one_state(cfg, bundles[dev], init, dev) for dev in ("cuda", "cpu")}
-    param_gap = max(((ep1["cuda"][k] - ep1["cpu"][k]).abs().max()
-                     / ep1["cpu"][k].abs().max()).item()
-                    for k in ep1["cpu"] if ep1["cpu"][k].is_floating_point())
+        # ---- the main path, with every launch count at 0 just before it
+        _zero_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        card = train_all_epochs(cfg, bundles["cuda"], checkpoint_dir=ckpt["cuda"], device="cuda",
+                                **kw)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t
+        launches = _read_counts()
+        # ----
+        _expect_counts("stage_b", launches, {})
+        t = time.perf_counter()
+        cpu = train_all_epochs(cfg, bundles["cpu"], checkpoint_dir=ckpt["cpu"], device="cpu", **kw)
+        cpu_s = time.perf_counter() - t
+
+        gaps = {}
+        for epoch in (1, cfg.epochs):
+            saved = {dev: load_checkpoint(os.path.join(ckpt[dev], f"ep{epoch:05d}"))
+                     for dev in ckpt}
+            assert saved["cuda"][0] == saved["cpu"][0] == epoch
+            gaps[epoch] = _payload_gaps(saved["cuda"][1], saved["cpu"][1])
+    param_gap = max(gaps[1].values())
+    final_gap = max(gaps[cfg.epochs].values())
     acc_gap = max(abs(a[key] - b[key])
                   for split in ("train", "val", "test")
                   for a, b in zip(card[2][split], cpu[2][split]) for key in a)
     worst_gap = abs(card[0][2]["worst_acc"] - cpu[0][2]["worst_acc"])
     finite = all(np.isfinite(v) for split in card[2].values() for row in split
                  for v in row.values())
-    checks = {"epoch1_params_max_rel_gap": param_gap, "per_epoch_acc_max_gap": acc_gap,
+    checks = {"epoch1_state_max_rel_gap": param_gap,
+              "epoch1_state_worst_tensor": max(gaps[1], key=gaps[1].get),
+              "final_state_max_rel_gap": final_gap,
+              "final_state_worst_tensor": max(gaps[cfg.epochs], key=gaps[cfg.epochs].get),
+              "final_state_tensors": len(gaps[cfg.epochs]),
+              "per_epoch_acc_max_gap": acc_gap,
               "selected_test_worst_acc_gap": worst_gap,
               "card_best_test": card[0][2], "cpu_best_test": cpu[0][2],
               "card_zero_shot": card[1], "history_finite": finite,
@@ -1867,7 +1878,7 @@ def phase_stage_b():
           "data": {**STAGE_B_SPEC, "seed": SEED}, "launches": launches,
           "perf": {"card_run_s": card_s, "cpu_run_s": cpu_s}, "checks": checks})
     if not (finite and checks["epochs"] == cfg.epochs and param_gap <= 1e-4
-            and acc_gap <= 5e-3 and worst_gap <= 1e-2):
+            and final_gap <= FINAL_STATE_LIMIT and acc_gap <= 5e-3 and worst_gap <= 1e-2):
         raise AssertionError(f"Stage B on the card disagrees with the CPU: {checks}")
     del bundles
 

@@ -19,11 +19,11 @@ BatchNorm follows torch ``BatchNorm1d`` semantics (biased variance to
 normalize, unbiased for the running update, momentum 0.1) with a
 row-validity mask, so the padded rows of a fixed-shape batch leave the
 statistics untouched (:class:`MaskedBatchNorm`).  Training or evaluation is
-the module's ``train()`` / ``eval()`` mode.  Everything runs in f32, and
-the text products at full f32 precision on the card too
-(``utils/platform.full_f32``), as the JAX package's
-``Precision.HIGHEST``.  The contrastive head (``CAEncoder``) is not ported
-yet.
+the module's ``train()`` / ``eval()`` mode.  Everything runs in f32.  The
+JAX package's ``Precision.HIGHEST`` is set per stage, not per product: the
+callers (``train/steps.py``'s epochs, ``train/loop.zero_shot_results``) run
+under ``utils/platform.full_f32``, so the products never fall to TF32 on
+the card.  The contrastive head (``CAEncoder``) is not ported yet.
 
 Initial weights follow the reference's torch ``nn.Linear`` distribution
 (weight and bias U(-1/sqrt(fan_in), 1/sqrt(fan_in))), drawn on the CPU from
@@ -38,8 +38,6 @@ from typing import Optional
 
 import torch
 from torch import nn
-
-from debiasing_multi_modal_tpu_torch.utils.platform import full_f32
 
 
 def _linear(fan_in: int, fan_out: int, generator: Optional[torch.Generator]) -> nn.Linear:
@@ -126,8 +124,7 @@ def _col_normalize(text: torch.Tensor) -> torch.Tensor:
 
 
 def _text_product(rows: torch.Tensor, text: torch.Tensor, temperature: float) -> torch.Tensor:
-    with full_f32():
-        return torch.matmul(rows, _col_normalize(text)) / temperature
+    return torch.matmul(rows, _col_normalize(text)) / temperature
 
 
 def zero_shot_logits(features: torch.Tensor, text: torch.Tensor,

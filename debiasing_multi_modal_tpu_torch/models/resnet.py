@@ -34,11 +34,8 @@ from debiasing_multi_modal_tpu_torch.utils.platform import full_f32
 
 
 def _conv(x: torch.Tensor, layer: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
-    # an f32 tower convolves in full f32, as the JAX reference does, even
-    # where cuDNN's process-wide TF32 switch is on (PyTorch's default)
-    with full_f32() if dtype == torch.float32 else contextlib.nullcontext():
-        y = F.conv2d(x.to(dtype), layer.weight.to(dtype), None, layer.stride,
-                     layer.padding)
+    y = F.conv2d(x.to(dtype), layer.weight.to(dtype), None, layer.stride,
+                 layer.padding)
     if layer.bias is not None:  # folded BatchNorm: added in dtype, as flax
         y = y + layer.bias.to(dtype)[:, None, None]
     return y
@@ -155,13 +152,17 @@ class ModifiedResNet(nn.Module):
                                         heads, output_dim, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """NHWC ``[N, H, W, 3]`` CLIP-normalized floats -> ``[N, output_dim]``."""
+        """NHWC ``[N, H, W, 3]`` CLIP-normalized floats -> ``[N, output_dim]``.
+
+        An f32 tower runs in full f32, as the JAX reference does, even where
+        cuDNN's process-wide TF32 switch is on (PyTorch's default)."""
         dt = self.dtype
-        x = x.to(dt).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        x = F.relu(self.bn1(_conv(x, self.conv1, dt)))
-        x = F.relu(self.bn2(_conv(x, self.conv2, dt)))
-        x = F.relu(self.bn3(_conv(x, self.conv3, dt)))
-        x = F.avg_pool2d(x, 2)
-        for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
-            x = stage(x)
-        return self.attnpool(x)
+        with full_f32() if dt == torch.float32 else contextlib.nullcontext():
+            x = x.to(dt).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+            x = F.relu(self.bn1(_conv(x, self.conv1, dt)))
+            x = F.relu(self.bn2(_conv(x, self.conv2, dt)))
+            x = F.relu(self.bn3(_conv(x, self.conv3, dt)))
+            x = F.avg_pool2d(x, 2)
+            for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
+                x = stage(x)
+            return self.attnpool(x)

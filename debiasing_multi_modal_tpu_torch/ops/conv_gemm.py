@@ -114,8 +114,7 @@ def xla_bottleneck(x: torch.Tensor, w1, b1, w2, b2, w3, b3, wd=None, bd=None) ->
     dt = x.dtype
 
     def conv(h, kernel_oihw, padding):
-        with full_f32():
-            return F.conv2d(h.float(), kernel_oihw.to(dt).float(), padding=padding)
+        return F.conv2d(h.float(), kernel_oihw.to(dt).float(), padding=padding)
 
     def bias(b):
         return b.float()[:, None, None]
@@ -124,10 +123,11 @@ def xla_bottleneck(x: torch.Tensor, w1, b1, w2, b2, w3, b3, wd=None, bd=None) ->
         return wt.t()[:, :, None, None]
 
     h = x.permute(0, 3, 1, 2)  # NCHW view of the NHWC activations
-    y = torch.relu(conv(h, one_by_one(w1), 0) + bias(b1)).to(dt)
-    y = torch.relu(conv(y, w2.permute(3, 2, 0, 1), 1) + bias(b2)).to(dt)
-    y = (conv(y, one_by_one(w3), 0) + bias(b3)).to(dt)
-    r = h if wd is None else (conv(h, one_by_one(wd), 0) + bias(bd)).to(dt)
+    with full_f32():
+        y = torch.relu(conv(h, one_by_one(w1), 0) + bias(b1)).to(dt)
+        y = torch.relu(conv(y, w2.permute(3, 2, 0, 1), 1) + bias(b2)).to(dt)
+        y = (conv(y, one_by_one(w3), 0) + bias(b3)).to(dt)
+        r = h if wd is None else (conv(h, one_by_one(wd), 0) + bias(bd)).to(dt)
     return torch.relu(y + r).permute(0, 2, 3, 1).contiguous()
 
 

@@ -71,13 +71,9 @@ _PAT_ASCII = (
 
 _VOCAB_ENV_VAR = "CLIP_BPE_PATH"
 _VOCAB_FILENAME = "bpe_simple_vocab_16e6.txt.gz"
-_CHECKOUT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _VOCAB_SEARCH_PATHS = (
     os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets", _VOCAB_FILENAME),
     os.path.join(os.path.expanduser("~/.cache/clip"), _VOCAB_FILENAME),
-    # the reference CLIP checkout beside this repository: the JAX package's
-    # last search location when the two checkouts sit side by side
-    os.path.join(os.path.dirname(_CHECKOUT), "reference", "clip", _VOCAB_FILENAME),
 )
 
 

@@ -73,9 +73,11 @@ from debiasing_multi_modal_tpu_torch.train.steps import (
 )
 from debiasing_multi_modal_tpu_torch.utils.platform import (
     DeviceLike,
+    full_f32,
     on_device,
     resolve_device,
 )
+from debiasing_multi_modal_tpu_torch.utils.seed import set_seed
 from debiasing_multi_modal_tpu_torch.utils.staging import DeviceCache, upload
 
 
@@ -235,7 +237,7 @@ def zero_shot_results(bundle: DataBundle, target: str,
     text = bundle.text_class if target == "class" else bundle.text_spurious
     labels = bundle.test.labels(target)
     emb = bundle.test.emb
-    with torch.no_grad():
+    with torch.no_grad(), full_f32():
         logits = zero_shot_logits(emb, upload(text, emb.device), zs_temperature)
     correct = logits.argmax(1).cpu().numpy() == labels
     corr = np.bincount(bundle.test.group, weights=correct, minlength=bundle.n_groups)
@@ -289,6 +291,7 @@ def train_all_epochs(
     checkpoint_dir: Optional[str] = None,
     resume: bool = False,
     checkpoint_every: int = 10,
+    checkpoint_keep: int = 2,
     init: Optional[Mapping[str, Mapping]] = None,
     device: DeviceLike = None,
 ):
@@ -298,12 +301,14 @@ def train_all_epochs(
     history)`` — the reference's return tuple (final_main.py:1128) plus the
     epoch history.
 
-    Initial weights are drawn from a CPU ``torch.Generator`` seeded with
-    ``random_seed`` (the phase-1 classifier first, the multiple classifier at
-    the stage switch), unless ``init`` gives them in the reference's
+    ``utils/seed.set_seed(random_seed)`` gives the numpy generator the plans
+    draw from and a CPU ``torch.Generator``.  Initial weights are drawn from
+    the latter (the phase-1 classifier first, the multiple classifier at the
+    stage switch), unless ``init`` gives them in the reference's
     state-dict layout: ``init["init_sd"]`` for the phase-1 classifier and
     ``init["ma_new_sd"]`` (``new_adapter.*`` keys) for the new adapter at
     the stage switch — the two dicts the JAX package's ``capture`` records.
+    ``checkpoint_keep`` is how many complete checkpoints stay on disk.
     """
     if cfg.tl_method == "contrastive_adapter":
         raise NotImplementedError(
@@ -313,8 +318,7 @@ def train_all_epochs(
         bundle = dataclasses.replace(bundle, train=bundle.train.to(dev),
                                      val=bundle.val.to(dev), test=bundle.test.to(dev))
     init = init or {}
-    rng = np.random.default_rng(cfg.random_seed)
-    gen = torch.Generator().manual_seed(cfg.random_seed)
+    rng, gen = set_seed(cfg.random_seed)
 
     def log(*a):
         if verbose:
@@ -546,6 +550,7 @@ def train_all_epochs(
                     "best_multiple": bool(best["multiple"]),
                     "history": history,
                 },
+                keep=checkpoint_keep,
             )
 
     if best["sd"] is None:  # degenerate run — keep the final model

@@ -16,9 +16,9 @@ filtering (the frozen old adapter): :func:`_sgd`.
 
 Fixed shapes: the last partial batch is padded under a False mask
 (drop_last=False parity); CE, BatchNorm statistics and metrics all honor the
-mask, so numerics match the reference's variable-size final batch.  The
-products run at full f32 precision on the card (``utils/platform.full_f32``),
-backward included.  The vmapped variants (``train_epoch_vmapped``,
+mask, so numerics match the reference's variable-size final batch.  Each
+epoch runs under one ``utils/platform.full_f32`` guard, so its products run
+at full f32 precision on the card, backward included.  The vmapped variants (``train_epoch_vmapped``,
 ``eval_epoch_vmapped``) wait for the sweep slice.
 """
 
