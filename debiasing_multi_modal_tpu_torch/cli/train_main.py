@@ -16,9 +16,9 @@
 
 Runs on ``cuda`` unless ``--device cpu``.  ``--profile_dir`` writes a
 ``torch.profiler`` trace of the run; ``--checkpoint_dir`` takes torch
-checkpoints (``train/checkpoint.py``).  ``--tl_method contrastive_adapter``
-and its flags are accepted and raise ``NotImplementedError`` until the
-contrastive slice ports it.
+checkpoints (``train/checkpoint.py``).  Every ``--tl_method`` runs,
+``contrastive_adapter`` with its flags (``--num_positive``,
+``--batch_factor``, ``--ca_head`` ...) included.
 """
 
 from __future__ import annotations
@@ -69,7 +69,7 @@ def build_parser():
     p.add_argument("--continue_from_best", action="store_true")
     p.add_argument("--adapter_feat_dim", type=int, default=128)
     p.add_argument("--zs_temperature", type=float, default=0.01)
-    # contrastive_adapter method (not ported yet; accepted for flag parity)
+    # contrastive_adapter method (train/contrastive.py)
     p.add_argument("--num_anchor", type=int, default=1)
     p.add_argument("--num_positive", type=int, default=64)
     p.add_argument("--num_negative", type=int, default=64)

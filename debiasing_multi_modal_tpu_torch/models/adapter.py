@@ -14,6 +14,9 @@ Parity surface: reference ``final_main.py`` —
   adapter, each row-normalized, blended 0.5/0.5 *before* the text product.
   Keys ``old_cls.adapter.layers.*`` and ``new_adapter.layers.*``.
 - ``LinearClassifier`` (:43-49) for linear probing.  Keys ``fc.*``.
+- ``CAEncoder``: the contrastive loss path's encoder (the working notebook's
+  ``forward_ca``): the adapter, optionally followed by a linear projection
+  head.  Keys ``adapter.layers.*`` and ``head.*``.
 
 BatchNorm follows torch ``BatchNorm1d`` semantics (biased variance to
 normalize, unbiased for the running update, momentum 0.1) with a
@@ -23,7 +26,12 @@ the module's ``train()`` / ``eval()`` mode.  Everything runs in f32.  The
 JAX package's ``Precision.HIGHEST`` is set per stage, not per product: the
 callers (``train/steps.py``'s epochs, ``train/loop.zero_shot_results``) run
 under ``utils/platform.full_f32``, so the products never fall to TF32 on
-the card.  The contrastive head (``CAEncoder``) is not ported yet.
+the card.
+
+The stacked sweep (sweep/vmap_loop.py) trains S classifiers of one kind at
+once: :func:`stacked_logits` and :func:`stacked_encoder` are the same
+forwards over state dicts whose tensors carry a leading row axis, with the
+products as ``torch.baddbmm`` and one BatchNorm statistic per row.
 
 Initial weights follow the reference's torch ``nn.Linear`` distribution
 (weight and bias U(-1/sqrt(fan_in), 1/sqrt(fan_in))), drawn on the CPU from
@@ -180,6 +188,34 @@ class MultipleAdapterClassifier(nn.Module):
         return _text_product(blended, text, self.temperature)
 
 
+class CAEncoder(nn.Module):
+    """The adapter plus the notebook's optional contrastive projection head.
+
+    Reference parity: the working contrastive-adapter flow builds
+    ``CustomCLIP(..., head=opt.ca_head, ca_feat_dim=opt.ca_feat_dim)`` with
+    ``opt.ca_head = 'linear'`` (SupCon.ipynb cell 3:13), and its
+    ``forward_ca`` projects the adapter output through
+    ``nn.Linear(input_dim, ca_feat_dim)`` before normalizing (cell 0:91-95).
+    The head exists only in the contrastive loss path: the CE and zero-shot
+    forward uses the bare adapter.  ``adapter`` passes in the classifier's
+    own adapter, so the encoder trains it in place; otherwise the generator
+    draws a fresh one.  The generator draws the head after the adapter."""
+
+    def __init__(self, input_dim: int, hidden_dim: int = 128, ca_head: Optional[str] = None,
+                 ca_feat_dim: int = 128, generator: Optional[torch.Generator] = None,
+                 adapter: Optional[AdapterMLP] = None):
+        super().__init__()
+        if ca_head not in (None, "linear"):
+            raise ValueError(f"unknown ca_head {ca_head!r}")
+        self.adapter = adapter if adapter is not None else AdapterMLP(input_dim, hidden_dim,
+                                                                      generator)
+        self.head = None if ca_head is None else _linear(input_dim, ca_feat_dim, generator)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        feat = self.adapter(x, mask)
+        return feat if self.head is None else self.head(feat)
+
+
 class LinearClassifier(nn.Module):
     """Linear probe (reference final_main.py:43-49); ``text`` and ``mask``
     are accepted for a uniform signature with the adapters and unused."""
@@ -192,3 +228,80 @@ class LinearClassifier(nn.Module):
     def forward(self, features: torch.Tensor, text: Optional[torch.Tensor] = None,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         return self.fc(features).float()
+
+
+# ------------------------------------------------ stacked rows (the sweep) --
+
+
+def _stacked_linear(x: torch.Tensor, params, prefix: str) -> torch.Tensor:
+    """``x [S, B, I]`` through S Linear layers ``weight [S, O, I]``."""
+    w, b = params[prefix + "weight"], params[prefix + "bias"]
+    return torch.baddbmm(b.unsqueeze(1), x, w.transpose(1, 2))
+
+
+def _stacked_batchnorm(x: torch.Tensor, params, buffers, prefix: str,
+                       mask: Optional[torch.Tensor], training: bool,
+                       active: Optional[torch.Tensor], momentum: float = 0.1,
+                       eps: float = 1e-5) -> torch.Tensor:
+    """:class:`MaskedBatchNorm` over ``x [S, B, H]``, one set of statistics
+    per row; ``mask [S, B]``.  A row whose ``active`` entry is False keeps
+    its running statistics (its step is padding)."""
+    w, b = params[prefix + "weight"], params[prefix + "bias"]
+    running_mean, running_var = buffers[prefix + "running_mean"], buffers[prefix + "running_var"]
+    if training:
+        if mask is None:
+            n = float(x.shape[1])
+            mean = x.mean(1)
+            var = ((x - mean.unsqueeze(1)) ** 2).mean(1)
+            bessel = max(n - 1.0, 1.0)
+        else:
+            m = mask.to(torch.float32).unsqueeze(-1)
+            n = m.sum(1).clamp_min(1.0)  # [S, 1]
+            mean = (x * m).sum(1) / n
+            var = (((x - mean.unsqueeze(1)) ** 2) * m).sum(1) / n
+            bessel = (n - 1.0).clamp_min(1.0)
+        with torch.no_grad():
+            unbiased = var * n / bessel
+            new_mean = (1 - momentum) * running_mean + momentum * mean
+            new_var = (1 - momentum) * running_var + momentum * unbiased
+            if active is not None:
+                new_mean = torch.where(active.unsqueeze(-1), new_mean, running_mean)
+                new_var = torch.where(active.unsqueeze(-1), new_var, running_var)
+            running_mean.copy_(new_mean)
+            running_var.copy_(new_var)
+    else:
+        mean, var = running_mean, running_var
+    inv = torch.rsqrt(var + eps) * w
+    return (x - mean.unsqueeze(1)) * inv.unsqueeze(1) + b.unsqueeze(1)
+
+
+def _stacked_adapter(x, params, buffers, prefix, mask, training, active):
+    h = _stacked_linear(x, params, prefix + "layers.0.")
+    h = _stacked_batchnorm(h, params, buffers, prefix + "layers.1.", mask, training, active)
+    return _stacked_linear(torch.relu(h), params, prefix + "layers.3.")
+
+
+def stacked_logits(params, buffers, x: torch.Tensor, text: torch.Tensor, temperature: float,
+                   mask: Optional[torch.Tensor] = None, training: bool = False,
+                   active: Optional[torch.Tensor] = None,
+                   ebd_weight: float = 0.5) -> torch.Tensor:
+    """S classifiers' logits ``[S, B, C]`` for ``x [S, B, D]``; the kind
+    (linear probe, adapter, multiple adapter) follows the state-dict keys,
+    and each computes what its module's ``forward`` does."""
+    if "fc.weight" in params:
+        return _stacked_linear(x, params, "fc.").float()
+    if "old_cls.adapter.layers.0.weight" in params:
+        with torch.no_grad():
+            old = _row_normalize(_stacked_adapter(x, params, buffers, "old_cls.adapter.", mask,
+                                                  training, active))
+        new = _row_normalize(_stacked_adapter(x, params, buffers, "new_adapter.", mask,
+                                              training, active))
+        return _text_product(ebd_weight * old + (1.0 - ebd_weight) * new, text, temperature)
+    adapted = _stacked_adapter(x, params, buffers, "adapter.", mask, training, active)
+    return zero_shot_logits(adapted, text, temperature)
+
+
+def stacked_encoder(params, buffers, x: torch.Tensor) -> torch.Tensor:
+    """S :class:`CAEncoder` forwards in training mode over ``x [S, B, D]``."""
+    feat = _stacked_adapter(x, params, buffers, "adapter.", None, True, None)
+    return _stacked_linear(feat, params, "head.") if "head.weight" in params else feat

@@ -18,6 +18,11 @@ its epoch functions —
   old branch is frozen (``--add_adapter``, :940-951).  ``adapter_reg_seq_
   alter`` alternates class/group prompts on absolute epoch parity (:954-968);
   ``--balance_val`` re-balances the reg subset every epoch (:920-921).
+- ``contrastive_adapter``: supervised-contrastive epochs on the adapter
+  (train/contrastive.py) over anchor rows built once from the zero-shot
+  mistakes (data/contrastive.py), each followed by a CE pass
+  (``ca_ce_update``); the optional projection head keeps its own parameters
+  and momentum.
 - per-epoch validation on the val half (model selection by worst-group
   accuracy, :1001-1008) and logging-only test evaluation (:1012-1017);
   final zero-shot feature-quality probes (``validate_zs``, :725-803);
@@ -28,9 +33,8 @@ Every numpy draw (shuffles, balanced subsets, resampling) is the JAX
 package's, in its order, so one ``random_seed`` gives both packages the same
 batch plans.  The epochs run on ``device`` (``cuda`` unless the caller asks
 for the CPU) through train/steps.py; the host reads each epoch's meters
-once, for the result dicts and the best-model comparison.  The
-``contrastive_adapter`` method waits for the contrastive slice, and
-``shard_bundle`` for the parallelism slice.
+once, for the result dicts and the best-model comparison (and a contrastive
+epoch's mean loss).  ``shard_bundle`` waits for the parallelism slice.
 """
 
 from __future__ import annotations
@@ -52,13 +56,20 @@ from debiasing_multi_modal_tpu_torch.data.samplers import (
     stratified_split_indices,
     weighted_sample_indices,
 )
+from debiasing_multi_modal_tpu_torch.data.contrastive import (
+    clamp_counts,
+    construct_contrastive_rows,
+    prepare_contrastive_points,
+)
 from debiasing_multi_modal_tpu_torch.models.adapter import (
     AdapterClassifier,
+    CAEncoder,
     LinearClassifier,
     MultipleAdapterClassifier,
     zero_shot_logits,
 )
 from debiasing_multi_modal_tpu_torch.train.config import TrainConfig
+from debiasing_multi_modal_tpu_torch.train.contrastive import train_contrastive_epoch
 from debiasing_multi_modal_tpu_torch.train.metrics import ordered, results_from_counts
 from debiasing_multi_modal_tpu_torch.train.schedules import epoch_batch_lrs
 from debiasing_multi_modal_tpu_torch.train.steps import (
@@ -196,6 +207,14 @@ def bundle_from_files(
     )
 
 
+def move_bundle(bundle: DataBundle, device: torch.device) -> DataBundle:
+    """The bundle with its embeddings on ``device`` (itself if they are)."""
+    if on_device(bundle.train.emb, device):
+        return bundle
+    return dataclasses.replace(bundle, train=bundle.train.to(device),
+                               val=bundle.val.to(device), test=bundle.test.to(device))
+
+
 # ----------------------------------------------------------------- helpers --
 
 
@@ -258,6 +277,40 @@ def make_multiple_classifier(cfg: TrainConfig, generator: Optional[torch.Generat
                                      cfg.zs_temperature, generator=generator)
 
 
+def make_encoder(cfg: TrainConfig, adapter, generator: Optional[torch.Generator] = None):
+    """The contrastive loss path's encoder around the classifier's own
+    ``adapter``; the generator draws its head, if ``cfg.ca_head`` asks for
+    one."""
+    return CAEncoder(cfg.input_dim, cfg.adapter_feat_dim, cfg.ca_head, cfg.ca_feat_dim,
+                     generator=generator, adapter=adapter)
+
+
+def contrastive_rows_and_counts(cfg: TrainConfig, bundle: "DataBundle", rngs, log=None):
+    """One anchor-row matrix per numpy generator, from the train split's
+    zero-shot slices, and the ``(num_anchor, num_positive, num_negative)``
+    counts clamped to the pools (the reference's ``adjust_num_pos_neg_``,
+    SupCon.ipynb cell 10:58, instead of sampling with replacement)."""
+    points = prepare_contrastive_points(bundle.train.y, bundle.train.y_pred)
+    asked = (cfg.num_anchor, cfg.num_positive, cfg.num_negative)
+    counts = clamp_counts(points, *asked)
+    if log is not None and counts != asked:
+        log(f"contrastive counts clamped to pools: {counts}")
+    return [construct_contrastive_rows(points, *counts, rng) for rng in rngs], counts
+
+
+def contrastive_epoch_rows(rows: np.ndarray, rng: np.random.Generator,
+                           batch_factor: int) -> np.ndarray:
+    """One epoch's ``[nb, batch_factor, A+P+N]`` steps: the rows permuted,
+    tiled cyclically when there are fewer than one step consumes (the
+    reference's DataLoader would emit one short batch; steps have fixed
+    shapes), the remainder dropped."""
+    rows = rows[rng.permutation(len(rows))]
+    if len(rows) < batch_factor:
+        rows = np.resize(rows, (batch_factor, rows.shape[1]))
+    nb = max(len(rows) // batch_factor, 1)
+    return rows[: nb * batch_factor].reshape(nb, batch_factor, -1)
+
+
 def _tensors(sd: Mapping[str, object], prefix: str = "") -> Dict[str, torch.Tensor]:
     """A reference-layout dict of arrays or tensors as tensors, the keys
     under ``prefix`` with the prefix stripped."""
@@ -303,20 +356,17 @@ def train_all_epochs(
 
     ``utils/seed.set_seed(random_seed)`` gives the numpy generator the plans
     draw from and a CPU ``torch.Generator``.  Initial weights are drawn from
-    the latter (the phase-1 classifier first, the multiple classifier at the
-    stage switch), unless ``init`` gives them in the reference's
-    state-dict layout: ``init["init_sd"]`` for the phase-1 classifier and
-    ``init["ma_new_sd"]`` (``new_adapter.*`` keys) for the new adapter at
-    the stage switch — the two dicts the JAX package's ``capture`` records.
+    the latter (the phase-1 classifier first, then the contrastive head,
+    the multiple classifier at the stage switch), unless ``init`` gives
+    them in the reference's state-dict layout: ``init["init_sd"]`` for the
+    phase-1 classifier, ``init["ca_head_sd"]`` (``head.*`` keys) for the
+    contrastive head and ``init["ma_new_sd"]`` (``new_adapter.*`` keys) for
+    the new adapter at the stage switch (the JAX package's ``capture``
+    records the first and the last).
     ``checkpoint_keep`` is how many complete checkpoints stay on disk.
     """
-    if cfg.tl_method == "contrastive_adapter":
-        raise NotImplementedError(
-            "tl_method='contrastive_adapter' is not ported yet (contrastive slice)")
     dev = resolve_device(device)
-    if not on_device(bundle.train.emb, dev):
-        bundle = dataclasses.replace(bundle, train=bundle.train.to(dev),
-                                     val=bundle.val.to(dev), test=bundle.test.to(dev))
+    bundle = move_bundle(bundle, dev)
     init = init or {}
     rng, gen = set_seed(cfg.random_seed)
 
@@ -349,6 +399,20 @@ def train_all_epochs(
         single.load_state_dict(_tensors(init["init_sd"]))
     state = init_train_state(single.to(dev))
     full_mask = ones_mask(state.params)
+
+    # the contrastive encoder wraps the classifier's adapter; its head's
+    # parameters and momentum (notebook ca_head='linear', SupCon.ipynb cell
+    # 3:13) live apart from the classifier's, and the CE/eval path never
+    # sees them
+    encoder = head_trace = None
+    if cfg.tl_method == "contrastive_adapter":
+        encoder = make_encoder(cfg, single.adapter, gen).to(dev)
+        head_trace = {}
+        if encoder.head is not None:
+            if "ca_head_sd" in init:
+                encoder.head.load_state_dict(_tensors(init["ca_head_sd"], "head."))
+            head_trace = {f"head.{k}": torch.zeros_like(v)
+                          for k, v in encoder.head.named_parameters()}
 
     multiple = None
     ma_state: Optional[TrainState] = None
@@ -384,6 +448,15 @@ def train_all_epochs(
     best = {"acc": 0.0, "epoch": 0, "sd": None, "multiple": False}
     history = {"train": [], "val": [], "test": []}
 
+    # Contrastive rows are built BEFORE any checkpoint restore: in a fresh
+    # run they are the first rng consumption, and a resumed run must train
+    # on the ORIGINAL rows (the restored rng state already accounts for
+    # these draws).
+    contrastive_rows = None
+    if cfg.tl_method == "contrastive_adapter":
+        (contrastive_rows,), ca_counts = contrastive_rows_and_counts(cfg, bundle, [rng], log)
+        log(f"contrastive rows: {contrastive_rows.shape}")
+
     feat_epochs = (
         cfg.epochs if cfg.epochs_feature_learning is None
         else cfg.epochs_feature_learning
@@ -404,6 +477,9 @@ def train_all_epochs(
                 multiple = make_multiple_classifier(cfg, torch.Generator()).to(dev)
                 ma_state = _load_state(init_train_state(multiple), tree["ma_state"])
                 ma_mask = freeze_subtrees(ma_state.params, ("old_cls",))
+            if "head_state" in tree:
+                encoder.head.load_state_dict(_tensors(tree["head_state"]["params"], "head."))
+                head_trace = {k: v.to(dev) for k, v in tree["head_state"]["trace"].items()}
             if "best_state" in tree:
                 best["sd"] = {k: v.to(dev) for k, v in tree["best_state"].items()}
             best["acc"] = meta["best_acc"]
@@ -446,6 +522,7 @@ def train_all_epochs(
             reg_bs = cfg.batch_size_reg
 
         # ---------------- train one epoch
+        train_weighted = False
         if cfg.tl_method == "adapter_reg":
             # interleaved: train loader (class prompts) then reg loader
             state, stats = run_train(
@@ -496,6 +573,43 @@ def train_all_epochs(
                 state, stats = run_train(
                     state, reg_split, labels2, text2, reg_bs, 2, epoch, reg_order, full_mask,
                 )
+        elif cfg.tl_method == "contrastive_adapter":
+            # Supervised-contrastive feature learning on the adapter (the
+            # reference's notebook-driven CA trainer, visualizer_supcon.py
+            # train_one_epoch_cl).  The rows are reshuffled every epoch.  The
+            # working reference flow (SupCon.ipynb cell 7) follows each
+            # SupCon epoch with a CE epoch: see cfg.ca_ce_update.
+            rows = contrastive_epoch_rows(contrastive_rows, rng, cfg.batch_factor)
+            enc_state = TrainState(encoder, {**{k: v for k, v in state.trace.items()
+                                                if k.startswith("adapter.")}, **head_trace})
+            _, cl_losses = train_contrastive_epoch(
+                enc_state, bundle.train.emb, upload(rows, dev),
+                epoch_batch_lrs(cfg, epoch, len(rows), 1), ones_mask(enc_state.params),
+                num_anchor=ca_counts[0], num_positive=ca_counts[1], num_negative=ca_counts[2],
+                temperature=cfg.cl_temperature, contrastive_weight=cfg.contrastive_weight,
+                ca_pre_norm=cfg.ca_pre_norm, momentum=cfg.momentum,
+                weight_decay=cfg.weight_decay,
+            )
+            history.setdefault("cl_loss", []).append(float(np.mean(cl_losses.cpu().numpy())))
+            log(f"contrastive loss: {history['cl_loss'][-1]:.4f}")
+            if cfg.ca_ce_update != 0:
+                # the interleaved CE pass on the same parameters and momentum
+                # (-1 a whole epoch, > 0 capped at that many batches, as
+                # visualizer_supcon.py:354 intends)
+                ce_order = None
+                if cfg.ca_ce_update > 0:
+                    ce_order = rng.permutation(len(bundle.train))[
+                        : cfg.ca_ce_update * cfg.batch_size]
+                state, stats = run_train(
+                    state, bundle.train, train_labels, text_class,
+                    cfg.batch_size, 1, epoch, ce_order, full_mask,
+                )
+            else:
+                # pure SupCon: the train metrics come from the zero-shot head
+                # on the train split, weighted as the evaluation's are
+                stats = _evaluate(single, bundle.train, train_labels, text_class,
+                                  cfg.batch_size, bundle, stage, plan_cache)
+                train_weighted = True
         else:
             # plain ERM epoch (linear_probing / adapter / phase 1)
             order = None
@@ -513,7 +627,7 @@ def train_all_epochs(
         test_stats = _evaluate(module, bundle.test, test_labels_cls, text_class, eval_bs,
                                bundle, stage, plan_cache)
         counts = _host_counts(stats, val_stats, test_stats)
-        train_res = _results(counts[0], bundle, weighted=False)
+        train_res = _results(counts[0], bundle, weighted=train_weighted)
         val_res = _results(counts[1], bundle, weighted=True)
         test_res = _results(counts[2], bundle, weighted=True)
         history["train"].append(ordered(train_res))
@@ -537,6 +651,12 @@ def train_all_epochs(
             payload = {"state": _state_payload(state), "torch_rng_state": gen.get_state()}
             if ma_state is not None:
                 payload["ma_state"] = _state_payload(ma_state)
+            if head_trace:
+                payload["head_state"] = {
+                    "params": {k: v for k, v in encoder.state_dict().items()
+                               if k.startswith("head.")},
+                    "trace": head_trace,
+                }
             if best["sd"] is not None:
                 payload["best_state"] = best["sd"]
             ckpt.save_checkpoint(

@@ -49,6 +49,22 @@ def batch_group_counts(
     return corrects, counts
 
 
+def stacked_group_counts(
+    logits: torch.Tensor,
+    labels: torch.Tensor,
+    groups: torch.Tensor,
+    mask: torch.Tensor,
+    n_groups: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`batch_group_counts` for S stacked rows: ``logits [S, B, C]``,
+    int64 ``groups [S, B]`` -> ``[S, n_groups]`` each."""
+    correct = (logits.argmax(-1) == labels) & mask
+    zeros = torch.zeros(mask.shape[0], n_groups, dtype=torch.float32, device=logits.device)
+    counts = zeros.scatter_add(1, groups, mask.to(torch.float32))
+    corrects = zeros.scatter_add(1, groups, correct.to(torch.float32))
+    return corrects, counts
+
+
 def results_from_counts(
     corrects: np.ndarray,
     counts: np.ndarray,

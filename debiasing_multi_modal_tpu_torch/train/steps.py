@@ -18,21 +18,30 @@ Fixed shapes: the last partial batch is padded under a False mask
 (drop_last=False parity); CE, BatchNorm statistics and metrics all honor the
 mask, so numerics match the reference's variable-size final batch.  Each
 epoch runs under one ``utils/platform.full_f32`` guard, so its products run
-at full f32 precision on the card, backward included.  The vmapped variants (``train_epoch_vmapped``,
-``eval_epoch_vmapped``) wait for the sweep slice.
+at full f32 precision on the card, backward included.
+
+The stacked variants (``train_epoch_vmapped``, ``eval_epoch_vmapped``, the
+JAX package's vmapped epochs) train S rows at once, each its own classifier
+(:class:`StackedState`: every tensor carries a leading row axis) on the
+shared embeddings: one set of launches per step for every row, the
+products as ``torch.baddbmm``, one ``backward`` of the sum of the rows'
+losses (which gives each row exactly its own gradient), a per-row learning
+rate from an ``[S, nb]`` device tensor, and an ``active [S, nb]`` flag that
+makes a row's padded step a true no-op.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, NamedTuple, Sequence, Tuple
+from typing import Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from debiasing_multi_modal_tpu_torch.models.adapter import stacked_logits
 from debiasing_multi_modal_tpu_torch.train.losses import masked_cross_entropy
-from debiasing_multi_modal_tpu_torch.train.metrics import batch_group_counts
+from debiasing_multi_modal_tpu_torch.train.metrics import batch_group_counts, stacked_group_counts
 from debiasing_multi_modal_tpu_torch.utils.platform import full_f32
 
 
@@ -119,9 +128,12 @@ class EpochStats(NamedTuple):
     n: torch.Tensor  # total valid examples
 
     @staticmethod
-    def zeros(n_groups: int, device) -> "EpochStats":
+    def zeros(n_groups: int, device, rows: Optional[int] = None) -> "EpochStats":
+        """Zero meters; with ``rows``, one set per stacked row."""
+        lead = () if rows is None else (rows,)
+
         def z(*shape):
-            return torch.zeros(shape, dtype=torch.float32, device=device)
+            return torch.zeros(lead + shape, dtype=torch.float32, device=device)
         return EpochStats(z(n_groups), z(n_groups), z(), z())
 
     def merge(self, other: "EpochStats") -> "EpochStats":
@@ -137,6 +149,19 @@ class EpochStats(NamedTuple):
         self.corrects.add_(corrects)
         self.counts.add_(counts)
         nvalid = mask.to(torch.float32).sum()
+        self.loss_sum.add_(loss.detach() * nvalid)
+        self.n.add_(nvalid)
+
+
+    @torch.no_grad()
+    def add_stacked(self, logits, labels, groups, mask, loss) -> None:
+        """:meth:`add_batch` for S stacked rows (``groups`` int64).  A
+        padded step's row is all-masked, so it adds nothing."""
+        corrects, counts = stacked_group_counts(logits, labels, groups, mask,
+                                                self.counts.shape[-1])
+        self.corrects.add_(corrects)
+        self.counts.add_(counts)
+        nvalid = mask.to(torch.float32).sum(-1)
         self.loss_sum.add_(loss.detach() * nvalid)
         self.n.add_(nvalid)
 
@@ -199,4 +224,148 @@ def eval_epoch(
             logits = module(embeddings[b_idx], text, b_mask)
             loss = masked_cross_entropy(logits, lab, b_mask)
             stats.add_batch(logits, lab, groups[b_idx], b_mask, loss)
+    return stats
+
+
+# ------------------------------------------------ stacked rows (the sweep) --
+
+
+@dataclasses.dataclass
+class StackedState:
+    """S classifiers of one kind: parameters, BatchNorm buffers and SGD
+    momentum keyed by the module's state-dict names, each tensor with a
+    leading row axis.  ``temperature`` is the zero-shot head's."""
+
+    params: Dict[str, torch.Tensor]
+    buffers: Dict[str, torch.Tensor]
+    trace: Dict[str, torch.Tensor]
+    temperature: float = 0.01
+
+    @property
+    def rows(self) -> int:
+        return next(iter(self.params.values())).shape[0]
+
+    @staticmethod
+    def from_tensors(params: Mapping[str, torch.Tensor], buffers: Mapping[str, torch.Tensor],
+                     temperature: float = 0.01) -> "StackedState":
+        """Fresh leaves (copies, parameters requiring grad) and zero momentum."""
+        p = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+        b = {k: v.detach().clone() for k, v in buffers.items()}
+        return StackedState(p, b, {k: torch.zeros_like(v) for k, v in p.items()}, temperature)
+
+    @staticmethod
+    def stack(modules: Sequence[nn.Module], device, temperature: float = 0.01) -> "StackedState":
+        """One row per module (all of one class), on ``device``."""
+        def stacked(named):
+            names = [n for n, _ in named(modules[0])]
+            return {n: torch.stack([dict(named(m))[n].detach() for m in modules]).to(device)
+                    for n in names}
+        return StackedState.from_tensors(stacked(lambda m: m.named_parameters()),
+                                         stacked(lambda m: m.named_buffers()), temperature)
+
+    def row_state_dict(self, i: int) -> Dict[str, torch.Tensor]:
+        """Row ``i`` as its module's state dict."""
+        return {k: v[i].detach() for k, v in {**self.params, **self.buffers}.items()}
+
+
+@torch.no_grad()
+def _sgd_stacked(params: Mapping[str, torch.Tensor], grads: Sequence[Optional[torch.Tensor]],
+                 trace: Mapping[str, torch.Tensor], neg_lr: torch.Tensor, momentum: float,
+                 weight_decay: float, live: List[str],
+                 active: Optional[torch.Tensor]) -> None:
+    """:func:`_sgd` for S stacked rows in place, ``neg_lr [S]`` the rows'
+    negated learning rates.  A row whose ``active`` entry is False keeps
+    its parameters and its momentum (a zero learning rate would still decay
+    the trace)."""
+    if not live:
+        return
+    t = [trace[n] for n in live]
+    p = [params[n] for n in live]
+    g = [gr if gr is not None else torch.zeros_like(pp) for gr, pp in zip(grads, p)]
+
+    def per_row(x, v):
+        return v.view((-1,) + (1,) * (x.dim() - 1))
+
+    new_t = t if active is None else [x.clone() for x in t]
+    torch._foreach_mul_(new_t, momentum)
+    torch._foreach_add_(new_t, g)
+    torch._foreach_add_(new_t, p, alpha=weight_decay)
+    step = torch._foreach_mul(new_t, [per_row(x, neg_lr) for x in new_t])
+    if active is None:
+        torch._foreach_add_(p, step)
+        return
+    for tt, nt, pp, st in zip(t, new_t, p, step):
+        a = per_row(tt, active)
+        tt.copy_(torch.where(a, nt, tt))
+        pp.copy_(torch.where(a, pp + st, pp))
+
+
+def train_epoch_vmapped(
+    state: StackedState,
+    embeddings: torch.Tensor,  # [N, D] shared by every row
+    labels: torch.Tensor,  # [N] int64
+    groups: torch.Tensor,  # [N] int64
+    idx: torch.Tensor,  # [S, nb, B] int64, each row's plan
+    mask: torch.Tensor,  # [S, nb, B] bool
+    lrs: torch.Tensor,  # [nb] shared or [S, nb] per row, on the device
+    text: torch.Tensor,  # [D, C]
+    train_mask: Mapping[str, float],
+    *,
+    active: Optional[torch.Tensor] = None,  # [S, nb] bool: False on padded steps
+    n_groups: int = 4,
+    momentum: float = 0.9,
+    weight_decay: float = 5e-5,
+) -> Tuple[StackedState, EpochStats]:
+    """S rows' epochs at once (the JAX ``train_epoch_vmapped``); updates
+    ``state`` in place and returns it with ``[S, ...]`` meters.  Row ``i``
+    computes what :func:`train_epoch` computes on its own plan."""
+    live, frozen = _live(train_mask)
+    params = state.params
+    live_params = [params[n] for n in live]
+    S, nb = idx.shape[:2]
+    stats = EpochStats.zeros(n_groups, embeddings.device, rows=S)
+    neg_lrs = -(lrs if lrs.dim() == 2 else lrs.expand(S, -1))
+    if frozen:
+        # the frozen parameters' momentum is zero after any step (_sgd)
+        torch._foreach_zero_([state.trace[n] for n in frozen])
+    with full_f32():
+        for b in range(nb):
+            b_idx, b_mask = idx[:, b], mask[:, b]
+            act = None if active is None else active[:, b]
+            lab = labels[b_idx]
+            logits = stacked_logits(params, state.buffers, embeddings[b_idx], text,
+                                    state.temperature, b_mask, True, act)
+            loss = masked_cross_entropy(logits, lab, b_mask)
+            grads = torch.autograd.grad(loss.sum(), live_params, allow_unused=True)
+            _sgd_stacked(params, grads, state.trace, neg_lrs[:, b], momentum, weight_decay,
+                         live, act)
+            stats.add_stacked(logits, lab, groups[b_idx], b_mask, loss)
+    return state, stats
+
+
+@torch.no_grad()
+def eval_epoch_vmapped(
+    state: StackedState,
+    embeddings: torch.Tensor,
+    labels: torch.Tensor,  # [N] int64
+    groups: torch.Tensor,  # [N] int64
+    idx: torch.Tensor,  # [nb, B] one plan for every row
+    mask: torch.Tensor,  # [nb, B]
+    text: torch.Tensor,
+    *,
+    n_groups: int = 4,
+) -> EpochStats:
+    """S rows evaluated with their running BatchNorm statistics."""
+    S = state.rows
+    stats = EpochStats.zeros(n_groups, embeddings.device, rows=S)
+    with full_f32():
+        for b in range(idx.shape[0]):
+            b_idx = idx[b]
+            b_mask = mask[b].expand(S, -1)
+            lab = labels[b_idx].expand(S, -1)
+            x = embeddings[b_idx].expand(S, -1, -1)
+            logits = stacked_logits(state.params, state.buffers, x, text, state.temperature,
+                                    b_mask, False)
+            loss = masked_cross_entropy(logits, lab, b_mask)
+            stats.add_stacked(logits, lab, groups[b_idx].expand(S, -1), b_mask, loss)
     return stats

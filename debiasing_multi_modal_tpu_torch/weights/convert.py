@@ -21,7 +21,8 @@ and carries the JAX package's weights across
 
 and the Stage-B classifiers both ways
 (:func:`classifier_state_dict_from_jax_variables` and its inverse), in the
-reference's adapter key layout.
+reference's adapter key layout, and the contrastive head both ways
+(:func:`ca_head_state_dict_from_jax` and its inverse).
 
 Every array comes out as f32 numpy.
 """
@@ -314,3 +315,19 @@ def jax_variables_from_classifier_state_dict(sd: Mapping[str, Any]) -> Dict[str,
                 "batch_stats": {"old": old_s, "new": new_s}}
     p, s = _adapter_mlp_from_sd(sd, "adapter.")
     return {"params": {"adapter": p}, "batch_stats": {"adapter": s}}
+
+
+def ca_head_state_dict_from_jax(head: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """The JAX contrastive head's ``{'kernel', 'bias'}`` (``CAEncoder``'s
+    ``head`` subtree) -> the port's ``head.weight`` (the kernel transposed)
+    and ``head.bias``."""
+    out: Dict[str, np.ndarray] = {}
+    _dense(out, "head", head)
+    return out
+
+
+def jax_ca_head_from_state_dict(sd: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`ca_head_state_dict_from_jax`."""
+    sd = {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v
+          for k, v in sd.items()}
+    return {"kernel": _f32(sd["head.weight"]).T, "bias": _f32(sd["head.bias"])}

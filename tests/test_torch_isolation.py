@@ -4,9 +4,10 @@ running tiny CPU extractions — a ResNet, unfused and folded (``fuse_bn``,
 with the bottleneck kernels' wrappers on one of its blocks), and a ViT
 plain, with ``fuse_qkv`` (the packed attention path) and with both int8
 modes — a contrastive
-gradient step through a ViT CLIP on the flash path with ``remat``, and a
+gradient step through a ViT CLIP on the flash path with ``remat``, a
 two-epoch Stage-B ``train_all_epochs`` across the phase boundary with the
-second adapter imports neither ``jax`` nor anything of
+second adapter, a contrastive ``train_all_epochs`` with the linear head and
+a two-seed stacked ``run_seeds`` imports neither ``jax`` nor anything of
 ``debiasing_multi_modal_tpu``; importing the
 package alone imports no Triton and loads no kernel library."""
 
@@ -96,6 +97,14 @@ cfg = TrainConfig(tl_method="adapter_reg_seq_alter", epochs=2, epochs_feature_le
                   batch_size_reg=8)
 _, _, history = train_all_epochs(cfg, bundle, verbose=False, device="cpu")
 assert len(history["test"]) == 2
+cfg = TrainConfig(tl_method="contrastive_adapter", epochs=2, input_dim=16, adapter_feat_dim=8,
+                  batch_size=32, num_positive=4, num_negative=4, batch_factor=2,
+                  ca_head="linear")
+_, _, history = train_all_epochs(cfg, bundle, verbose=False, device="cpu")
+assert len(history["cl_loss"]) == 2
+from debiasing_multi_modal_tpu_torch.sweep.runner import run_seeds
+cfg = TrainConfig(tl_method="adapter", epochs=2, input_dim=16, adapter_feat_dim=8, batch_size=32)
+assert len(run_seeds(cfg, bundle, [42, 32], device="cpu")) == 2
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "flax"))
              or m == "debiasing_multi_modal_tpu"
@@ -130,3 +139,26 @@ def test_port_sources_name_no_jax_import():
                 ):
                     offenders.append(f"{path}:{n}: {s}")
     assert offenders == []
+
+
+def test_packaging_names_the_port_clis_and_ships_every_kernel_source():
+    """pyproject.toml installs a console script for each of the port's three
+    CLIs, and its package data covers every file under csrc/ (the .cu
+    sources include the .cuh headers, so an installed copy needs both)."""
+    import fnmatch
+    import importlib
+    import tomllib
+
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        project = tomllib.load(f)
+    port = {name: target for name, target in project["project"]["scripts"].items()
+            if target.startswith("debiasing_multi_modal_tpu_torch.")}
+    assert sorted(t.split(":")[0].rsplit(".", 1)[1] for t in port.values()) == [
+        "extract_main", "sweep_main", "train_main"]
+    for target in port.values():
+        module, fn = target.split(":")
+        assert callable(getattr(importlib.import_module(module), fn))
+    patterns = project["tool"]["setuptools"]["package-data"]["debiasing_multi_modal_tpu_torch"]
+    csrc = os.path.join(REPO, "debiasing_multi_modal_tpu_torch", "csrc")
+    for name in os.listdir(csrc):
+        assert any(fnmatch.fnmatch(f"csrc/{name}", p) for p in patterns), name

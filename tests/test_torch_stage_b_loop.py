@@ -159,7 +159,8 @@ def test_save_results_schema_and_guards(tmp_path, bundles):
     """The results JSON has the JAX package's schema
     (test_train_e2e.py::test_save_results_schema) and names; the best model
     is saved in the reference's layout.  A label past the text matrix's
-    columns raises, and the contrastive adapter is not ported yet."""
+    columns raises.  The contrastive adapter writes the same schema, with
+    its SupCon losses in the returned history."""
     _, tb = bundles
     cfg = TrainConfig(tl_method="adapter_reg_seq_alter", epochs_feature_learning=2,
                       add_adapter=True, save_results=True, **BASE)
@@ -182,9 +183,17 @@ def test_save_results_schema_and_guards(tmp_path, bundles):
         tloop.train_all_epochs(TrainConfig(tl_method="adapter", train_target="group",
                                            **{**BASE, "epochs": 1}), tb, verbose=False,
                                device="cpu")
-    with pytest.raises(NotImplementedError, match="contrastive"):
-        tloop.train_all_epochs(TrainConfig(tl_method="contrastive_adapter", **BASE), tb,
-                               verbose=False, device="cpu")
+    ca_cfg = TrainConfig(tl_method="contrastive_adapter", num_positive=8, num_negative=8,
+                         batch_factor=2, save_results=True, **BASE)
+    ca_dir = tmp_path / "contrastive"
+    _, _, history = tloop.train_all_epochs(ca_cfg, tb, verbose=False, results_dir=str(ca_dir),
+                                           device="cpu")
+    assert len(history["cl_loss"]) == 4 and all(np.isfinite(history["cl_loss"]))
+    ca_name = tloop.encode_run_name(ca_cfg)
+    assert sorted(os.listdir(ca_dir)) == [ca_name + ".json", ca_name + ".pt"]
+    ca_payload = json.loads((ca_dir / (ca_name + ".json")).read_text())
+    assert set(ca_payload) == set(payload)
+    assert len(ca_payload["All Results (all epoch)"]) == 4
 
 
 def _waterbirds_tree(root):
