@@ -4,6 +4,8 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --only flash_f32   # the timed f32 flash cases and the
                                              # f32 training step alone
+    python3 chip_smoke.py --only qtiled_bf16 # bf16 kernel 2 alone (S=1025 timed,
+                                             # ragged S past kernel 1's gate)
     python3 chip_smoke.py --only rn50_blocks # kernels 8 and 9 at the folded RN50's
                                              # stride-1 blocks alone
     python3 chip_smoke.py --only stage_b     # Stage B (adapter training) alone
@@ -21,9 +23,10 @@ line.
              the registers and spills of kernels 1-3, of every flash
              instantiation, of kernel 7 and of kernels 8-9 (-Xptxas=-v); bf16
              kernel 4 must not spill at hd 32, 64 and 128, f32 kernel 4 and
-             kernels 5 and 6 (bf16 and f32) at hd 32 and 64, kernel 7 and the
-             bf16 (tensor-core) instantiations of kernels 8-9 at all, f32
-             kernels 1-3 (every tile) at hd 32 and 64.
+             kernels 5 and 6 (bf16 and f32) at hd 32 and 64, kernel 7, bf16
+             kernel 2 and the six instantiations of kernels 8-9 (bf16 and
+             split-TF32 f32) at all, f32 kernels 1-3 (every tile) at hd 32
+             and 64.
 3. kernels — hold each kernel against its plain PyTorch version on the card
              at the main paths' shapes, and time kernel, plain version and the
              PyTorch library call that computes the same function (yardstick
@@ -34,14 +37,18 @@ line.
              kernels, their plain versions and SDPA timed by CUDA-graph replay,
              so a wrapper's host time stays out), kernel 2
              (q-tiled; f32 the same register-tiled code with K/V streamed;
-             bf16, on no main path, timed at ViT-L/14@448's S=1025),
-             kernel 3 (packed, timed at both shapes), with ragged
+             bf16 kernel 1's tensor-core two-pass path with K/V streamed, on
+             no main path, timed at ViT-L/14@448's S=1025, with ragged bf16 S
+             from 833 to each gate's largest, 1,750 / 1,686 / 1,558 at hd 32
+             / 64 / 128, causal and not), kernel 3 (packed, timed at both
+             shapes), with ragged
              bf16 S from 1 to the gate's largest (832 at hd 64) for kernels 1
              and 3, ragged f32 S from 1 to each gate's largest (348 and 1,624
              at hd 64; 592 / 1,720 at hd 32, 184 / 1,432 at hd 128) for
-             kernels 1, 3 and 2, and the order checks (kernel 3 bit-equal to kernel 1 in
-             both dtypes, kernel 2 bit-equal to kernel 1 in f32 and within the
-             bf16 limits in bf16), kernel 7 (int8 GEMM on wgmma fed by TMA,
+             kernels 1, 3 and 2, and the order checks (kernel 3 bit-equal to
+             kernel 1 in both dtypes, kernel 2 bit-equal to kernel 1 in f32
+             and, where kernel 1 takes its two-pass path, in bf16; at S=77
+             within the bf16 limits), kernel 7 (int8 GEMM on wgmma fed by TMA,
              at the three ViT-B/32 int8_pallas shapes, timed by graph replay
              with the event time beside, against torch._int_mm alone and
              torch._int_mm with the plain epilogue, and the host cost of one
@@ -85,9 +92,12 @@ line.
              scale, cosine >= 0.9999; f32 on one block <= 1e-4 of scale) and
              to the model's own Bottleneck.forward (cosine >= 0.999); kernel,
              plain and model-block times at l1b0_ds, l1b1, l2b1, l3b1, l4b1
-             (bf16: mma.sync on the tensor cores); f32 (CUDA-core FMAs, on no
-             main path) at l2b1 on 8 images, timed beside the plain version
-             and the model's block run in f32.
+             (bf16: mma.sync on the tensor cores); f32 (split-TF32 on the
+             tensor cores, on no main path) at l1b1, l2b1, l3b1 and l4b1 on 8
+             images, each within 1e-4 of scale of the plain version and
+             cosine 0.999 of the model's block run in f32, timed beside both
+             (kernel 8 at every strip and images per block that fit, the
+             fastest kept).
 7. vit     — ViT-B/32 at full width and depth in bf16, the same drive three
              times with the counts set to 0 before each: unfused (kernel 1),
              fuse_qkv=True (kernel 3) and quant="int8_pallas" (kernel 7 and
@@ -183,7 +193,7 @@ import time
 # Published H100 SXM peaks (NVIDIA data sheet, dense), for bound_ms.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
-PEAK_TF32_FLOPS = 495e12  # f32 kernels 4-6: three TF32 products per product
+PEAK_TF32_FLOPS = 495e12  # f32 kernels 4-6, 8-9: three TF32 products per product
 PEAK_INT8_OPS = 1979e12
 SEED = 0
 BF16_ULP = 2.0 ** -8
@@ -272,51 +282,50 @@ def phase_device():
 
 
 def phase_build(check=True):
-    """Build every kernel; with ``check``, print and check registers and
-    spills."""
+    """Build every kernel and print the registers and spills of kernels 1-3,
+    of every flash instantiation, of kernel 7 and of kernels 8-9; with
+    ``check``, fail on the spills listed in the module docstring."""
     from debiasing_multi_modal_tpu_torch.ops import cuda_build
 
     seconds = cuda_build.build_all()
     emit({"phase": "build", "kernels": cuda_build.kernel_names(),
           "seconds": seconds})
+    # registers and spills (nvcc -Xptxas=-v)
+    usage = {}
+    for lib, source in (("short_attention", "short_attention.cu"),
+                        ("short_attention_qtiled", "short_attention_qtiled.cu"),
+                        ("flash_attention", "flash_attention.cu"),
+                        ("quant_gemm", "quant_gemm.cu"), ("bottleneck", "bottleneck.cu")):
+        usage[lib] = cuda_build.ptxas_usage(lib)
+        emit({"phase": "build", "ptxas": source, "functions": usage[lib]})
     if not check:
         return
-    # registers and spills of kernels 1-3, of every flash instantiation, of
-    # kernel 7 and of kernels 8-9 (nvcc -Xptxas=-v)
-    short = cuda_build.ptxas_usage("short_attention")
-    emit({"phase": "build", "ptxas": "short_attention.cu", "functions": short})
-    qtiled = cuda_build.ptxas_usage("short_attention_qtiled")
-    emit({"phase": "build", "ptxas": "short_attention_qtiled.cu", "functions": qtiled})
-    flash = cuda_build.ptxas_usage("flash_attention")
-    emit({"phase": "build", "ptxas": "flash_attention.cu", "functions": flash})
-    gemm = cuda_build.ptxas_usage("quant_gemm")
-    emit({"phase": "build", "ptxas": "quant_gemm.cu", "functions": gemm})
-    block = cuda_build.ptxas_usage("bottleneck")
-    emit({"phase": "build", "ptxas": "bottleneck.cu", "functions": block})
     # bf16 kernel 4 at every hd, f32 kernel 4 and bf16 and f32 kernels 5-6
     # at hd 32/64 (f32 all split-TF32), kernel 7, every f32 kernel-1
-    # (resident) and kernel-2 (streamed) tile at hd 32/64, and the three bf16
-    # instantiations of kernels 8-9
+    # (resident) and kernel-2 (streamed) tile at hd 32/64, the three bf16
+    # kernel-2 instantiations and the six of kernels 8-9 (bf16 and
+    # split-TF32 f32)
     must_not_spill = (r"fwd_tc_kernelILi(32|64|128)E|(fwd|dq|dkv)_f32tc_kernelILi(32|64)E"
                       r"|(dq|dkv)_tc_kernelILi(32|64)E|int8_gemm|f32_attn_kernelILi(32|64)E"
-                      r"|bottleneck_tc_kernel")
-    checked = [row for row in short + qtiled + flash + gemm + block
+                      r"|qtiled_tc_kernel|bottleneck_tc_kernel")
+    checked = [row for rows in usage.values() for row in rows
                if re.search(must_not_spill, row["function"])]
-    libs = {"short_attention", "short_attention_qtiled", "flash_attention", "quant_gemm",
-            "bottleneck"}
-    if libs - set(cuda_build.build_logs):
+    if set(usage) - set(cuda_build.build_logs):
         emit({"phase": "build", "ptxas": "libraries built by an earlier run: not re-read"})
-    elif len(checked) != 3 + 6 + 4 + 2 + 2 * (2 + 3) + 3:
-        raise AssertionError(f"expected 28 no-spill instantiations, found {len(checked)}")
+    elif len(checked) != 3 + 6 + 4 + 2 + 2 * (2 + 3) + 3 + 6:
+        raise AssertionError(f"expected 34 no-spill instantiations, found {len(checked)}")
     spilled = [row["function"] for row in checked
                if row.get("spill_store_bytes") or row.get("spill_load_bytes")]
     if spilled:
         raise AssertionError(f"kernels that must not spill registers do: {spilled}")
 
 
-def _attention_bound_ms(b, s, d, h, causal, dtype, itemsize):
+def _attention_bound_ms(b, s, d, h, causal, dtype, itemsize, passes=1):
+    """The least time of the function: 4 flops per (query, key, head dim),
+    QK^T and PV, against each tensor read or written once.  ``passes=2``
+    counts a two-pass kernel's work instead (QK^T twice: 6 flops)."""
     pairs = h * (s * (s + 1) // 2 if causal else s * s)  # (query, key) pairs per image
-    flops = 4 * b * pairs * (d // h)                     # QK^T and PV, 2 flops per MAC
+    flops = (2 + 2 * passes) * b * pairs * (d // h)      # 2 flops per MAC
     bytes_ms = 4 * b * s * d * itemsize / HBM_BYTES_PER_S * 1e3
     flops_ms = flops / PEAK_FLOPS[str(dtype)] * 1e3
     return max(bytes_ms, flops_ms), ("bytes" if bytes_ms >= flops_ms else "operations")
@@ -373,7 +382,7 @@ def _attention_case(kernel, plain, label, b, s, d, h, causal, dtype, tol, gen,
     exact = _attention_f64(q, k, v, h, causal)
     row = {"case": label, "shape": [b, s, d, h], "causal": causal,
            "dtype": str(dtype), "max_abs_err": err, "tolerance": tol,
-           "cosine": cos,
+           "scale": ref.float().abs().max().item(), "cosine": cos,
            "kernel_err_vs_f64": (out.double() - exact).abs().max().item(),
            "plain_err_vs_f64": (ref.double() - exact).abs().max().item()}
     del exact
@@ -391,6 +400,8 @@ def _attention_case(kernel, plain, label, b, s, d, h, causal, dtype, tol, gen,
         row["library_call"] = "torch.nn.functional.scaled_dot_product_attention"
         row["bound_ms"], row["bound_by"] = _attention_bound_ms(
             b, s, d, h, causal, dtype, q.element_size())
+        row["two_pass_bound_ms"] = _attention_bound_ms(
+            b, s, d, h, causal, dtype, q.element_size(), passes=2)[0]
     emit({"phase": "kernels", "kernel": kernel.__name__, **row})
     return row
 
@@ -409,12 +420,47 @@ RAGGED_F32 = [(f"ragged_s{s}_{'causal' if causal else 'noncausal'}_f32", 3, s, 5
               for s in RAGGED_F32_S for causal in (False, True)]
 
 
+# bf16 kernel 2 past bf16 kernel 1's gate (832 at hd 64), on no main path:
+# ragged against its 16-row warp tiles, 64-key chunks and 128-row q tiles
+# (833, 900, 1111), causal, hd 32 / 64 / 128 up to each gate's largest S
+# (1,750 / 1,686 / 1,558); (label, B, S, D, H, causal)
+QTILED_BF16 = [("ragged_s833_bf16", 3, 833, 512, 8, False),
+               ("ragged_s1111_causal_bf16", 2, 1111, 512, 8, True),
+               ("gate_largest_hd64_bf16", 2, 1686, 512, 8, False),
+               ("gate_largest_hd64_causal_bf16", 2, 1686, 512, 8, True),
+               ("ragged_s900_hd32_bf16", 3, 900, 256, 8, False),
+               ("gate_largest_hd32_causal_bf16", 2, 1750, 256, 8, True),
+               ("ragged_s1025_hd128_causal_bf16", 2, 1025, 512, 4, True),
+               ("gate_largest_hd128_bf16", 2, 1558, 512, 4, False)]
+
+
+def _qtiled_bf16_cases(gen):
+    """bf16 kernel 2: timed at ViT-L/14@448's image shape (S=1025) beside
+    its plain version and SDPA, then the ragged cases, each within 2e-2,
+    1e-2 of the plain version's scale and cosine 0.9999 of it."""
+    import torch
+
+    from debiasing_multi_modal_tpu_torch.ops import short_attention as sa
+
+    bf16 = torch.bfloat16
+    rows = [_attention_case(sa.short_attention_qtiled, sa.short_attention_reference, *case,
+                            bf16, 2e-2, gen, timed)
+            for *case, timed in [("vitl14_448_bf16", 4, 1025, 1024, 16, False, True),
+                                 *[(*c, False) for c in QTILED_BF16]]]
+    bad = [r["case"] for r in rows if not r["max_abs_err"] <= 1e-2 * r["scale"]]
+    if bad:
+        raise AssertionError(f"bf16 kernel 2 off by more than 1e-2 of scale: {bad}")
+    return rows
+
+
 def _order_checks(gen):
     """Kernel 3 runs kernel 1's device code, so the two are bit-equal in both
-    dtypes; kernel 2 sums in kernel 1's f32 order (bit-equal in f32), while
-    bf16 kernel 1 runs on the tensor cores, so there kernel 2 is held to the
-    bf16 limits (2e-2, cosine >= 0.9999).  Comparison launches, not counted
-    as the main path's."""
+    dtypes; kernel 2 sums in kernel 1's f32 order (bit-equal in f32), and in
+    bf16 runs kernel 1's two-pass tensor-core path, so the two are bit-equal
+    where kernel 1 takes that path (S > 80 at hd 64, S > 32 at hd 128); at
+    S = 77 kernel 1 holds a row's keys in one chunk (another order), and
+    kernel 2 is held to the bf16 limits (2e-2, cosine >= 0.9999).
+    Comparison launches, not counted as the main path's."""
     import torch
     import torch.nn.functional as F
 
@@ -437,6 +483,14 @@ def _order_checks(gen):
             checks.update(qtiled_vs_whole_row_bfloat16_max_abs=err,
                           qtiled_vs_whole_row_bfloat16_cosine=cos,
                           qtiled_within_bf16_limits_of_whole_row=err <= 2e-2 and cos >= 0.9999)
+    two_pass = []
+    for b, s, d, h in [(8, 577, 512, 8), (4, 832, 512, 8), (4, 1111, 256, 8), (4, 257, 512, 4)]:
+        q, k, v = (torch.randn(b, s, d, device="cuda", generator=gen).bfloat16()
+                   for _ in range(3))
+        for causal in (False, True):
+            two_pass.append(torch.equal(sa.short_attention_qtiled(q, k, v, h, causal=causal),
+                                        sa.short_attention(q, k, v, h, causal=causal)))
+    checks["qtiled_equals_whole_row_bfloat16_two_pass"] = all(two_pass)
     bad = [key for key, val in checks.items() if val is False]
     if bad:
         raise AssertionError(f"kernels 1-3 disagree: {bad} {checks}")
@@ -547,8 +601,6 @@ def phase_kernels():
         results["short_attention"].append(_attention_case(
             sa.short_attention, sa.short_attention_reference, *case[:8], gen, case[8]))
     for case in [("vitl14_336_f32", 8, 577, 1024, 16, False, f32, 1e-5, True),
-                 # bf16 kernel 2, on no main path, timed for the record
-                 ("vitl14_448_bf16", 4, 1025, 1024, 16, False, bf16, 2e-2, True),
                  ("ragged_causal_f32", 3, 1111, 256, 4, True, f32, 1e-5, False),
                  ("gate_largest_hd32_f32", 2, 1720, 256, 8, False, f32, 1e-5, False),
                  ("gate_largest_hd128_f32", 2, 1432, 512, 4, True, f32, 1e-5, False),
@@ -556,6 +608,7 @@ def phase_kernels():
         results["short_attention_qtiled"].append(_attention_case(
             sa.short_attention_qtiled, sa.short_attention_reference, *case[:8], gen,
             case[8]))
+    results["short_attention_qtiled"] += _qtiled_bf16_cases(gen)
     for case in [("vitb32_packed_bf16", 256, 50, 768, 12, False, bf16, 2e-2, True),
                  ("text_packed_bf16", 256, 77, 512, 8, True, bf16, 2e-2, True),
                  *ragged, *whole32]:
@@ -1130,16 +1183,21 @@ def phase_fuse_bn(slice_perf):
 def _bottleneck_bound_ms(b, h, cin, m, cout, ds, itemsize):
     """Each input read once (x, weights of x's dtype, f32 biases), the output
     written once; 2 flops per multiply-add of the four (five) products at
-    the bf16 (f32) peak."""
+    the bf16 peak, or in f32 as three TF32 products each at the TF32 peak
+    (the kernels' split-TF32 route).  Also returns the operations bound at
+    the dtype's PEAK_FLOPS (in f32 the CUDA cores' FMA peak)."""
     import torch
 
     macs_per_px = cin * m + 9 * m * m + m * cout + (cin * cout if ds else 0)
     weight_bytes = macs_per_px * itemsize + 4 * (2 * m + cout + (cout if ds else 0))
     nbytes = b * h * h * (cin + cout) * itemsize + weight_bytes
     dtype = torch.bfloat16 if itemsize == 2 else torch.float32
-    flops_ms = 2 * b * h * h * macs_per_px / PEAK_FLOPS[str(dtype)] * 1e3
+    flops = 2 * b * h * h * macs_per_px
+    at_peak_ms = flops / PEAK_FLOPS[str(dtype)] * 1e3
+    flops_ms = 3 * flops / PEAK_TF32_FLOPS * 1e3 if itemsize == 4 else at_peak_ms
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    return max(bytes_ms, flops_ms), ("bytes" if bytes_ms >= flops_ms else "operations")
+    return (max(bytes_ms, flops_ms), "bytes" if bytes_ms >= flops_ms else "operations",
+            max(bytes_ms, at_peak_ms))
 
 
 def _block_close(out, ref):
@@ -1236,48 +1294,72 @@ def phase_rn50_blocks(model):
                         lambda: entry["block"](entry["x"]), **fast)
                 row["library_ms"] = None
                 row["library_call"] = "none: no single call computes the block"
-                row["bound_ms"], row["bound_by"] = _bottleneck_bound_ms(
+                row["bound_ms"], row["bound_by"], _ = _bottleneck_bound_ms(
                     b, h, cin, m, cout, ds, x.element_size())
             emit({"phase": "rn50_blocks", "kernel": kname, **row})
             cases[kname].append(row)
         del plain, model_out
 
-    # f32 on one block (l2b1 at 8 images): both kernels against the plain
-    # version and the model's block run in f32 (on no main path; timed for
-    # the record, TF32 off as the f32 convolutions always run)
-    entry = blocks["l2b1"]
-    x = entry["x_nhwc"][:8].float()
-    w = [t.float() for t in entry["weights"][:6]]
-    strip = cg.pick_strip_rows(x.shape[1], x.shape[2], w[0].shape[1], 4)
-    block32 = copy.deepcopy(entry["block"])
-    block32.dtype = torch.float32
-    x_nchw = entry["x"][:8].float()
+    # f32 (split-TF32 on the tensor cores, on no main path) at l1b1, l2b1,
+    # l3b1 and l4b1 on 8 images: both kernels against the plain version and
+    # the model's block run in f32 (TF32 off, as the f32 convolutions always
+    # run), timed beside both; kernel 8 at every (strip, images per block)
+    # that fits, the fastest kept as its time (at 8 images the largest strip
+    # leaves SMs idle, and at layers 3-4 every block re-reads all weights),
+    # kernel 9 at its own strip, one image per block
     fast = dict(runs=10, calls=5, warmup=2)
-    with torch.inference_mode():
-        plain = cg.xla_bottleneck(x, *w)
-        model32 = block32(x_nchw).permute(0, 2, 3, 1)
-        timings = {"plain_ms": time_ms(lambda: cg.xla_bottleneck(x, *w), **fast),
-                   "model_block_ms": time_ms(lambda: block32(x_nchw), **fast)}
-        for kname, run in (("fused_bottleneck_gemm",
-                            lambda: cg.fused_bottleneck_gemm(x, *w, strip_rows=strip)),
-                           ("fused_bottleneck", lambda: fb.fused_bottleneck(x, *w))):
-            out = run()
+    for name in ("l1b1", "l2b1", "l3b1", "l4b1"):
+        entry = blocks[name]
+        x = entry["x_nhwc"][:8].float()
+        w = [t.float() for t in entry["weights"][:6]]
+        b, h, _, cin = x.shape
+        m, cout = w[0].shape[1], w[4].shape[1]
+        block32 = copy.deepcopy(entry["block"])
+        block32.dtype = torch.float32
+        x_nchw = entry["x"][:8].float()
+        tilings = [(s, g) for s in range(1, h + 1) for g in (1, 2, 4, 8)
+                   if h % s == 0 and b % g == 0
+                   and cg.smem_bytes(h, m, s, g, 4) <= cg.SMEM_LIMIT_BYTES]
+        with torch.inference_mode():
+            plain = cg.xla_bottleneck(x, *w)
+            model32 = block32(x_nchw).permute(0, 2, 3, 1)
+            timings = {"plain_ms": time_ms(lambda: cg.xla_bottleneck(x, *w), **fast),
+                       "model_block_ms": time_ms(lambda: block32(x_nchw), **fast)}
+            by_tiling = {}
+            for strip, g in tilings:
+                def k8(strip=strip, g=g):
+                    return cg.fused_bottleneck_gemm(x, *w, strip_rows=strip, images_per_cell=g)
+
+                err, scale, cos = _block_close(k8(), plain)
+                _, _, cos_model = _block_close(k8(), model32)
+                by_tiling[strip, g] = {"ms": time_ms(k8, **fast), "max_abs_err": err,
+                                       "scale": scale, "cosine": cos,
+                                       "cosine_vs_model_block": cos_model}
+            best = min(by_tiling, key=lambda sg: by_tiling[sg]["ms"])
+            k9_strip = fb.strip_rows(h, h, m, 4)
+            out = fb.fused_bottleneck(x, *w)
             err, scale, cos = _block_close(out, plain)
             _, _, cos_model = _block_close(out, model32)
-            b, h, _, cin = x.shape
-            row = {"case": "l2b1_f32", "shape": list(x.shape) + [w[0].shape[1], w[4].shape[1]],
-                   "downsample": False, "dtype": "torch.float32", "strip_rows": strip,
-                   "max_abs_err": err, "scale": scale, "cosine": cos,
-                   "cosine_vs_model_block": cos_model, "ms": time_ms(run, **fast),
-                   **timings, "library_ms": None,
-                   "library_call": "none: no single call computes the block"}
-            row["bound_ms"], row["bound_by"] = _bottleneck_bound_ms(
-                b, h, cin, w[0].shape[1], w[4].shape[1], False, 4)
-            if not (err <= 1e-4 * scale and cos_model >= 0.999):
-                bad.append(f"{kname} l2b1_f32")
+            k9 = {"ms": time_ms(lambda: fb.fused_bottleneck(x, *w), **fast), "max_abs_err": err,
+                  "scale": scale, "cosine": cos, "cosine_vs_model_block": cos_model}
+        bound = _bottleneck_bound_ms(b, h, cin, m, cout, False, 4)
+        for kname, (strip, g), res in (("fused_bottleneck_gemm", best, by_tiling[best]),
+                                       ("fused_bottleneck", (k9_strip, 1), k9)):
+            row = {"case": f"{name}_f32", "shape": [b, h, h, cin, m, cout], "downsample": False,
+                   "dtype": "torch.float32", "strip_rows": strip, "images_per_cell": g,
+                   **res, **timings, "library_ms": None,
+                   "library_call": "none: no single call computes the block",
+                   "bound_ms": bound[0], "bound_by": bound[1], "fma_bound_ms": bound[2]}
+            if kname == "fused_bottleneck_gemm":
+                row["ms_by_strip_and_images"] = {f"s{s}g{gi}": v["ms"]
+                                                 for (s, gi), v in by_tiling.items()}
+            for r in (by_tiling.values() if kname == "fused_bottleneck_gemm" else [res]):
+                if not (r["max_abs_err"] <= 1e-4 * r["scale"]
+                        and r["cosine_vs_model_block"] >= 0.999):
+                    bad.append(f"{kname} {name}_f32")
             emit({"phase": "rn50_blocks", "kernel": kname, **row})
             cases[kname].append(row)
-    del block32
+        del block32, plain, model32
     if bad:
         raise AssertionError(f"bottleneck kernels disagree: {bad}")
     return {"rn50_blocks": launches}, cases
@@ -2409,8 +2491,11 @@ F32_DESIGN = ("f32 on the CUDA cores from register tiles (attention_f32.cuh: 16x
               "swizzled shared memory, warp-per-row exact softmax)")
 TC_DESIGN = ("CUDA C++; bf16 on the tensor cores (mma.sync.m16n8k16, ldmatrix, 16-byte "
              "cp.async into swizzled shared memory); " + F32_DESIGN)
-QTILED_DESIGN = ("CUDA C++; " + F32_DESIGN + ", K/V streamed through double-buffered key "
-                 "tiles; bf16 the first design (one warp per 4 rows, CUDA cores)")
+QTILED_DESIGN = ("CUDA C++; bf16 kernel 1's two-pass tensor-core path (mma.sync.m16n8k16, "
+                 "Q fragments in registers, 16-row warp tiles, 128-row q tiles) with K and V "
+                 "streamed through a three-stage ring of 64-key chunks by 16-byte "
+                 "cp.async (K alone for pass 1, K and V for pass 2); " + F32_DESIGN
+                 + ", K/V streamed through double-buffered key tiles")
 FLASH_BWD_DESIGN = ("CUDA C++; bf16 on the tensor cores (mma.sync.m16n8k16 with f32 "
                     "accumulators, ldmatrix/ldmatrix.trans, double-buffered 16-byte cp.async "
                     "into swizzled shared memory, p and ds rounded in registers; kernel 6 "
@@ -2430,8 +2515,9 @@ BOTTLENECK_DESIGN = ("CUDA C++; bf16 on the tensor cores: each phase an implicit
                      "accumulators, 32x64 warp tiles, weights (and x for conv1 and the "
                      "downsample) staged in 32-deep k-tiles through a ring of four swizzled "
                      "buffers by 16-byte cp.async, conv2 and conv3 reading A by ldmatrix straight "
-                     "from the swizzled y1 / y2 tiles at each lane's shifted pixel; f32 on "
-                     "CUDA-core FMAs")
+                     "from the swizzled y1 / y2 tiles at each lane's shifted pixel; f32 the "
+                     "same device code as split-TF32: three mma.sync.m16n8k8 TF32 products "
+                     "per product, hi/lo split on each fragment load, 16-deep f32 k-tiles)")
 INT8_DESIGN = ("CUDA C++; wgmma.mma_async m64n128k32 s8 from 128-byte-swizzled shared "
                "memory, fed by TMA (cp.async.bulk.tensor.2d) through a 3-stage mbarrier "
                "ring from one producer warp, two consumer warpgroups per 128x128 tile, the "
@@ -2469,12 +2555,14 @@ def _kernel_line(name, source, replaces, cases, launches_by_path, card, design=N
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", choices=["flash_f32", "rn50_blocks", "stage_b",
-                                           "contrastive", "sweep"],
+    parser.add_argument("--only", choices=["flash_f32", "qtiled_bf16", "rn50_blocks",
+                                           "stage_b", "contrastive", "sweep"],
                         help="flash_f32: build, then only the timed f32 cases of kernels 4-6 "
-                             "and the f32 128-pair training step; rn50_blocks: build, fold "
-                             "the seeded RN50, then only the rn50_blocks phase (kernels 8-9); "
-                             "either times another tree's kernels with this script; "
+                             "and the f32 128-pair training step; qtiled_bf16: build, then "
+                             "only bf16 kernel 2's cases (timed at S=1025 beside SDPA); "
+                             "rn50_blocks: build, fold the seeded RN50, then only the "
+                             "rn50_blocks phase (kernels 8-9, bf16 and f32); each times "
+                             "another tree's kernels with this script; "
                              "stage_b, contrastive, sweep: only that phase (no kernel to "
                              "build); none prints the final line")
     args = parser.parse_args(argv)
@@ -2486,6 +2574,13 @@ def main(argv=None):
         phase_build(check=False)
         _flash_cases(torch.Generator(device="cuda").manual_seed(SEED), f32_only=True)
         phase_train(f32_only=True)
+        emit({"phase": "summary", "only": args.only, "seconds": time.perf_counter() - t0})
+        return 0
+    if args.only == "qtiled_bf16":
+        import torch
+
+        phase_build(check=False)
+        _qtiled_bf16_cases(torch.Generator(device="cuda").manual_seed(SEED))
         emit({"phase": "summary", "only": args.only, "seconds": time.perf_counter() - t0})
         return 0
     if args.only in ("stage_b", "contrastive", "sweep"):

@@ -28,11 +28,10 @@
 //   phase 3: conv3 + bias, the residual (read from x, or the downsample
 //            product of x), the add and the ReLU, streamed to device memory.
 // The intermediates never reach device memory: the block reads x and the
-// weights and writes out.  In bf16 every phase runs on the tensor cores
-// (bottleneck_tc_kernel, mma.sync.m16n8k16 from ldmatrix fragments, the
-// weights staged through a ring of shared buffers by cp.async); f32 keeps the
-// first design on CUDA-core FMAs (bottleneck_f32_kernel), a correctness
-// route that is not timed.
+// weights and writes out.  In both dtypes every phase runs on the tensor
+// cores in one device code (bottleneck_tc_kernel<T, ...>, the weights staged
+// through a ring of shared buffers by cp.async): bf16 on mma.sync.m16n8k16,
+// f32 as split-TF32, three mma.sync.m16n8k8 TF32 products per product.
 //
 // What bounds it on the H100: at RN50's stride-1 blocks in bf16, batch 256,
 // the block's 2*B*H*W*(Cin*M + 9M^2 + M*Cout [+ Cin*Cout]) operations take
@@ -45,11 +44,22 @@
 // (the tiles take 200+ KB of shared memory, the accumulators 200-250
 // registers), so each per-tile barrier, each pass's pipeline fill and the
 // residual loads stall the SM; and at layers 3-4 every block reads all the
-// weights (2.2 / 8.9 MB) for 98 / 49 pixels (PERF.md).
+// weights (2.2 / 8.9 MB) for 98 / 49 pixels (PERF.md).  In f32 the three
+// TF32 products of l2b1 on 8 images take 0.021 ms at the TF32 peak, the same
+// work as one f32 product on the CUDA cores 0.052 ms; the bytes 0.008 ms.
+// A block still holds one SM (f32 tiles are twice bf16's), and at 8 images
+// the largest strips give 56-112 blocks for 132 SMs, so a caller picks the
+// strip (and images per block) by time.  Measured (PERF.md), a k-tile
+// costs about a microsecond whatever its work, so at layers 3-4, where a
+// block's few pixels leave half its warps idle and every block streams all
+// the weights (17.8 MB at layer 4) through ~1,100 tiles, f32 is slower than
+// the model's block.  The three products of each accumulator are issued in
+// rounds over all 16 accumulators (issued back to back they would wait on
+// each other), and a warp skips its second m-tile where it has no rows.
 //
 // The shared tiles decide the strip: (G*(S+2)*(W+2)*M + G*S*W*M) elements
-// of T, and in bf16 the ring of stage buffers (81,920 bytes), must fit the
-// 232,448 bytes a block may use (smem_bytes; the Python gate
+// of T plus the ring of stage buffers (81,920 bytes in either dtype) must
+// fit the 232,448 bytes a block may use (smem_bytes; the Python gate
 // ops/conv_gemm.py::smem_bytes mirrors it).
 //
 // C interface for ctypes: each entry launches on the given stream,
@@ -65,11 +75,14 @@ namespace {
 using dmt::cp_async16;
 using dmt::cp_async_commit;
 using dmt::cp_async_wait;
+using dmt::Frag;
 using dmt::ldsm_x4;
 using dmt::ldsm_x4_trans;
 using dmt::mma_bf16;
+using dmt::mma_tf32;
 using dmt::pack_bf16;
 using dmt::smem_u32;
+using dmt::split;
 using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;
@@ -89,233 +102,47 @@ struct Params {
   int H, W, Cin, M, Cout, S, G;
 };
 
-// ------------------------------------------------ f32: CUDA-core FMAs
+// ------------------------------------------------ the tensor-core kernel
 //
-// The f32 route is a correctness route (not timed): each phase is a small
-// GEMM computed by thread tiles of 4 pixel rows x 8 channels of f32 FMAs,
-// A rows from x (global) or the shared tiles, the weights [K, N] read from
-// global memory (L2).  Neighbouring lanes take neighbouring channel groups,
-// so a warp's weight loads are contiguous and its A loads are broadcasts.
-
-constexpr int kRP = 4;  // pixel rows per thread tile
-constexpr int kRC = 8;  // channels per thread tile, one 8-element vector
-
-__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-__device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
-}
-
-__device__ __forceinline__ void zero(float (&acc)[kRP][kRC]) {
-#pragma unroll
-  for (int i = 0; i < kRP; ++i)
-#pragma unroll
-    for (int j = 0; j < kRC; ++j) acc[i][j] = 0.f;
-}
-
-// acc[i][j] += sum_{k < K} a[i][k] * w[k * ldw + j]: one thread tile of a
-// GEMM whose weight w [K, ldw] (already offset to the tile's first column)
-// lies in global memory.  K is a multiple of 8.
-__device__ __forceinline__ void mac(float (&acc)[kRP][kRC], const float* const (&a)[kRP],
-                                    const float* __restrict__ w, int ldw, int K) {
-  for (int k = 0; k < K; k += 8) {
-    float av[kRP][8];
-#pragma unroll
-    for (int i = 0; i < kRP; ++i) load8(a[i] + k, av[i]);
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      float wv[kRC];
-      load8(w + (size_t)(k + kk) * ldw, wv);
-#pragma unroll
-      for (int i = 0; i < kRP; ++i)
-#pragma unroll
-        for (int j = 0; j < kRC; ++j) acc[i][j] = fmaf(av[i][kk], wv[j], acc[i][j]);
-    }
-  }
-}
-
-template <bool kDownsample, bool kShifted>
-__global__ void __launch_bounds__(kThreads, 1) bottleneck_f32_kernel(const Params p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int H = p.H, W = p.W, Cin = p.Cin, M = p.M, Cout = p.Cout, S = p.S, G = p.G;
-  const int Wp = W + 2;
-  const int r0 = blockIdx.x * S;  // first output row of the strip
-  const int n0 = blockIdx.y * G;  // first image of the group
-  const float* __restrict__ x = static_cast<const float*>(p.x);
-  const float* __restrict__ w1 = static_cast<const float*>(p.w1);
-  const float* __restrict__ w2 = static_cast<const float*>(p.w2);
-  const float* __restrict__ w3 = static_cast<const float*>(p.w3);
-  float* __restrict__ out = static_cast<float*>(p.out);
-  float* y1s = reinterpret_cast<float*>(smem);          // [G][S+2][W+2][M]
-  float* y2s = y1s + (size_t)G * (S + 2) * Wp * M;      // [G][S][W][M]
-  const int cgm = M / kRC;
-
-  // ---- phase 1: y1 (strip rows and halo) into the zero-bordered tile
-  {
-    // border columns 0 and W+1 of every tile row
-    const int vecs = G * (S + 2) * 2 * cgm;
-    for (int v = threadIdx.x; v < vecs; v += kThreads) {
-      const int c0 = (v % cgm) * kRC;
-      const int rowcol = v / cgm;  // (g, rr, side)
-      const int col = (rowcol % 2) ? W + 1 : 0;
-      const float zeros[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      store8(y1s + ((size_t)(rowcol / 2) * Wp + col) * M + c0, zeros);
-    }
-    const int rows = G * (S + 2) * W;
-    const int tiles = (rows + kRP - 1) / kRP * cgm;
-    for (int t = threadIdx.x; t < tiles; t += kThreads) {
-      const int c0 = (t % cgm) * kRC, p0 = (t / cgm) * kRP;
-      const float* a[kRP];
-      int dst[kRP];
-      bool inside[kRP];
-#pragma unroll
-      for (int i = 0; i < kRP; ++i) {
-        const int q = min(p0 + i, rows - 1);
-        const int g = q / ((S + 2) * W), rr = (q / W) % (S + 2), col = q % W;
-        const int row = r0 - 1 + rr;
-        inside[i] = row >= 0 && row < H;
-        const int rowc = min(max(row, 0), H - 1);
-        a[i] = x + (((size_t)(n0 + g) * H + rowc) * W + col) * Cin;
-        dst[i] = ((g * (S + 2) + rr) * Wp + col + 1) * M + c0;
-      }
-      float acc[kRP][kRC];
-      zero(acc);
-      mac(acc, a, w1 + c0, M, Cin);
-#pragma unroll
-      for (int i = 0; i < kRP; ++i) {
-        if (p0 + i >= rows) break;
-        float v[8];
-#pragma unroll
-        for (int j = 0; j < kRC; ++j)
-          v[j] = inside[i] ? fmaxf(acc[i][j] + p.b1[c0 + j], 0.f) : 0.f;
-        store8(y1s + dst[i], v);
-      }
-    }
-  }
-  __syncthreads();
-
-  // ---- phase 2: y2 = relu(conv3x3(y1) + b2) into shared memory
-  {
-    const int rows = G * S * W;
-    const int tiles = (rows + kRP - 1) / kRP * cgm;
-    for (int t = threadIdx.x; t < tiles; t += kThreads) {
-      const int c0 = (t % cgm) * kRC, p0 = (t / cgm) * kRP;
-      const float* base[kRP];  // the (dy, dx) = (0, 0) corner of each pixel's window
-#pragma unroll
-      for (int i = 0; i < kRP; ++i) {
-        const int q = min(p0 + i, rows - 1);
-        const int g = q / (S * W), s = (q / W) % S, col = q % W;
-        base[i] = y1s + ((size_t)(g * (S + 2) + s) * Wp + col) * M;
-      }
-      float acc[kRP][kRC];
-      zero(acc);
-#pragma unroll 1
-      for (int shift = 0; shift < 9; ++shift) {
-        const int off = ((shift / 3) * Wp + shift % 3) * M;
-        const float* a[kRP];
-#pragma unroll
-        for (int i = 0; i < kRP; ++i) a[i] = base[i] + off;
-        const float* ws = w2 + (size_t)shift * M * M + c0;
-        if (kShifted) {  // kernel 9: each shift's product on its own, then added
-          float part[kRP][kRC];
-          zero(part);
-          mac(part, a, ws, M, M);
-#pragma unroll
-          for (int i = 0; i < kRP; ++i)
-#pragma unroll
-            for (int j = 0; j < kRC; ++j) acc[i][j] += part[i][j];
-        } else {  // kernel 8: one K = 9M contraction
-          mac(acc, a, ws, M, M);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < kRP; ++i) {
-        if (p0 + i >= rows) break;
-        float v[8];
-#pragma unroll
-        for (int j = 0; j < kRC; ++j) v[j] = fmaxf(acc[i][j] + p.b2[c0 + j], 0.f);
-        store8(y2s + (size_t)(p0 + i) * M + c0, v);
-      }
-    }
-  }
-  __syncthreads();
-
-  // ---- phase 3: out = relu(y2 @ w3 + b3 + res) to device memory
-  {
-    const int rows = G * S * W;
-    const int cgo = Cout / kRC;
-    const int tiles = (rows + kRP - 1) / kRP * cgo;
-    for (int t = threadIdx.x; t < tiles; t += kThreads) {
-      const int c0 = (t % cgo) * kRC, p0 = (t / cgo) * kRP;
-      const float* a[kRP];
-      const float* xr[kRP];
-      size_t pix[kRP];
-#pragma unroll
-      for (int i = 0; i < kRP; ++i) {
-        const int q = min(p0 + i, rows - 1);
-        const int g = q / (S * W), s = (q / W) % S, col = q % W;
-        pix[i] = ((size_t)(n0 + g) * H + r0 + s) * W + col;
-        a[i] = y2s + (size_t)q * M;
-        xr[i] = x + pix[i] * Cin;
-      }
-      float acc[kRP][kRC];
-      zero(acc);
-      mac(acc, a, w3 + c0, Cout, M);
-      float res[kRP][kRC];
-      if (kDownsample) {
-        zero(res);
-        mac(res, xr, static_cast<const float*>(p.wd) + c0, Cout, Cin);
-#pragma unroll
-        for (int i = 0; i < kRP; ++i)
-#pragma unroll
-          for (int j = 0; j < kRC; ++j) res[i][j] += p.bd[c0 + j];
-      } else {
-#pragma unroll
-        for (int i = 0; i < kRP; ++i) load8(xr[i] + c0, res[i]);
-      }
-#pragma unroll
-      for (int i = 0; i < kRP; ++i) {
-        if (p0 + i >= rows) break;
-        float v[8];
-#pragma unroll
-        for (int j = 0; j < kRC; ++j) v[j] = fmaxf(acc[i][j] + p.b3[c0 + j] + res[i][j], 0.f);
-        store8(out + pix[i] * Cout + c0, v);
-      }
-    }
-  }
-}
-
-// ------------------------------------------------ bf16: tensor cores
+// Every product is an implicit GEMM, rows = pixels, columns = channels, with
+// f32 accumulators.  Each warp owns a 32-row x 64-column tile of a pass
+// (acc[2][8][4]); the 8 warps of a block form wm x wn = 8 x 1, 4 x 2 or 2 x 4
+// tiles (pick_layout: the least estimated time for this phase's rows,
+// columns and depth), so a pass covers 32 wm rows x 64 wn columns.  A pass
+// walks K in k-tiles of 64 bytes of an A row (32 bf16 or 16 f32 channels):
+// the weight rows [K, N] of the pass's columns (B), and for conv1 and the
+// downsample the x rows of the pass's pixels (A), go through a ring of four
+// stage buffers by 16-byte cp.async (tiles i+1..i+3 in flight while tile i
+// is multiplied, one block barrier per tile).  conv2 and conv3 read A
+// straight from the shared y1 and y2 tiles by ldmatrix: for conv2 each lane
+// gives the address of its own pixel's window corner plus the (dy, dx)
+// shift, so the nine shifts are nine base offsets and no patch matrix is
+// built.  Tiles are XORed by 16-byte chunk with the row (swizzle_mask) so
+// the 8 rows one ldmatrix matrix reads hit 8 different bank groups.
 //
-// Every product is an implicit GEMM, rows = pixels, columns = channels, on
-// mma.sync.m16n8k16 (bf16 operands, f32 accumulators).  Each warp owns a
-// 32-row x 64-column tile of a pass (acc[2][8][4]); the 8 warps of a block
-// form wm x wn = 8 x 1, 4 x 2 or 2 x 4 tiles (pick_layout: the least
-// estimated time for this phase's rows, columns and depth), so a pass covers
-// 32 wm rows x 64 wn columns.  A pass walks K in 32-deep tiles: the weight
-// rows [K, N] of the pass's columns (B), and for conv1 and the downsample
-// the x rows of the pass's pixels (A), go through a ring of four stage
-// buffers by 16-byte cp.async (tiles i+1..i+3 in flight while tile i is
-// multiplied, one block barrier per tile), read by ldmatrix.trans (B) and
-// ldmatrix (A).  conv2 and conv3
-// read A straight from the shared y1 and y2 tiles by ldmatrix: for conv2
-// each lane gives the address of its own pixel's window corner plus the
-// (dy, dx) shift, so the nine shifts are nine base offsets and no patch
-// matrix is built.  Tiles are XORed by 16-byte chunk with the row
-// (swizzle_mask) so the 8 rows one ldmatrix matrix reads hit 8 different
-// bank groups.
+// bf16: mma.sync.m16n8k16 (bf16 operands), A by ldmatrix, B by
+// ldmatrix.trans from weight rows whose chunks are XORed with row & 7.
+//
+// f32, as split-TF32: each product is three mma.sync.m16n8k8 TF32 products,
+// a_lo.b_hi + a_hi.b_lo + a_hi.b_hi (common.cuh: split, the hi/lo split made
+// on each fragment load, as flash_f32_tc.cuh does for kernels 4-6; ~1e-6 of
+// scale, where one TF32 product would leave ~1e-3).  A 16-byte chunk holds 4
+// f32 channels, and ldmatrix's 8x8 b16 matrices read as 8 rows x 4 words give
+// exactly the m16n8k8 TF32 A fragment, so A comes by the bf16 path's own
+// ldmatrix addresses.  B comes by scalar loads of rows k = t and t + 4,
+// columns g of each 8-column step, from weight rows whose chunks are XORed
+// with 2 (row & 3): the 4 rows x 8 columns a warp reads hit 32 banks.  A
+// k-tile holds the bytes of a bf16 one, so the ring is the same.
 
-constexpr int kKT = 32;     // k depth of a stage tile (2 k16 steps)
-constexpr int kStages = 4;  // the ring: tiles it+1..it+3 in flight while it is multiplied
-// one stage buffer: B [32, 64 wn] and A [32 wm, 32] bf16, 20,480 bytes at
-// wn = 1 or 4 and 16,384 at wn = 2
-constexpr int kStageBytes = kKT * 2 * (64 + 256);
+template <typename T> __host__ __device__ constexpr bool is_f32() { return std::is_same<T, float>::value; }
+// elements per 16-byte chunk, log2
+template <typename T> __host__ __device__ constexpr int chunk_shift() { return is_f32<T>() ? 2 : 3; }
+
+constexpr int kKTBytes = 64;  // bytes of an A row per k-tile: 32 bf16 or 16 f32 channels
+constexpr int kStages = 4;    // the ring: tiles it+1..it+3 in flight while it is multiplied
+// one stage buffer: B [k-tile, 64 wn] and A [32 wm, k-tile], 20,480 bytes at
+// wn = 1 or 4 and 16,384 at wn = 2, in either dtype
+constexpr int kStageBytes = kKTBytes * (64 + 256);
 
 // The XOR mask of a tile with C 16-byte chunks per row: chunk c of row r
 // sits at chunk c ^ (r & mask), within each group of 8 chunks (fewer where C
@@ -330,11 +157,14 @@ struct Layout {
 
 // The warp layout of a phase with R rows and N columns, a weight of depth Kb
 // and x rows of depth Ka staged from device memory: the least estimated
-// time, counting the padded products at the tensor cores' rate (~4,270 flop
-// per clock per SM) and the bytes each pass stages from L2 (~24 per clock
+// time, counting the padded products at the tensor cores' bf16 rate (~4,270
+// flop per clock per SM; split-TF32 takes six times as long: three products
+// at half the rate) and the bytes each pass stages from L2 (~24 per clock
 // per SM when every SM streams): the weight [Kb, 64 wn] and the x rows
 // [32 wm, Ka] of every pass.
+template <typename T>
 __device__ __forceinline__ Layout pick_layout(int R, int N, int Kb, int Ka) {
+  constexpr float kFlopCost = is_f32<T>() ? 6.f : 1.f;
   Layout best{8, 1};
   float best_cost = -1.f;
   for (int wn = 1; wn <= 4; wn *= 2) {
@@ -342,8 +172,8 @@ __device__ __forceinline__ Layout pick_layout(int R, int N, int Kb, int Ka) {
     const int wm = 8 / wn;
     const float passes = (float)((R + 32 * wm - 1) / (32 * wm)) * ((N + 64 * wn - 1) / (64 * wn));
     const float flops = 2.f * 32 * wm * 64 * wn * Kb;
-    const float bytes = 2.f * (Kb * 64 * wn + Ka * 32 * wm);
-    const float cost = passes * (flops / 4270.f + bytes / 24.f);
+    const float bytes = (float)sizeof(T) * (Kb * 64 * wn + Ka * 32 * wm);
+    const float cost = passes * (kFlopCost * flops / 4270.f + bytes / 24.f);
     if (best_cost < 0.f || cost < best_cost) {
       best = Layout{wm, wn};
       best_cost = cost;
@@ -383,31 +213,43 @@ struct Strip {  // the block's share of the batch
 
 // One GEMM pass of the warp's 32 x 64 tile, the block's warps laid out
 // (8 / WN) x WN: acc (+)= A . B, K walked as n_seg segments of Kseg (conv2:
-// nine shifts of M; otherwise one of K), each in 32-deep tiles through the
-// kStages-buffer ring.  B is the
+// nine shifts of M; otherwise one of K), each in k-tiles through the
+// kStages-buffer ring at stage (stage_p its generic address).  B is the
 // [n_seg Kseg, N] weight at columns np + [0, 64 WN).  A is the x rows xpix[]
 // of the pass (kGlobalA, staged), or rows of a shared tile at a_tile whose
 // pixel for the lane's row of m-tile mi is apix[mi] plus the segment's (dy,
 // dx) shift, CA chunks per pixel, chunks XORed with the pixel's bits amask.
 // kParts (kernel 9): each segment sums into its own zeroed part, then is
-// added to acc.  Every address that does not move with the k-tile is
+// added to acc (bf16), or handed to add_part(part, seg) (f32, which keeps
+// the running sum in the y2 tile: registers).  Every address that does not move with the k-tile is
 // computed once per pass: the layout is a template parameter, so the copy
 // and fragment offsets are shifts and adds.
-template <bool kGlobalA, bool kParts, int WN>
-__device__ __forceinline__ void gemm_pass(float (&acc)[2][8][4], uint32_t stage, int wr, int wc,
-                                          const bf16* __restrict__ w, int N, int Kseg, int n_seg,
+struct NoPart {
+  __device__ void operator()(const float (&)[2][8][4], int) const {}
+};
+
+template <typename T, bool kGlobalA, bool kParts, int WN, typename AddPart = NoPart>
+__device__ __forceinline__ void gemm_pass(float (&acc)[2][8][4], uint32_t stage,
+                                          const unsigned char* stage_p, int wr, int wc,
+                                          const T* __restrict__ w, int N, int Kseg, int n_seg,
                                           int Wp, int np, int rp, int R,
-                                          const bf16* __restrict__ x, const int (&xpix)[4],
+                                          const T* __restrict__ x, const int (&xpix)[4],
                                           uint32_t a_tile, const int (&apix)[2], int CA,
-                                          int amask) {
-  constexpr int WM = 8 / WN, NP = 64 * WN, CB = NP / 8;
-  constexpr int kBRows = kThreads / CB;          // weight rows one sweep of the block copies
-  constexpr uint32_t kAOff = kKT * NP * 2;       // A part of a stage buffer, after B
-  static_assert(kBRows % 8 == 0 && kKT % kBRows == 0, "a thread's chunks share a swizzle");
+                                          int amask, AddPart add_part = AddPart()) {
+  constexpr bool kF32 = is_f32<T>();
+  constexpr int kSh = chunk_shift<T>(), kEl = 1 << kSh;  // elements per chunk
+  constexpr int kKT = kKTBytes / (int)sizeof(T);         // k depth of a stage tile
+  constexpr int kKStep = 2 * kEl;                        // k depth of one mma
+  constexpr int WM = 8 / WN, NP = 64 * WN, CB = NP / kEl;
+  constexpr int kBRows = kThreads / CB;                  // weight rows one sweep of the block copies
+  constexpr uint32_t kAOff = kKT * NP * sizeof(T);       // A part of a stage buffer, after B
+  static_assert(kBRows % (kF32 ? 4 : 8) == 0 && kKT % kBRows == 0,
+                "a thread's chunks share a swizzle");
   const int lane = threadIdx.x % 32, l7 = lane & 7, hi = lane >> 4;
   const int tiles_per_seg = (Kseg + kKT - 1) / kKT, n_tiles = n_seg * tiles_per_seg;
   const int K = n_seg * Kseg;
   const bool live = rp + 32 * wr < R;  // the warp has rows in this pass
+  const bool two_mi = rp + 32 * wr + 16 < R;  // and in its second m-tile
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -417,21 +259,25 @@ __device__ __forceinline__ void gemm_pass(float (&acc)[2][8][4], uint32_t stage,
   float part[2][8][4];
 
   // this thread's copies: weight chunk cb of rows br0 + kBRows j; x chunk ca
-  // of rows ar0 + 32 j (row & 7 is the same for all j, so is the swizzle)
+  // of rows ar0 + 32 j (row & 7, or row & 3 in f32, is the same for all j,
+  // so is the swizzle)
   const int cb = threadIdx.x % CB, br0 = threadIdx.x / CB;
-  const uint32_t b_dst = (uint32_t)((br0 * CB + (cb ^ (br0 & 7))) * 16);
-  const bool b_col_ok = np + 8 * cb < N;
-  const bf16* b_src = w + (size_t)br0 * N + np + 8 * cb;
+  const uint32_t b_dst =
+      (uint32_t)((br0 * CB + (cb ^ (kF32 ? (br0 & 3) << 1 : br0 & 7))) * 16);
+  const bool b_col_ok = np + kEl * cb < N;
+  const T* b_src = w + (size_t)br0 * N + np + kEl * cb;
   // staged x rows are 64 bytes (4 chunks): chunk c of row r sits at c ^ ((r
   // >> 1) & 3), so the 8 rows one ldmatrix matrix reads hit 8 bank groups
-  constexpr int kACh = kKT / 8;
+  constexpr int kACh = kKT / kEl;
   const int ca = threadIdx.x % kACh, ar0 = threadIdx.x / kACh;
   const uint32_t a_dst = kAOff + (uint32_t)((ar0 * kACh + (ca ^ ((ar0 >> 1) & 3))) * 16);
-  // fragment offsets: B rows 16 ks + (lane & 7) + 8 ((lane >> 3) & 1), chunk
-  // (64 wc + 16 dp) / 8 + hi, swizzled by lane & 7; staged A rows 32 wr + 16
-  // mi + (lane & 15), chunk 2 ks + hi, swizzled by ((lane & 15) >> 1) & 3
+  // fragment offsets: bf16 B rows 16 ks + (lane & 7) + 8 ((lane >> 3) & 1),
+  // chunk (64 wc + 16 dp) / 8 + hi, swizzled by lane & 7; f32 B rows 8 ks + t
+  // and + 4, column 64 wc + 8 j + g at word 64 wc + 8 (j ^ t) + g; staged A
+  // rows 32 wr + 16 mi + (lane & 15), chunk 2 ks + hi, swizzled by ((lane &
+  // 15) >> 1) & 3
   const uint32_t b_row = (uint32_t)((l7 + ((lane >> 3) & 1) * 8) * CB * 16);
-  const uint32_t a_row = kAOff + (uint32_t)((32 * wr + (lane & 15)) * kKT * 2);
+  const uint32_t a_row = kAOff + (uint32_t)((32 * wr + (lane & 15)) * kKTBytes);
   const int a_sw = ((lane & 15) >> 1) & 3;
 
   auto stage_tile = [&](int it, int seg, int kc) {
@@ -446,16 +292,16 @@ __device__ __forceinline__ void gemm_pass(float (&acc)[2][8][4], uint32_t stage,
     if constexpr (kGlobalA) {
 #pragma unroll
       for (int j = 0; j < WM / 2; ++j) {  // kThreads / kACh = 64 rows per sweep
-        const bool ok = rp + ar0 + 64 * j < R && kc + 8 * ca < Kseg;
-        cp_async16(buf + a_dst + (uint32_t)(j * 64 * kKT * 2),
-                   ok ? x + (size_t)xpix[j] * Kseg + kc + 8 * ca : x, ok ? 16 : 0);
+        const bool ok = rp + ar0 + 64 * j < R && kc + kEl * ca < Kseg;
+        cp_async16(buf + a_dst + (uint32_t)(j * 64 * kKTBytes),
+                   ok ? x + (size_t)xpix[j] * Kseg + kc + kEl * ca : x, ok ? 16 : 0);
       }
     }
   };
 
   auto mma_tile = [&](float (&d)[2][8][4], int it, int seg, int kc) {
     const uint32_t buf = stage + (uint32_t)((it % kStages) * kStageBytes);
-    const int steps = min(kKT, Kseg - kc) / 16;
+    const int steps = min(kKT, Kseg - kc) / kKStep;
     uint32_t a_base[2] = {0, 0};
     int a_x[2] = {0, 0};
     if constexpr (!kGlobalA) {
@@ -468,30 +314,72 @@ __device__ __forceinline__ void gemm_pass(float (&acc)[2][8][4], uint32_t stage,
       }
     }
 #pragma unroll
-    for (int ks = 0; ks < kKT / 16; ++ks) {
+    for (int ks = 0; ks < kKT / kKStep; ++ks) {
       if (ks < steps) {
         uint32_t a[2][4];
 #pragma unroll
         for (int mi = 0; mi < 2; ++mi) {
+          if (kF32 && mi == 1 && !two_mi) continue;
           if constexpr (kGlobalA) {
-            ldsm_x4(a[mi], buf + a_row + (uint32_t)(mi * 16 * kKT * 2) +
+            ldsm_x4(a[mi], buf + a_row + (uint32_t)(mi * 16 * kKTBytes) +
                                (uint32_t)((((2 * ks) + hi) ^ a_sw) * 16));
           } else {
-            ldsm_x4(a[mi], a_base[mi] + (uint32_t)((((kc >> 3) + 2 * ks + hi) ^ a_x[mi]) * 16));
+            ldsm_x4(a[mi], a_base[mi] + (uint32_t)((((kc >> kSh) + 2 * ks + hi) ^ a_x[mi]) * 16));
           }
         }
+        if constexpr (!kF32) {
 #pragma unroll
-        for (int dp = 0; dp < 4; ++dp) {
-          if (np + 64 * wc + 16 * dp < N) {
-            uint32_t b[4];
-            ldsm_x4_trans(b, buf + (uint32_t)(ks * 16 * CB * 16) + b_row +
-                                 (uint32_t)((((8 * wc + 2 * dp) + hi) ^ l7) * 16));
+          for (int dp = 0; dp < 4; ++dp) {
+            if (np + 64 * wc + 16 * dp < N) {
+              uint32_t b[4];
+              ldsm_x4_trans(b, buf + (uint32_t)(ks * 16 * CB * 16) + b_row +
+                                   (uint32_t)((((8 * wc + 2 * dp) + hi) ^ l7) * 16));
 #pragma unroll
-            for (int mi = 0; mi < 2; ++mi) {
-              mma_bf16(d[mi][2 * dp], a[mi], b[0], b[1]);
-              mma_bf16(d[mi][2 * dp + 1], a[mi], b[2], b[3]);
+              for (int mi = 0; mi < 2; ++mi) {
+                mma_bf16(d[mi][2 * dp], a[mi], b[0], b[1]);
+                mma_bf16(d[mi][2 * dp + 1], a[mi], b[2], b[3]);
+              }
             }
           }
+        } else {
+          // each of the three TF32 products in one round over all 16
+          // accumulators, so that no mma waits on the one before it; no
+          // column guard (one basic block for the scheduler): columns past N
+          // multiply the zero-filled staged weights and are never stored.  A
+          // warp whose second m-tile lies past R (a few pixels a block, at
+          // layers 3-4) multiplies its first alone.
+          const int g = lane >> 2, t = lane & 3;
+          const float* bt = reinterpret_cast<const float*>(stage_p + (it % kStages) * kStageBytes) +
+                            (8 * ks + t) * NP + 64 * wc + g;
+          uint32_t bh[8][2], bl[8][2];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            split(bt[8 * (j ^ t)], bh[j][0], bl[j][0]);
+            split(bt[4 * NP + 8 * (j ^ t)], bh[j][1], bl[j][1]);
+          }
+          auto rounds = [&](auto n_mi) {
+            constexpr int NMI = decltype(n_mi)::value;
+            Frag af[NMI];
+#pragma unroll
+            for (int mi = 0; mi < NMI; ++mi)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                split(__uint_as_float(a[mi][e]), af[mi].hi[e], af[mi].lo[e]);
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+#pragma unroll
+              for (int mi = 0; mi < NMI; ++mi) mma_tf32(d[mi][j], af[mi].lo, bh[j][0], bh[j][1]);
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+#pragma unroll
+              for (int mi = 0; mi < NMI; ++mi) mma_tf32(d[mi][j], af[mi].hi, bl[j][0], bl[j][1]);
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+#pragma unroll
+              for (int mi = 0; mi < NMI; ++mi) mma_tf32(d[mi][j], af[mi].hi, bh[j][0], bh[j][1]);
+          };
+          if (two_mi) rounds(std::integral_constant<int, 2>());
+          else rounds(std::integral_constant<int, 1>());
         }
       }
     }
@@ -537,12 +425,16 @@ __device__ __forceinline__ void gemm_pass(float (&acc)[2][8][4], uint32_t stage,
         }
         mma_tile(part, it, seg, kc);
         if (kc + kKT >= Kseg) {
+          if constexpr (kF32) {
+            add_part(part, seg);
+          } else {
 #pragma unroll
-          for (int mi = 0; mi < 2; ++mi)
+            for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-            for (int j = 0; j < 8; ++j)
+              for (int j = 0; j < 8; ++j)
 #pragma unroll
-              for (int e = 0; e < 4; ++e) acc[mi][j][e] += part[mi][j][e];
+                for (int e = 0; e < 4; ++e) acc[mi][j][e] += part[mi][j][e];
+          }
         }
       } else {
         mma_tile(acc, it, seg, kc);
@@ -594,21 +486,70 @@ __device__ __forceinline__ void with_layout(const Layout L, Body body) {
   else body(std::integral_constant<int, 4>());
 }
 
-template <bool kDownsample, bool kShifted>
+// Two neighbouring channels of T held in a register or two: a bf16 pair
+// packed in 32 bits, or an f32 pair.
+template <typename T> using Pair = typename std::conditional<is_f32<T>(), float2, uint32_t>::type;
+
+// Channels col, col + 1 (col even) of pixel pix of a swizzled f32 y1 / y2
+// tile of CM chunks per pixel.
+__device__ __forceinline__ float2* f32_pair(unsigned char* tile, int pix, int CM, int mmask,
+                                            int col) {
+  return reinterpret_cast<float2*>(tile + pix * CM * 16 + (((col >> 2) ^ (pix & mmask)) << 4) +
+                                   (col & 3) * 4);
+}
+
+// The same channels of a y1 / y2 tile of T: v0, v1 rounded to T.
+template <typename T>
+__device__ __forceinline__ void store_pair(unsigned char* tile, int pix, int CM, int mmask,
+                                           int col, float v0, float v1) {
+  if constexpr (is_f32<T>()) {
+    *f32_pair(tile, pix, CM, mmask, col) = make_float2(v0, v1);
+  } else {
+    *reinterpret_cast<uint32_t*>(tile + pix * CM * 16 + (((col >> 3) ^ (pix & mmask)) << 4) +
+                                 (col & 7) * 2) = pack_bf16(v0, v1);
+  }
+}
+
+template <typename T> __device__ __forceinline__ Pair<T> pair_of(float v0, float v1) {
+  if constexpr (is_f32<T>()) return make_float2(v0, v1);
+  else return pack_bf16(v0, v1);
+}
+
+// out = relu(T(T(v + b3) + res)) for one pair (in f32 the roundings are the
+// identity: relu((v + b3) + res)).
+template <typename T>
+__device__ __forceinline__ void store_out(T* p, float v0, float v1, float2 b, Pair<T> res) {
+  if constexpr (is_f32<T>()) {
+    *reinterpret_cast<float2*>(p) =
+        make_float2(fmaxf(v0 + b.x + res.x, 0.f), fmaxf(v1 + b.y + res.y, 0.f));
+  } else {
+    const __nv_bfloat162 y3 = __floats2bfloat162_rn(v0 + b.x, v1 + b.y);
+    const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(&res);
+    const float2 a = __bfloat1622float2(y3), c = __bfloat1622float2(r);
+    *reinterpret_cast<uint32_t*>(p) =
+        pack_bf16(fmaxf(__bfloat162float(__float2bfloat16(a.x + c.x)), 0.f),
+                  fmaxf(__bfloat162float(__float2bfloat16(a.y + c.y)), 0.f));
+  }
+}
+
+template <typename T, bool kDownsample, bool kShifted>
 __global__ void __launch_bounds__(kThreads, 1) bottleneck_tc_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kSh = chunk_shift<T>();
   const int H = p.H, W = p.W, Cin = p.Cin, M = p.M, Cout = p.Cout, S = p.S, G = p.G;
   const Strip st{H, W, S, G, W + 2, (int)blockIdx.x * S, (int)blockIdx.y * G};
-  const bf16* __restrict__ x = static_cast<const bf16*>(p.x);
-  bf16* __restrict__ out = static_cast<bf16*>(p.out);
-  const int CM = M / 8;  // 16-byte chunks per y1 / y2 pixel
+  const T* __restrict__ x = static_cast<const T*>(p.x);
+  T* __restrict__ out = static_cast<T*>(p.out);
+  const int CM = M >> kSh;  // 16-byte chunks per y1 / y2 pixel
   const int mmask = swizzle_mask(CM);
-  const uint32_t y1_bytes = (uint32_t)(G * (S + 2) * st.Wp * M * 2);
-  const uint32_t y1s = smem_u32(smem);           // [G][S+2][W+2][M], swizzled by pixel
-  const uint32_t y2s = y1s + y1_bytes;           // [G][S][W][M], swizzled by pixel
-  const uint32_t stage = y2s + (uint32_t)(G * S * W * M * 2);  // the ring of stage buffers
+  const uint32_t y1_bytes = (uint32_t)(G * (S + 2) * st.Wp * M * (int)sizeof(T));
+  const uint32_t y2_bytes = (uint32_t)(G * S * W * M * (int)sizeof(T));
+  const uint32_t y1s = smem_u32(smem);    // [G][S+2][W+2][M], swizzled by pixel
+  const uint32_t y2s = y1s + y1_bytes;    // [G][S][W][M], swizzled by pixel
+  const uint32_t stage = y2s + y2_bytes;  // the ring of stage buffers
   unsigned char* y1p = smem;
   unsigned char* y2p = smem + y1_bytes;
+  const unsigned char* stage_p = smem + y1_bytes + y2_bytes;
   const int warp = threadIdx.x / 32, t = threadIdx.x % 4;
   const int R1 = G * (S + 2) * W, R2 = G * S * W;  // conv1 rows (halo strip), conv2/3 rows
   float acc[2][8][4];
@@ -625,7 +566,7 @@ __global__ void __launch_bounds__(kThreads, 1) bottleneck_tc_kernel(const Params
   // ---- phase 1: y1 = relu(x @ w1 + b1) on the strip and its halo rows,
   // zero outside the image, into the y1 tile
   {
-    const Layout L = pick_layout(R1, M, Cin, Cin);
+    const Layout L = pick_layout<T>(R1, M, Cin, Cin);
     const int wr = warp % L.wm, wc = warp / L.wm;
     for (int rp = 0; rp < R1; rp += 32 * L.wm) {
 #pragma unroll
@@ -634,8 +575,8 @@ __global__ void __launch_bounds__(kThreads, 1) bottleneck_tc_kernel(const Params
       for (int np = 0; np < M; np += 64 * L.wn) {
         with_layout(L, [&](auto wn) {
           constexpr int WN = decltype(wn)::value;
-          gemm_pass<true, false, WN>(acc, stage, wr, wc, static_cast<const bf16*>(p.w1), M, Cin,
-                                     1, st.Wp, np, rp, R1, x, xpix, 0, apix, 0, 0);
+          gemm_pass<T, true, false, WN>(acc, stage, stage_p, wr, wc, static_cast<const T*>(p.w1),
+                                        M, Cin, 1, st.Wp, np, rp, R1, x, xpix, 0, apix, 0, 0);
         });
         float2 b[8];
 #pragma unroll
@@ -648,10 +589,10 @@ __global__ void __launch_bounds__(kThreads, 1) bottleneck_tc_kernel(const Params
           const int pix = (gi * (S + 2) + rr) * st.Wp + cx + 1;
           return inside ? pix : -1 - pix;
         }, [&](int info, int, int j, int, int col, float v0, float v1) {
-          const int pix = info >= 0 ? info : -1 - info;
-          *reinterpret_cast<uint32_t*>(y1p + pix * CM * 16 + (((col >> 3) ^ (pix & mmask)) << 4) +
-                                       (col & 7) * 2) =
-              info >= 0 ? pack_bf16(fmaxf(v0 + b[j].x, 0.f), fmaxf(v1 + b[j].y, 0.f)) : 0u;
+          const bool inside = info >= 0;
+          store_pair<T>(y1p, inside ? info : -1 - info, CM, mmask, col,
+                        inside ? fmaxf(v0 + b[j].x, 0.f) : 0.f,
+                        inside ? fmaxf(v1 + b[j].y, 0.f) : 0.f);
         });
       }
     }
@@ -660,7 +601,7 @@ __global__ void __launch_bounds__(kThreads, 1) bottleneck_tc_kernel(const Params
   // ---- phase 2: y2 = relu(conv3x3(y1) + b2) into the y2 tile; A straight
   // from the y1 tile at each lane's window corner plus the shift
   {
-    const Layout L = pick_layout(R2, M, 9 * M, 0);
+    const Layout L = pick_layout<T>(R2, M, 9 * M, 0);
     const int wr = warp % L.wm, wc = warp / L.wm;
     for (int rp = 0; rp < R2; rp += 32 * L.wm) {
 #pragma unroll
@@ -670,19 +611,36 @@ __global__ void __launch_bounds__(kThreads, 1) bottleneck_tc_kernel(const Params
         apix[mi] = (gi * (S + 2) + s) * st.Wp + col;
       }
       for (int np = 0; np < M; np += 64 * L.wn) {
+        // f32 kernel 9: the sum of the shifts' products lives in the y2 tile,
+        // each shift's part added where the thread will store its y2 (the
+        // order the registers would add in; acc and part together would not
+        // fit the registers)
+        auto add_part = [&](const float (&part)[2][8][4], int seg) {
+          epilogue(part, rp, np, wr, wc, R2, M, [&](int row) { return row; },
+                   [&](int pix, int, int, int, int col, float v0, float v1) {
+            float2* y = f32_pair(y2p, pix, CM, mmask, col);
+            const float2 sum = seg == 0 ? make_float2(0.f, 0.f) : *y;
+            *y = make_float2(sum.x + v0, sum.y + v1);
+          });
+        };
         with_layout(L, [&](auto wn) {
           constexpr int WN = decltype(wn)::value;
-          gemm_pass<false, kShifted, WN>(acc, stage, wr, wc, static_cast<const bf16*>(p.w2), M,
-                                         M, 9, st.Wp, np, rp, R2, x, xpix, y1s, apix, CM, mmask);
+          gemm_pass<T, false, kShifted, WN>(acc, stage, stage_p, wr, wc,
+                                            static_cast<const T*>(p.w2), M, M, 9, st.Wp, np, rp,
+                                            R2, x, xpix, y1s, apix, CM, mmask, add_part);
         });
         float2 b[8];
 #pragma unroll
         for (int j = 0; j < 8; ++j) b[j] = bias2(p.b2, min(np + 64 * wc + 8 * j + 2 * t, M - 2));
         epilogue(acc, rp, np, wr, wc, R2, M, [&](int row) { return row; },
                  [&](int pix, int, int j, int, int col, float v0, float v1) {
-          *reinterpret_cast<uint32_t*>(y2p + pix * CM * 16 + (((col >> 3) ^ (pix & mmask)) << 4) +
-                                       (col & 7) * 2) =
-              pack_bf16(fmaxf(v0 + b[j].x, 0.f), fmaxf(v1 + b[j].y, 0.f));
+          if constexpr (is_f32<T>() && kShifted) {
+            const float2 sum = *f32_pair(y2p, pix, CM, mmask, col);
+            v0 = sum.x;
+            v1 = sum.y;
+          }
+          store_pair<T>(y2p, pix, CM, mmask, col, fmaxf(v0 + b[j].x, 0.f),
+                        fmaxf(v1 + b[j].y, 0.f));
         });
       }
     }
@@ -691,16 +649,17 @@ __global__ void __launch_bounds__(kThreads, 1) bottleneck_tc_kernel(const Params
   // ---- phase 3: out = relu(T(T(y2 @ w3 + b3) + res)), res = x or
   // T(x @ wd + bd), to device memory
   {
-    const Layout L = pick_layout(R2, Cout, M + (kDownsample ? Cin : 0), kDownsample ? Cin : 0);
+    const Layout L = pick_layout<T>(R2, Cout, M + (kDownsample ? Cin : 0), kDownsample ? Cin : 0);
     const int wr = warp % L.wm, wc = warp / L.wm;
     for (int rp = 0; rp < R2; rp += 32 * L.wm) {
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi) apix[mi] = lane_row(rp, wr, mi, R2);
       for (int np = 0; np < Cout; np += 64 * L.wn) {
-        // the residual as bf16 pairs: the downsample product, rounded, or x,
-        // loaded before the conv3 product so the loads overlap it
-        uint32_t res[2][8][2];
-        if constexpr (!kDownsample) {
+        // the residual as pairs of T: the downsample product, rounded, or x,
+        // in bf16 loaded before the conv3 product so the loads overlap it (in
+        // f32 read in the epilogue, from x or from out: registers)
+        Pair<T> res[2][8][2];
+        if constexpr (!kDownsample && !is_f32<T>()) {
           const int lane = threadIdx.x % 32;
 #pragma unroll
           for (int mi = 0; mi < 2; ++mi)
@@ -712,10 +671,10 @@ __global__ void __launch_bounds__(kThreads, 1) bottleneck_tc_kernel(const Params
 #pragma unroll
               for (int j = 0; j < 8; ++j) {
                 const int col = np + 64 * wc + 8 * j + 2 * t;
-                if (col < Cout) res[mi][j][hh] = *reinterpret_cast<const uint32_t*>(x + px + col);
+                if (col < Cout) res[mi][j][hh] = *reinterpret_cast<const Pair<T>*>(x + px + col);
               }
             }
-        } else {
+        } else if constexpr (kDownsample) {
           // recomputed per column pass, so that xpix is not live beside res
           // in the conv3 product (registers)
 #pragma unroll
@@ -723,23 +682,37 @@ __global__ void __launch_bounds__(kThreads, 1) bottleneck_tc_kernel(const Params
             xpix[j] = st.x_pix(min(rp + (int)threadIdx.x / 4 + 64 * j, R2 - 1), false);
           with_layout(L, [&](auto wn) {
             constexpr int WN = decltype(wn)::value;
-            gemm_pass<true, false, WN>(acc, stage, wr, wc, static_cast<const bf16*>(p.wd), Cout,
-                                       Cin, 1, st.Wp, np, rp, R2, x, xpix, 0, apix, 0, 0);
+            gemm_pass<T, true, false, WN>(acc, stage, stage_p, wr, wc,
+                                          static_cast<const T*>(p.wd), Cout, Cin, 1, st.Wp, np,
+                                          rp, R2, x, xpix, 0, apix, 0, 0);
           });
+          if constexpr (is_f32<T>()) {
+            // f32: the downsample output waits in out, where this thread will
+            // store its result (registers)
+            epilogue(acc, rp, np, wr, wc, R2, Cout,
+                     [&](int row) { return (size_t)st.x_pix(row, false); },
+                     [&](size_t pix, int, int, int, int col, float v0, float v1) {
+              const float2 b = bias2(p.bd, col);
+              *reinterpret_cast<float2*>(out + pix * Cout + col) =
+                  make_float2(v0 + b.x, v1 + b.y);
+            });
+          } else {
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const float2 b = bias2(p.bd, min(np + 64 * wc + 8 * j + 2 * t, Cout - 2));
+            for (int j = 0; j < 8; ++j) {
+              const float2 b = bias2(p.bd, min(np + 64 * wc + 8 * j + 2 * t, Cout - 2));
 #pragma unroll
-            for (int mi = 0; mi < 2; ++mi) {
-              res[mi][j][0] = pack_bf16(acc[mi][j][0] + b.x, acc[mi][j][1] + b.y);
-              res[mi][j][1] = pack_bf16(acc[mi][j][2] + b.x, acc[mi][j][3] + b.y);
+              for (int mi = 0; mi < 2; ++mi) {
+                res[mi][j][0] = pair_of<T>(acc[mi][j][0] + b.x, acc[mi][j][1] + b.y);
+                res[mi][j][1] = pair_of<T>(acc[mi][j][2] + b.x, acc[mi][j][3] + b.y);
+              }
             }
           }
         }
         with_layout(L, [&](auto wn) {
           constexpr int WN = decltype(wn)::value;
-          gemm_pass<false, false, WN>(acc, stage, wr, wc, static_cast<const bf16*>(p.w3), Cout,
-                                      M, 1, st.Wp, np, rp, R2, x, xpix, y2s, apix, CM, mmask);
+          gemm_pass<T, false, false, WN>(acc, stage, stage_p, wr, wc,
+                                         static_cast<const T*>(p.w3), Cout, M, 1, st.Wp, np, rp,
+                                         R2, x, xpix, y2s, apix, CM, mmask);
         });
         float2 b[8];
 #pragma unroll
@@ -749,12 +722,12 @@ __global__ void __launch_bounds__(kThreads, 1) bottleneck_tc_kernel(const Params
         epilogue(acc, rp, np, wr, wc, R2, Cout,
                  [&](int row) { return (size_t)st.x_pix(row, false); },
                  [&](size_t pix, int mi, int j, int hh, int col, float v0, float v1) {
-          const __nv_bfloat162 y3 = __floats2bfloat162_rn(v0 + b[j].x, v1 + b[j].y);
-          const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(&res[mi][j][hh]);
-          const float2 a = __bfloat1622float2(y3), c = __bfloat1622float2(r);
-          *reinterpret_cast<uint32_t*>(out + pix * Cout + col) =
-              pack_bf16(fmaxf(__bfloat162float(__float2bfloat16(a.x + c.x)), 0.f),
-                        fmaxf(__bfloat162float(__float2bfloat16(a.y + c.y)), 0.f));
+          if constexpr (is_f32<T>())
+            store_out<T>(out + pix * Cout + col, v0, v1, b[j],
+                         kDownsample ? *reinterpret_cast<const float2*>(out + pix * Cout + col)
+                                     : *reinterpret_cast<const float2*>(x + pix * Cin + col));
+          else
+            store_out<T>(out + pix * Cout + col, v0, v1, b[j], res[mi][j][hh]);
         });
       }
     }
@@ -762,10 +735,10 @@ __global__ void __launch_bounds__(kThreads, 1) bottleneck_tc_kernel(const Params
 }
 
 // The block's dynamic shared memory: the y1 and y2 tiles of the activation
-// dtype, and in bf16 the ring of stage buffers.
+// dtype and the ring of stage buffers.
 size_t smem_bytes(int W, int M, int S, int G, int dtype) {
   const size_t tiles = (size_t)G * (S + 2) * (W + 2) * M + (size_t)G * S * W * M;
-  return dtype == 0 ? tiles * sizeof(float) : tiles * 2 + kStages * kStageBytes;
+  return tiles * (dtype == 0 ? sizeof(float) : 2) + kStages * kStageBytes;
 }
 
 template <typename Kernel>
@@ -779,8 +752,8 @@ int launch(Kernel kernel, const Params& p, int B, int dtype, cudaStream_t stream
   return (int)cudaGetLastError();
 }
 
-// Channel counts: multiples of 8 in f32 (8-element vectors), of 16 in bf16
-// (the k16 step of mma.sync); B * H * W pixels fit an int.
+// Channel counts: multiples of 8 in f32 (the k8 step of the TF32 mma.sync),
+// of 16 in bf16 (its k16 step); B * H * W pixels fit an int.
 bool shape_ok(int B, int H, int W, int Cin, int M, int Cout, int S, int G, int dtype) {
   if (B <= 0 || H <= 0 || W <= 0 || S <= 0 || G <= 0) return false;
   if (H % S || B % G || B / G > 65535 || (long long)B * H * W > 0x7fffffff) return false;
@@ -793,8 +766,8 @@ bool shape_ok(int B, int H, int W, int Cin, int M, int Cout, int S, int G, int d
 template <bool kDownsample, bool kShifted>
 int dispatch(const Params& p, int B, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch(bottleneck_f32_kernel<kDownsample, kShifted>, p, B, dtype, st);
-  return launch(bottleneck_tc_kernel<kDownsample, kShifted>, p, B, dtype, st);
+  if (dtype == 0) return launch(bottleneck_tc_kernel<float, kDownsample, kShifted>, p, B, dtype, st);
+  return launch(bottleneck_tc_kernel<bf16, kDownsample, kShifted>, p, B, dtype, st);
 }
 
 }  // namespace

@@ -17,21 +17,6 @@ constexpr int kWarps = 8;                // warps per attention block
 constexpr int kThreads = kWarps * 32;
 constexpr float kLog2e = 1.4426950408889634f;  // exp(x) = exp2(x * log2 e)
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// Row stride of a staged K/V tile, in elements: hd plus one 32-bit word, so a
-// warp whose lanes read 32 different rows at one column hits 32 banks.
-template <typename T> __host__ __device__ constexpr int padded_ld(int hd) {
-  return hd + (sizeof(T) == 2 ? 2 : 1);
-}
-
 __device__ __forceinline__ float warp_max(float x) {
   for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
   return x;
@@ -43,7 +28,8 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // ------------------------------------------- bf16 tensor-core building blocks
-// (kernels 1 and 3 in short_attention.cu, kernels 5 and 6 in flash_attention.cu)
+// (kernels 1-3 in short_attention*.cu, 4-6 in flash_attention.cu, 8-9 in
+// bottleneck.cu)
 
 // Byte offset of 16-byte chunk c of row r in a swizzled [rows, HD] bf16 tile:
 // the chunk index is XORed with the row, so the 8 rows one ldmatrix matrix
@@ -112,6 +98,46 @@ __device__ __forceinline__ void stage_rows(uint32_t dst, const __nv_bfloat16* sr
     const bool ok = r < n_valid;
     cp_async16(dst + swz<HD>(r, c), src + (size_t)(ok ? r : 0) * ld + c * 8, ok ? 16 : 0);
   }
+}
+
+// ------------------------------------------- split-TF32 building blocks
+// (f32 kernels 4-6 in flash_f32_tc.cuh, f32 kernels 8-9 in bottleneck.cu; why
+// three TF32 products: flash_f32_tc.cuh's header)
+
+// x = hi + lo to ~2^-22 relative, both TF32 operands rounded as
+// cvt.rna.tf32.f32 rounds (to nearest, ties away from zero), in four plain
+// ALU operations: hi is x with a carry added at bit 12 of the magnitude and
+// the low 13 bits cleared; lo is the exact remainder x - hi with the same
+// carry added, its low 13 bits left for the tensor cores to ignore.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
+}
+
+// An m16n8k8 A fragment as TF32 hi and lo parts: [0] row g, column t; [1] row
+// g + 8, column t; [2] row g, column t + 4; [3] row g + 8, column t + 4.
+struct Frag {
+  uint32_t hi[4], lo[4];
+};
+
+// d += a . b, m16n8k8, TF32 operands, f32 accumulators.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a . b in split-TF32, b0 and b1 the thread's B elements (rows t and
+// t + 4 of the 8-deep operand, column g) in f32.
+__device__ __forceinline__ void mma3(float (&d)[4], const Frag& a, float b0, float b1) {
+  uint32_t h0, l0, h1, l1;
+  split(b0, h0, l0);
+  split(b1, h1, l1);
+  mma_tf32(d, a.lo, h0, h1);
+  mma_tf32(d, a.hi, l0, l1);
+  mma_tf32(d, a.hi, h0, h1);
 }
 
 // ------------------------------------ wgmma, TMA and mbarrier building blocks

@@ -24,7 +24,7 @@
 // hi.hi.  The dropped lo.lo term and lo's rounding are ~2^-22 relative, the
 // order of f32's own rounding (CUTLASS's OpMultiplyAddFastF32 takes the same
 // three products); emulated, ~1e-6 of scale.  The split is made on each
-// fragment load, four ALU operations per element (split below), not once
+// fragment load, four ALU operations per element (common.cuh: split), not once
 // per staged tile: staged hi and lo tiles would double shared memory, and
 // kernel 6's six f32 tiles already take 192 KB of the 227 KB at hd 128.
 // Operands a warp holds for its whole loop (kernel 5's Q and dO rows, kernel
@@ -105,42 +105,6 @@ __device__ __forceinline__ void stage(uint32_t dst, const float* src, int n_vali
     cp_async16(dst + 4u * (uint32_t)(r * HD + ((c ^ (r & 7)) << 2)),
                src + (size_t)(ok ? r : 0) * ld + c * 4, ok ? 16 : 0);
   }
-}
-
-// x = hi + lo to ~2^-22 relative, both TF32 operands rounded as
-// cvt.rna.tf32.f32 rounds (to nearest, ties away from zero), in four plain
-// ALU operations: hi is x with a carry added at bit 12 of the magnitude and
-// the low 13 bits cleared; lo is the exact remainder x - hi with the same
-// carry added, its low 13 bits left for the tensor cores to ignore.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
-}
-
-// An m16n8k8 A fragment as TF32 hi and lo parts: [0] row g, column t; [1] row
-// g + 8, column t; [2] row g, column t + 4; [3] row g + 8, column t + 4.
-struct Frag {
-  uint32_t hi[4], lo[4];
-};
-
-// d += a . b, m16n8k8, TF32 operands, f32 accumulators.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a . b in split-TF32, b0 and b1 the thread's B elements (rows t and
-// t + 4 of the 8-deep operand, column g) in f32.
-__device__ __forceinline__ void mma3(float (&d)[4], const Frag& a, float b0, float b1) {
-  uint32_t h0, l0, h1, l1;
-  split(b0, h0, l0);
-  split(b1, h1, l1);
-  mma_tf32(d, a.lo, h0, h1);
-  mma_tf32(d, a.hi, l0, l1);
-  mma_tf32(d, a.hi, h0, h1);
 }
 
 // The A fragment of rows r0 + [0, 16), head dims 8kd + [0, 8), of a staged tile.

@@ -40,7 +40,9 @@
 // hd <= 64: S <= 80 covers the text and ViT-B/32 shapes); longer rows take
 // two passes over 64-key chunks of the staged K_h (row max and sum, then the
 // logits again, normalized, rounded and multiplied into V), which keeps the
-// TPU's rounding point at no extra device-memory bytes.  Causal row tiles
+// TPU's rounding point at no extra device-memory bytes (attention_tc.cuh:
+// kernel 2 runs the same two passes with K and V streamed, so where both
+// take them their bf16 outputs are equal bit for bit).  Causal row tiles
 // skip the key steps wholly above their diagonal and mask inside it; keys
 // past S are masked to -inf.
 //
@@ -70,16 +72,16 @@
 // checks).
 
 #include "attention_f32.cuh"
+#include "attention_tc.cuh"
 #include "common.cuh"
 
 namespace {
 
 using namespace dmt;
+using namespace dmt::attn_tc;
 using bf16 = __nv_bfloat16;
 
 // ------------------------------------------------------------ bf16, tensor cores
-
-constexpr int kChunkKeys2Pass = 64;  // keys per chunk of the two-pass path (NT = 8)
 
 template <int HD> struct TcTraits {
   static constexpr int kMaxWarps = HD == 128 ? 4 : 8;    // 16 query rows each
@@ -108,73 +110,6 @@ template <int HD> __host__ __device__ inline int tc_warps(int S) {
 template <int HD> size_t smem_bytes_bf16(int S) {
   return 2 * (size_t)round16(S) * TcTraits<HD>::kRowBytes
          + (size_t)tc_warps<HD>(S) * 16 * TcTraits<HD>::kRowBytes;
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// Raw (unscaled) f32 logits of this warp's 16 query rows against the keys
-// of chunk c (8*NT keys), key steps at or past n_ks left at -inf; then the
-// mask (keys past S, and for causal calls keys past the row) where the
-// chunk reaches mask_from.
-template <int HD, int NT>
-__device__ __forceinline__ void chunk_scores(float (&sc)[NT][4], const uint32_t (&qf)[HD / 16][4],
-                                             uint32_t k_s, int c, int n_ks, int r0, int S,
-                                             int causal, int mask_from, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int jp = 0; jp < NT / 2; ++jp) {
-    const int ks = c * (NT / 2) + jp;  // 16-key step
-#pragma unroll
-    for (int e = 0; e < 4; ++e) sc[2 * jp][e] = sc[2 * jp + 1][e] = 0.f;
-    if (ks < n_ks) {
-#pragma unroll
-      for (int kd = 0; kd < HD / 16; ++kd) {
-        // keys ks*16 + [0, 8) and [8, 16), head dims kd*16 + [0, 8) and [8, 16)
-        uint32_t kb[4];
-        ldsm_x4(kb, k_s + swz<HD>(ks * 16 + (lane & 7) + (lane >> 4) * 8,
-                                   2 * kd + ((lane >> 3) & 1)));
-        mma_bf16(sc[2 * jp], qf[kd], kb[0], kb[1]);
-        mma_bf16(sc[2 * jp + 1], qf[kd], kb[2], kb[3]);
-      }
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int j = 2 * jp + h;
-      const int key0 = ks * 16 + h * 8;
-      if (ks >= n_ks) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sc[j][e] = -INFINITY;
-      } else if (key0 + 8 > mask_from) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = key0 + 2 * t + (e & 1);
-          const int row = r0 + g + (e >> 1) * 8;
-          if (key >= S || (causal && key > row)) sc[j][e] = -INFINITY;
-        }
-      }
-    }
-  }
-}
-
-// Raw logits -> e = exp(logit * scale - row max * scale), as exp2 of the f32
-// logits times scale * log2 e (ms0, ms1: the rows' max times the same).
-template <int NT>
-__device__ __forceinline__ void to_exp(float (&sc)[NT][4], float ms0, float ms1,
-                                       float scale_log2) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    sc[j][0] = exp2f(fmaf(sc[j][0], scale_log2, -ms0));
-    sc[j][1] = exp2f(fmaf(sc[j][1], scale_log2, -ms0));
-    sc[j][2] = exp2f(fmaf(sc[j][2], scale_log2, -ms1));
-    sc[j][3] = exp2f(fmaf(sc[j][3], scale_log2, -ms1));
-  }
 }
 
 // q, k, v point at head 0 of row 0 of image 0; their rows are ld_in elements

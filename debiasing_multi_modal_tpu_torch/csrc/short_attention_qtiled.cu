@@ -5,207 +5,263 @@
 // not fit VMEM (ViT-L/14@336px in f32, S=577, D=1024).  Same function as
 // kernel 1 (csrc/short_attention.cu): q, k, v, o are [B, S, D] merged-head,
 // f32 logits scaled by hd^-0.5, causality from global query positions, an
-// exact whole-row softmax (w = e / sum(e), no online rescaling), the
-// probabilities rounded to the input dtype before an f32-accumulated P.V.
+// exact whole-row softmax (w = e / sum(e), no online rescaling of the
+// output), the probabilities rounded to the input dtype before an
+// f32-accumulated P.V.
 //
 // What the TPU kernel keeps and this one cannot: the whole K/V slab resident
 // per cell.  At f32 S=577 hd=64 one head's K_h plus V_h is ~300 KB, over the
-// 227 KB a block may use.  So one block per (query tile, head, image) keeps
-// only its rows' whole f32 score rows and its query rows in shared memory,
-// and K_h, then V_h, stream through 64-key tiles: pass 1 computes every
-// score, the softmax runs on the rows in place, pass 2 accumulates P.V in
-// registers.  The ragged S edge is masked, never padded in device memory; a
-// causal tile streams only the keys its last row sees.
+// 227 KB a block may use.  So one block per (query tile, head, image) streams
+// K_h and V_h through shared memory in key tiles.  The ragged S edge is
+// masked, never padded in device memory; a causal tile streams only the keys
+// its last row sees.
 //
 // f32 (attention_f32.cuh, f32_attn_kernel<HD, MQ, Bufs, KT>): kernel 1's
 // f32 device code with K and V streamed, so where both kernels take an f32
 // shape their outputs agree bit for bit.  Register tiles on the CUDA cores,
-// fed by 16-byte shared loads; 16-byte cp.async copies, so the inputs need
-// 16-byte aligned base pointers.  The tile by S (f32attn::streamed_tile):
-// 64 query rows with two 128-key K/V buffers where they fit, then 32 rows
-// with two 64-key buffers, then 32 rows with one.  What bounds it on the
-// H100: ~4*S*hd FMA flops per query row against its share of K/V, so the
-// FMA pipe, fed at this design's limit by the shared-memory pipe.
+// fed by 16-byte shared loads; 16-byte cp.async copies.  The tile by S
+// (f32attn::streamed_tile): 64 query rows with two 128-key K/V buffers where
+// they fit, then 32 rows with two 64-key buffers, then 32 rows with one; the
+// f32 score rows of the tile stay in shared memory, which is what bounds S.
+// What bounds it on the H100: ~4*S*hd FMA flops per query row against its
+// share of K/V, so the FMA pipe, fed at this design's limit by the
+// shared-memory pipe.
 //
-// bf16 (qtiled_attn_kernel below, CUDA cores): it runs only past bf16
-// kernel 1's gate (S > 832 at hd 64), where no zoo model is.  One warp owns
-// 4 query rows of a 32-row tile; lane j%32 scores key j with an in-order f32
-// FMA chain, the row sum is a lane-strided sum and shuffle tree, P.V runs
-// over keys in order; K and V pass through one padded 64-key tile.  bf16
-// kernel 1 runs on the tensor cores, in another order: there the two agree
-// within the bf16 limits, not bit for bit.  It is bound by the shared-memory
-// loads that feed its FMAs.
+// bf16 (qtiled_tc_kernel below): kernel 1's two-pass tensor-core path
+// (attention_tc.cuh: chunk_scores, to_exp) with K_h and V_h streamed, not
+// resident.  One block of 8 warps per (128 query rows, head, image), one warp
+// per 16 rows, its Q fragments loaded once by ldmatrix and held in registers.
+// The block streams 64-key chunks, K alone for pass 1 and K with V for pass
+// 2, through a three-stage ring of 16-byte cp.async copies into the
+// XOR-swizzled layout ldmatrix reads (rows past S zero-filled, so 0 * garbage
+// never makes a NaN), one block barrier per chunk.  Pass 1: Q.K^T on
+// mma.sync.m16n8k16 (bf16 operands, f32 accumulators), the row max and sum
+// kept online in registers by quad shuffles.  Pass 2: the logits again, w =
+// e / sum rounded to bf16 (the TPU kernel's rounding point), packed from the
+// accumulators straight into A fragments, times V by ldmatrix.trans into f32
+// accumulators, stored as packed bf16 pairs.  A causal block streams the
+// chunks its last row sees and each warp skips those wholly above its
+// diagonal.  The chunk order, the 16-row warp tiles and the device functions
+// are kernel 1's, so where kernel 1 also takes its two-pass path (S > 80 at
+// hd 32/64, S > 32 at hd 128) the two are equal bit for bit.  Shared memory
+// (the Q tile and three stages of K and V) no longer grows with S: 64 KB at
+// hd 64, so two blocks share an SM.  What bounds it on the H100: at S=1025
+// the two passes take 6 flops per (query, key, head dim), 25.8 GFLOP at
+// ViT-L/14@448's B=4 D=1024, 0.026 ms at the bf16 tensor-core peak, and two
+// exponentials per (query, key), 0.034 ms at the SFU rate; each 128-row
+// tile reads K twice and V once from L2 (~230 MB at that shape).  Measured
+// (PERF.md), it issues mma.sync at about a quarter of the dense peak, as
+// the flash kernels do: the exact softmax's second pass is the price of the
+// TPU kernel's rounding point.  Pass 2 takes each chunk in two 32-key
+// halves, which keeps hd 64 at two blocks per SM without spilling.
 //
-// Shared memory (f32attn::streamed_smem_bytes and qtiled_smem_bytes below,
-// mirrored by ops/short_attention.py::qtiled_smem_bytes) is the gate for
-// supported_qtiled().
+// The gate (ops/short_attention.py::supported_qtiled): in f32 shared memory
+// (f32attn::streamed_smem_bytes, mirrored by qtiled_smem_bytes); in bf16 the
+// largest S the first CUDA-core design took (1,750 / 1,686 / 1,558 at hd 32 /
+// 64 / 128), kept so that longer rows go on to the flash kernels, which have
+// a backward kernel (this kernel's backward is the plain VJP, which would
+// build the S^2 matrix).
 //
 // C interface for ctypes, as in short_attention.cu.
 
 #include "attention_f32.cuh"
+#include "attention_tc.cuh"
 #include "common.cuh"
 
 namespace {
 
 using namespace dmt;
+using namespace dmt::attn_tc;
+using bf16 = __nv_bfloat16;
 
-constexpr int kQTile = 32;              // query rows per block
-constexpr int kKTile = 64;              // keys per staged K or V tile
-constexpr int kRows = kQTile / kWarps;  // query rows per warp
+constexpr int kQRows = 128;                 // query rows per bf16 block
+constexpr int kQWarps = kQRows / 16;        // one warp per 16 rows
+constexpr int kQThreads = kQWarps * 32;
+constexpr int kChunk = kChunkKeys2Pass;     // keys per streamed chunk
+constexpr int kRing = 3;                    // stages of the K/V ring: two chunks in flight
 
-template <typename T> size_t qtiled_smem_bytes(int S, int hd) {
-  return (size_t)kQTile * (S + hd) * sizeof(float)            // scores + q rows
-         + (size_t)kKTile * padded_ld<T>(hd) * sizeof(T);      // one K/V tile
+// hd <= 64: two blocks of 8 warps per SM (registers capped at 128); hd 128
+// keeps up to 255 for its 32 Q-fragment and 64 accumulator registers.
+template <int HD> constexpr int qtiled_min_blocks() { return HD == 128 ? 1 : 2; }
+
+// The Q tile plus kRing stages of one K chunk and one V chunk.
+template <int HD> constexpr size_t qtiled_smem_bytes_bf16() {
+  return (size_t)(kQRows + kRing * 2 * kChunk) * HD * 2;
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-qtiled_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, T* __restrict__ o,
-                   int S, int D, int causal, float scale) {
-  constexpr int ld = padded_ld<T>(HD);
-  constexpr int kPerLane = HD / 32;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sc = reinterpret_cast<float*>(smem_raw);       // [kQTile][S] scores
-  float* qs = sc + (size_t)kQTile * S;                   // [kQTile][HD] q rows
-  T* kv = reinterpret_cast<T*>(qs + kQTile * HD);        // [kKTile][ld] K or V
+template <int HD>
+__global__ void __launch_bounds__(kQThreads, qtiled_min_blocks<HD>())
+qtiled_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, bf16* __restrict__ o,
+                 int S, int D, int causal, float scale_log2) {
+  constexpr int kRowBytes = HD * 2;
+  constexpr int NT = kChunk / 8;
+  constexpr uint32_t kChunkBytes = kChunk * kRowBytes;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const uint32_t q_s = smem_u32(smem_raw);
+  const uint32_t ring = q_s + kQRows * kRowBytes;  // each stage: a K chunk, then a V chunk
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q0 = blockIdx.x * kQRows;
 
-  const int q0 = blockIdx.x * kQTile;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const size_t base = (size_t)b * S * D + (size_t)h * HD;
-  const int n_rows = min(kQTile, S - q0);
-  const int n_keys_tile = causal ? q0 + n_rows : S;  // keys any row here sees
+  // this warp's rows r0 + [0, 16): the keys they see, as in kernel 1
+  const int r0 = q0 + 16 * warp;
+  const bool live = r0 < S;
+  const int key_end = causal ? min(S, r0 + 16) : S;
+  const int n_ks = (key_end + 15) / 16;
+  const int n_chunks = (n_ks + NT / 2 - 1) / (NT / 2);
+  const int mask_from = causal ? r0 : S;
+  // the block's chunks (its last row's), streamed once per pass: step s <
+  // nc is K chunk s (pass 1), step s >= nc K and V chunk s - nc (pass 2)
+  const int nc = ((causal ? min(S, q0 + kQRows) : S) + kChunk - 1) / kChunk;
+  const int n_steps = 2 * nc;
+  // row r of this (image, head) in q, k, v or o: recomputed from blockIdx
+  // where used, which keeps registers for the fragments
+  auto at = [&](int r) { return ((size_t)blockIdx.z * S + r) * D + (size_t)blockIdx.y * HD; };
+  auto issue = [&](int step) {
+    const uint32_t buf = ring + (uint32_t)(step % kRing) * 2 * kChunkBytes;
+    const int key0 = (step < nc ? step : step - nc) * kChunk;
+    stage_rows<HD>(buf, k + at(key0), kChunk, S - key0, D, threadIdx.x, kQThreads);
+    if (step >= nc)
+      stage_rows<HD>(buf + kChunkBytes, v + at(key0), kChunk, S - key0, D, threadIdx.x,
+                     kQThreads);
+  };
 
-  for (int idx = threadIdx.x; idx < kQTile * HD; idx += kThreads) {
-    const int r = idx / HD, d = idx % HD;
-    qs[idx] = r < n_rows ? to_f32(q[base + (size_t)(q0 + r) * D + d]) : 0.f;
+  // the Q tile and step 0 (group 0), then steps 1 .. kRing - 2: one commit
+  // group each, empty past the end
+  stage_rows<HD>(q_s, q + at(q0), kQRows, S - q0, D, threadIdx.x, kQThreads);
+#pragma unroll
+  for (int i = 0; i < kRing - 1; ++i) {
+    if (i < n_steps) issue(i);
+    cp_async_commit();
   }
 
-  // This warp owns local rows warp + kWarps * i (interleaved, so a causal
-  // tile's short and long rows spread over the warps).
-  float m[kRows];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) m[i] = -INFINITY;
-
-  // pass 1: scores, K streamed tile by tile
-  for (int j0 = 0; j0 < n_keys_tile; j0 += kKTile) {
-    const int nk = min(kKTile, n_keys_tile - j0);
-    __syncthreads();  // the previous tile is consumed (and qs is staged)
-    for (int idx = threadIdx.x; idx < nk * HD; idx += kThreads) {
-      const int j = idx / HD, d = idx % HD;
-      kv[j * ld + d] = k[base + (size_t)(j0 + j) * D + d];
-    }
+  // the top of every step: this step's copies landed for every thread, every
+  // warp is done with the last step (whose buffer the next copy refills),
+  // then step + kRing - 1 is issued
+  auto begin_step = [&](int step) {
+    cp_async_wait<kRing - 2>();
     __syncthreads();
-    for (int jj = lane; jj < nk; jj += 32) {
-      const T* kr = kv + jj * ld;
-      float acc[kRows];
+    if (step + kRing - 1 < n_steps) issue(step + kRing - 1);
+    cp_async_commit();
+  };
+  // K of chunk c, staged by step: its rows c*64 + [0, 64) indexed by key,
+  // as chunk_scores indexes kernel 1's resident K_h (64 rows keep the
+  // swizzle's row bits)
+  auto chunk_k = [&](int step, int c) {
+    return ring + (uint32_t)(step % kRing) * 2 * kChunkBytes - (uint32_t)c * kChunkBytes;
+  };
+
+  const int g = lane >> 2, t = lane & 3;
+  uint32_t qf[HD / 16][4];  // A fragments of Q, head dims 16 at a time
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  // pass 1: row max and sum (rows g and g + 8 of the tile), chunk by chunk
+  for (int c = 0; c < nc; ++c) {
+    begin_step(c);
+    if (c == 0) {
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) acc[i] = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < HD; ++d) {
-        const float kd = to_f32(kr[d]);
+      for (int kd = 0; kd < HD / 16; ++kd)
+        ldsm_x4(qf[kd], q_s + swz<HD>(16 * warp + (lane & 15), 2 * kd + (lane >> 4)));
+    }
+    if (!live || c >= n_chunks) continue;  // warp-uniform
+    float sc[NT][4];
+    chunk_scores<HD, NT>(sc, qf, chunk_k(c, c), c, n_ks, r0, S, causal, mask_from, lane);
+    float c0 = -INFINITY, c1 = -INFINITY;
 #pragma unroll
-        for (int i = 0; i < kRows; ++i)
-          acc[i] = fmaf(qs[(warp + kWarps * i) * HD + d], kd, acc[i]);
-      }
-      const int j = j0 + jj;
+    for (int j = 0; j < NT; ++j) {
+      c0 = fmaxf(c0, fmaxf(sc[j][0], sc[j][1]));
+      c1 = fmaxf(c1, fmaxf(sc[j][2], sc[j][3]));
+    }
+    const float n0 = fmaxf(m0, quad_max(c0)), n1 = fmaxf(m1, quad_max(c1));
+    l0 *= exp2f((m0 - n0) * scale_log2);
+    l1 *= exp2f((m1 - n1) * scale_log2);
+    m0 = n0;
+    m1 = n1;
+    to_exp<NT>(sc, m0 * scale_log2, m1 * scale_log2, scale_log2);
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const int r = warp + kWarps * i;
-        if (r < n_rows && (!causal || j <= q0 + r)) {
-          const float s = acc[i] * scale;
-          sc[(size_t)r * S + j] = s;
-          m[i] = fmaxf(m[i], s);
+    for (int j = 0; j < NT; ++j) {
+      l0 += sc[j][0] + sc[j][1];
+      l1 += sc[j][2] + sc[j][3];
+    }
+  }
+
+  // pass 2: the logits again, w = e / sum rounded to bf16, P.V into f32
+  // accumulators; each chunk in two halves of 32 keys (registers), which
+  // keeps kernel 1's sums: the logits of a key step do not depend on the
+  // others, and P.V still adds the key steps in order
+  const float inv0 = 1.f / quad_sum(l0), inv1 = 1.f / quad_sum(l1);
+  float acc[HD / 8][4];
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  for (int c = 0; c < nc; ++c) {
+    begin_step(nc + c);
+    if (!live || c >= n_chunks) continue;
+    const uint32_t k_s = chunk_k(nc + c, c), v_s = k_s + kChunkBytes;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float sc[NT / 2][4];
+      chunk_scores<HD, NT / 2>(sc, qf, k_s, 2 * c + half, n_ks, r0, S, causal, mask_from, lane);
+      to_exp<NT / 2>(sc, m0 * scale_log2, m1 * scale_log2, scale_log2);
+#pragma unroll
+      for (int jp = 0; jp < NT / 4; ++jp) {
+        const int ks = (2 * c + half) * (NT / 4) + jp;
+        if (ks >= n_ks) continue;
+        uint32_t pa[4];  // A fragment of P: keys ks*16 + [0, 16)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int j = 2 * jp + hh;
+          pa[2 * hh] = pack_bf16(sc[j][0] * inv0, sc[j][1] * inv0);
+          pa[2 * hh + 1] = pack_bf16(sc[j][2] * inv1, sc[j][3] * inv1);
+        }
+#pragma unroll
+        for (int dp = 0; dp < HD / 16; ++dp) {
+          // V rows ks*16 + [0, 8) and [8, 16), head dims dp*16 + [0, 8) and [8, 16)
+          uint32_t vb[4];
+          ldsm_x4_trans(vb, v_s + swz<HD>(ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                          2 * dp + (lane >> 4)));
+          mma_bf16(acc[2 * dp], pa, vb[0], vb[1]);
+          mma_bf16(acc[2 * dp + 1], pa, vb[2], vb[3]);
         }
       }
     }
   }
+  cp_async_wait<0>();
+  if (!live) return;
 
-  // exact whole-row softmax of this warp's rows, in place
+  const int row0 = r0 + g, row1 = r0 + g + 8;
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int r = warp + kWarps * i;
-    if (r >= n_rows) continue;  // warp-uniform
-    float* row = sc + (size_t)r * S;
-    const int n_keys = causal ? q0 + r + 1 : S;
-    const float mx = warp_max(m[i]);
-    float sum = 0.f;
-    for (int j = lane; j < n_keys; j += 32) {
-      const float e = expf(row[j] - mx);
-      row[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    // probabilities, rounded to the input dtype as the TPU kernel does
-    for (int j = lane; j < n_keys; j += 32) row[j] = to_f32(from_f32<T>(row[j] / sum));
-  }
-
-  // pass 2: P.V, V streamed tile by tile; lanes split the head dims
-  float acc[kRows][kPerLane];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int t = 0; t < kPerLane; ++t) acc[i][t] = 0.f;
-  for (int j0 = 0; j0 < n_keys_tile; j0 += kKTile) {
-    const int nk = min(kKTile, n_keys_tile - j0);
-    __syncthreads();  // the previous tile is consumed (and every row's p is final)
-    for (int idx = threadIdx.x; idx < nk * HD; idx += kThreads) {
-      const int j = idx / HD, d = idx % HD;
-      kv[j * ld + d] = v[base + (size_t)(j0 + j) * D + d];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int r = warp + kWarps * i;
-      if (r >= n_rows) continue;
-      const int n_keys = causal ? q0 + r + 1 : S;
-      const int jend = min(nk, n_keys - j0);
-      const float* p = sc + (size_t)r * S + j0;
-      for (int jj = 0; jj < jend; ++jj) {
-        const float pj = p[jj];
-        const T* vr = kv + jj * ld;
-#pragma unroll
-        for (int t = 0; t < kPerLane; ++t)
-          acc[i][t] = fmaf(pj, to_f32(vr[lane + 32 * t]), acc[i][t]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int r = warp + kWarps * i;
-    if (r >= n_rows) continue;
-    const size_t out_row = base + (size_t)(q0 + r) * D;
-#pragma unroll
-    for (int t = 0; t < kPerLane; ++t) o[out_row + lane + 32 * t] = from_f32<T>(acc[i][t]);
+  for (int j = 0; j < HD / 8; ++j) {
+    const int col = j * 8 + 2 * t;
+    if (row0 < S)
+      *reinterpret_cast<uint32_t*>(o + at(row0) + col) = pack_bf16(acc[j][0], acc[j][1]);
+    if (row1 < S)
+      *reinterpret_cast<uint32_t*>(o + at(row1) + col) = pack_bf16(acc[j][2], acc[j][3]);
   }
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int D, int H, int causal, cudaStream_t stream) {
-  const size_t smem = qtiled_smem_bytes<T>(S, HD);
-  auto kernel = qtiled_attn_kernel<T, HD>;
+template <int HD>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int S, int D,
+                int H, int causal, cudaStream_t stream) {
+  constexpr size_t smem = qtiled_smem_bytes_bf16<HD>();
+  auto kernel = qtiled_tc_kernel<HD>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + kQTile - 1) / kQTile, H, B);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, D, causal,
-      1.0f / sqrtf((float)HD));
+  const dim3 grid((S + kQRows - 1) / kQRows, H, B);
+  kernel<<<grid, kQThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), S, D, causal, kLog2e / sqrtf((float)HD));
   return (int)cudaGetLastError();
 }
 
 int dispatch_bf16(const void* q, const void* k, const void* v, void* o, int B,
                   int S, int D, int H, int causal, cudaStream_t stream) {
-  using T = __nv_bfloat16;
   switch (D / H) {
-    case 32: return launch<T, 32>(q, k, v, o, B, S, D, H, causal, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, S, D, H, causal, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, S, D, H, causal, stream);
+    case 32: return launch_bf16<32>(q, k, v, o, B, S, D, H, causal, stream);
+    case 64: return launch_bf16<64>(q, k, v, o, B, S, D, H, causal, stream);
+    case 128: return launch_bf16<128>(q, k, v, o, B, S, D, H, causal, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -229,7 +285,7 @@ int dispatch_f32(const void* q, const void* k, const void* v, void* o, int B,
 
 extern "C" {
 
-// dtype: 0 = float32 (16-byte aligned base pointers), 1 = bfloat16.
+// dtype: 0 = float32, 1 = bfloat16; both need 16-byte aligned base pointers.
 int short_attention_qtiled_forward(const void* q, const void* k, const void* v,
                                    void* o, int B, int S, int D, int H,
                                    int causal, int dtype, void* stream) {

@@ -8,8 +8,9 @@ downsample, the residual add and the final ReLU, on NHWC activations
 ``[B, H, W, Cin]``, with the weights in the JAX layouts (``w1 [Cin, M]``,
 ``w2 [3, 3, M, M]``, ``w3 [M, Cout]``, ``wd [Cin, Cout]``).  On a CUDA tensor
 it launches the hand-written kernel in ``csrc/bottleneck.cu`` (one block per
-image group and row strip; y1 and y2 stay in shared memory; bf16 on the
-tensor cores with ``mma.sync``, f32 on CUDA-core FMAs) or raises; on a CPU
+image group and row strip; y1 and y2 stay in shared memory; every product
+on the tensor cores with ``mma.sync``, bf16 as such and f32 as split-TF32,
+three TF32 products per product) or raises; on a CPU
 tensor it runs :func:`xla_bottleneck`, the plain PyTorch version with the
 JAX kernel's roundings.  There is no fall back from one to the other;
 ``fused_bottleneck_gemm.launches`` counts the kernel's launches.
@@ -21,11 +22,14 @@ keeps ``F.conv2d``): it is driven at the folded RN50's stride-1 blocks by
 
 The H100 gate is shared memory: the kernel keeps a zero-bordered
 ``[G, S+2, W+2, M]`` y1 tile and a ``[G, S, W, M]`` y2 tile of the
-activation dtype per block, and in bf16 a ring of four stage buffers of
-weight (and x) tiles (:func:`smem_bytes`), against the 232,448 bytes a block
-may use; :func:`pick_strip_rows` gives the largest strip that fits.  bf16 takes
-channel counts that are multiples of 16 (the ``k16`` step of ``mma.sync``),
-f32 multiples of 8.  The TPU's VMEM sizing does not carry over.
+activation dtype per block, and a ring of four stage buffers of weight (and
+x) tiles (:func:`smem_bytes`), against the 232,448 bytes a block may use;
+:func:`pick_strip_rows` gives the largest strip that fits.  A block holds an
+SM, so where a small batch gives fewer blocks than SMs a smaller strip may
+be faster: the caller picks it (``strip_rows``).  bf16 takes channel counts
+that are multiples of 16 (the ``k16`` step of ``mma.sync``), f32 multiples of
+8 (the ``k8`` step of its TF32 form).  The TPU's VMEM sizing does not carry
+over.
 """
 
 from __future__ import annotations
@@ -40,12 +44,12 @@ from debiasing_multi_modal_tpu_torch.utils.platform import full_f32
 
 # A Hopper block may use 232,448 bytes of shared memory (227 KB).
 SMEM_LIMIT_BYTES = 232448
-# channel multiple per dtype: f32 8-element vectors (csrc/bottleneck.cu kRC),
-# bf16 the k16 step of mma.sync
+# channel multiple per dtype: the k step of one mma.sync, k8 for the TF32
+# products of f32, k16 for bf16
 _CHANNEL_VECTOR = {torch.float32: 8, torch.bfloat16: 16}
-# the ring of stage buffers of the bf16 kernel (csrc/bottleneck.cu kStages *
+# the ring of stage buffers, in either dtype (csrc/bottleneck.cu kStages *
 # kStageBytes)
-_BF16_STAGE_BYTES = 4 * 20480
+_STAGE_BYTES = 4 * 20480
 _MAX_GRID_Y = 65535  # image groups ride the grid's y dimension
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -55,10 +59,10 @@ def smem_bytes(w: int, m: int, strip_rows: int, images_per_cell: int,
     """Dynamic shared memory of one kernel-8 (or kernel-9) block (mirrors
     ``smem_bytes`` in the CUDA source): the zero-bordered y1 tile of the
     strip and its halo rows, and the strip's y2 tile, of the activation
-    dtype; in bf16 (``itemsize`` 2) also the ring of stage buffers."""
+    dtype, and the ring of stage buffers."""
     g, s = images_per_cell, strip_rows
     tiles = (g * (s + 2) * (w + 2) * m + g * s * w * m) * itemsize
-    return tiles + (_BF16_STAGE_BYTES if itemsize == 2 else 0)
+    return tiles + _STAGE_BYTES
 
 
 def pick_strip_rows(h: int, w: int, m: int, itemsize: int,

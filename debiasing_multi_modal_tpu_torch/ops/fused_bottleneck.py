@@ -17,7 +17,7 @@ Of RN50's 16 blocks, the 12 stride-1 blocks without a downsample qualify
 (the JAX docstring's "13" counts layer1 block 0, whose downsample only
 kernel 8 takes).  The JAX VMEM picker ``_images_per_cell`` does not carry
 over: the kernel takes one image per block and the largest row strip whose
-tiles (and, in bf16, stage buffers) fit shared memory (:func:`strip_rows`,
+tiles and ring of stage buffers fit shared memory (:func:`strip_rows`,
 :func:`smem_bytes`).
 """
 

@@ -36,11 +36,16 @@ own launches (``short_attention.launches``, ``short_attention_qtiled.launches``,
 ``short_attention_packed.launches``).
 
 The H100 gates are derived from shared memory, against the 227 KB a block
-may use (:func:`smem_bytes`, :func:`qtiled_smem_bytes`).  In bf16 kernels 1
-and 3 run on the tensor cores (``mma.sync``, ``ldmatrix``, 16-byte
-``cp.async``) and stage one head's K_h and V_h, rows rounded up to 16 and
-swizzled, plus one 16-row Q tile per warp; bf16 kernel 2 stages 32 query
-rows' f32 score and query rows plus one padded 64-key tile.  In f32 all
+may use (:func:`smem_bytes`, :func:`qtiled_smem_bytes`).  In bf16 all three
+run on the tensor cores (``mma.sync``, ``ldmatrix``, 16-byte ``cp.async``):
+kernels 1 and 3 stage one head's K_h and V_h, rows rounded up to 16 and
+swizzled, plus one 16-row Q tile per warp; kernel 2 runs
+kernel 1's two-pass device code on 128-row query tiles with K and V streamed
+through a three-stage ring of 64-key chunks, so its footprint does not
+grow with S and it equals kernel 1 bit for bit where kernel 1 takes its
+two-pass path.  Its gate keeps the largest S the first bf16 design took
+(:data:`QTILED_BF16_MAX_S`), so that longer rows go on to the flash kernels,
+which have a backward kernel.  In f32 all
 three run one device code on the CUDA cores (``csrc/attention_f32.cuh``),
 with register tiles of logits and outputs, for a tile of 32 or 64 query
 rows: kernels 1 and 3 keep K_h and V_h resident beside the tile's f32 score
@@ -63,16 +68,19 @@ from debiasing_multi_modal_tpu_torch.ops import cuda_build
 _NEG_INF = -1e30
 # A Hopper block may use 232,448 bytes of shared memory (227 KB).
 SMEM_LIMIT_BYTES = 232448
-_Q_TILE = 32  # query rows per bf16 kernel-2 block, csrc/short_attention_qtiled.cu kQTile
-_K_TILE = 64  # keys per bf16 kernel-2 K/V tile, kKTile
+_Q_ROWS = 128  # query rows per bf16 kernel-2 block, csrc/short_attention_qtiled.cu kQRows
+_K_CHUNK = 64  # keys per streamed bf16 kernel-2 chunk, kChunk
+_K_RING = 3  # stages of bf16 kernel 2's K/V ring, kRing
+# The largest bf16 S kernel 2 takes at hd 32 / 64 / 128: where the first
+# (CUDA-core) design's 32 f32 score rows stopped fitting shared memory.  The
+# tensor-core design's footprint does not grow with S, but past these S
+# `auto` splits the heads and takes flash kernel 4, which has a backward
+# kernel; kernel 2's backward is the plain VJP, which builds the S^2 matrix.
+QTILED_BF16_MAX_S = {32: 1750, 64: 1686, 128: 1558}
 HEAD_DIMS = (32, 64, 128)  # the head widths the kernels are instantiated for
 _MAX_GRID_Z = 65535  # images ride the grid's z dimension
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_CP_ASYNC_DTYPES = (torch.float32, torch.bfloat16)  # kernels 1 and 3 copy both by cp.async
-
-
-def _padded_ld(hd: int, itemsize: int) -> int:
-    return hd + (2 if itemsize == 2 else 1)
+_CP_ASYNC_DTYPES = (torch.float32, torch.bfloat16)  # kernels 1-3 copy both by cp.async
 
 
 def _tc_warps(s: int, hd: int) -> int:
@@ -136,12 +144,12 @@ def smem_bytes(s: int, hd: int, itemsize: int) -> int:
 
 def qtiled_smem_bytes(s: int, hd: int, itemsize: int) -> int:
     """Dynamic shared memory of one kernel-2 block (mirrors
-    ``qtiled_smem_bytes`` in the CUDA source and
-    ``f32attn::streamed_smem_bytes``).  bf16: 32 query rows' f32 score and
-    query rows, plus one padded K/V tile.  f32: the tile of
+    ``qtiled_smem_bytes_bf16`` in the CUDA source and
+    ``f32attn::streamed_smem_bytes``).  bf16: the 128-row Q tile and three
+    stages of a 64-key K chunk and a V chunk, whatever S.  f32: the tile of
     :func:`f32_streamed_tile`."""
     if itemsize == 2:
-        return _Q_TILE * (s + hd) * 4 + _K_TILE * _padded_ld(hd, itemsize) * itemsize
+        return (_Q_ROWS + _K_RING * 2 * _K_CHUNK) * hd * itemsize
     return _f32_streamed_bytes(s, hd, *f32_streamed_tile(s, hd))
 
 
@@ -168,11 +176,15 @@ def supported_whole_row(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def supported_qtiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      num_heads: int) -> bool:
-    """Whether kernel 2 takes this call: 32 query rows' scores fit a block."""
+    """Whether kernel 2 takes this call: in f32, the tile's score rows fit a
+    block; in bf16, S is at most :data:`QTILED_BF16_MAX_S` at its head
+    width."""
     if not _shape_ok(q, k, v, num_heads):
         return False
-    s, d = q.shape[1], q.shape[2]
-    return qtiled_smem_bytes(s, d // num_heads, q.element_size()) <= SMEM_LIMIT_BYTES
+    s, hd = q.shape[1], q.shape[2] // num_heads
+    if q.element_size() == 2 and s > QTILED_BF16_MAX_S[hd]:
+        return False
+    return qtiled_smem_bytes(s, hd, q.element_size()) <= SMEM_LIMIT_BYTES
 
 
 def supported(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -277,8 +289,7 @@ def _need_contiguous(name, *tensors):
 
 def _need_aligned(name, *tensors, dtypes=(torch.bfloat16,)):
     """A kernel copies 16-byte chunks of inputs of these dtypes with
-    ``cp.async`` (kernels 1 and 3 in both dtypes, kernel 2 in f32, the flash
-    kernels 4-6 in both dtypes): a base pointer off a 16-byte boundary (a
+    ``cp.async`` (kernels 1-3 and the flash kernels 4-6, in both dtypes): a base pointer off a 16-byte boundary (a
     view whose storage offset is not a multiple of 16 bytes) would fault, so
     it raises here."""
     if any(t.dtype in dtypes and t.data_ptr() % 16 for t in tensors):
@@ -321,7 +332,7 @@ short_attention.launches = 0
 
 def _qtiled(q, k, v, num_heads, causal):
     _need_contiguous("short_attention_qtiled", q, k, v)
-    _need_aligned("short_attention_qtiled", q, k, v, dtypes=(torch.float32,))
+    _need_aligned("short_attention_qtiled", q, k, v, dtypes=_CP_ASYNC_DTYPES)
     out = torch.empty_like(q)
     b, s, d = q.shape
     cuda_build.launch("short_attention_qtiled", "short_attention_qtiled_forward",

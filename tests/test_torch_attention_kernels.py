@@ -30,34 +30,58 @@ def _arrays(shape, n, seed):
     return tuple(rng.standard_normal(shape).astype(np.float32) for _ in range(n))
 
 
+def _jax_short_arrays(q, k, v, h, causal):
+    from debiasing_multi_modal_tpu.ops.short_attention import short_attention
+
+    return short_attention(q, k, v, h, causal=causal, interpret=True)
+
+
 def _jax_short(q, k, v, h, causal):
     import jax.numpy as jnp
 
-    from debiasing_multi_modal_tpu.ops.short_attention import short_attention
-
-    return np.asarray(short_attention(*(jnp.asarray(x) for x in (q, k, v)), h,
-                                      causal=causal, interpret=True))
+    return np.asarray(_jax_short_arrays(*(jnp.asarray(x) for x in (q, k, v)), h, causal))
 
 
-@pytest.mark.parametrize("s,seed,causal", [(1025, 11, False), (1025, 11, True),
-                                           (1111, 12, True)])
-def test_qtiled_plain_matches_jax_tiled_kernel(s, seed, causal):
-    """S=1025 D=256 H=4 f32: the JAX gate picks its q-tiled mode there
+@pytest.mark.parametrize("s,seed,causal,dtype", [(1025, 11, False, np.float32),
+                                                 (1025, 11, True, np.float32),
+                                                 (1111, 12, True, np.float32),
+                                                 (1025, 13, True, "bfloat16")],
+                         ids=["1025-11-False", "1025-11-True", "1111-12-True",
+                              "1025-13-True-bfloat16"])
+def test_qtiled_plain_matches_jax_tiled_kernel(s, seed, causal, dtype):
+    """S=1025 D=256 H=4: the JAX gate picks its q-tiled mode there
     (tests/test_short_attention.py:265-305); S=1111 is ragged against every
-    q tile."""
+    q tile.  f32 within 3e-5; bf16 (past bf16 kernel 1's gate of 832 at hd
+    64, where the card takes kernel 2) within 1e-2 of scale: both keep the
+    logits in f32 and round the probabilities to bf16, but a probability on
+    either side of a bf16 rounding, and the bf16 output itself, move an
+    output by an ulp (~4e-3 of scale)."""
+    import jax.numpy as jnp
+
     from debiasing_multi_modal_tpu.ops.short_attention import (
         CELL_VMEM_LIMIT,
         _cell_bytes,
         pick_block_q,
     )
 
-    assert _cell_bytes(s, 256, 4, 4) > CELL_VMEM_LIMIT
-    assert pick_block_q(s, 256, 4) is not None
+    itemsize = 2 if dtype == "bfloat16" else 4
+    assert _cell_bytes(s, 256, 4, itemsize) > CELL_VMEM_LIMIT
+    assert pick_block_q(s, 256, itemsize) is not None
     q, k, v = _arrays((1, s, 256), 3, seed)
-    ref = _jax_short(q, k, v, 4, causal)
-    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
-    ours = sa.short_attention_qtiled(tq, tk, tv, 4, causal=causal)
-    np.testing.assert_allclose(ours.numpy(), ref, rtol=0, atol=3e-5)
+    if dtype == "bfloat16":
+        jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+        tq, tk, tv = (torch.from_numpy(x).bfloat16() for x in (q, k, v))
+        assert not sa.supported_whole_row(tq, tk, tv, 4) and sa.supported_qtiled(tq, tk, tv, 4)
+        ref = np.asarray(_jax_short_arrays(jq, jk, jv, 4, causal), np.float32)
+        ours = sa.short_attention_qtiled(tq, tk, tv, 4, causal=causal)
+        assert ours.dtype == torch.bfloat16
+        np.testing.assert_allclose(ours.float().numpy(), ref, rtol=0,
+                                   atol=1e-2 * np.abs(ref).max())
+    else:
+        ref = _jax_short(q, k, v, 4, causal)
+        tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+        ours = sa.short_attention_qtiled(tq, tk, tv, 4, causal=causal)
+        np.testing.assert_allclose(ours.numpy(), ref, rtol=0, atol=3e-5)
     # the dispatching entry takes the same plain version on the CPU
     torch.testing.assert_close(sa.short_attention(tq, tk, tv, 4, causal=causal),
                                ours, rtol=0, atol=0)
@@ -164,20 +188,35 @@ def test_wrappers_on_cpu_count_no_launch():
 # ------------------------------------------------------------- on the card --
 
 
+# bf16 kernel 2 past kernel 1's gate (832 at hd 64): ragged against 16-row
+# warp tiles, 64-key chunks and 128-row q tiles (833, 1025, 1111), causal,
+# hd 32 and 128, and each gate's largest S (1,750 / 1,686 / 1,558)
+QTILED_BF16 = [(b, s, d, h, causal, torch.bfloat16, 2e-2) for b, s, d, h, causal in [
+    (3, 833, 512, 8, False), (1, 1025, 1024, 16, False), (2, 1111, 512, 8, True),
+    (2, 1025, 256, 8, True), (2, 1750, 256, 8, False), (2, 1686, 512, 8, True),
+    (2, 1200, 512, 4, True), (2, 1558, 512, 4, False)]]
+
+
 @pytest.mark.parametrize("b,s,d,h,causal,dtype,atol", [
     (2, 577, 1024, 16, False, torch.float32, 1e-5),
-    (1, 1025, 1024, 16, False, torch.bfloat16, 2e-2),
     (2, 1111, 256, 4, True, torch.float32, 1e-5),
-])
+] + QTILED_BF16)
 def test_qtiled_kernel_matches_plain_on_card(card, b, s, d, h, causal, dtype, atol):
+    """f32 within 1e-5; bf16 within 2e-2 and cosine >= 0.9999 (kernel 2 on
+    the tensor cores; the plain version sums in another order, so a bf16
+    rounding may land on either side)."""
     g = torch.Generator(device="cuda").manual_seed(0)
     q, k, v = (torch.randn(b, s, d, device="cuda", generator=g).to(dtype) for _ in range(3))
+    assert sa.supported_qtiled(q, k, v, h)
     before = sa.short_attention_qtiled.launches
     out = sa.short_attention_qtiled(q, k, v, h, causal=causal)
     torch.cuda.synchronize()
     assert sa.short_attention_qtiled.launches == before + 1
     ref = sa.short_attention_reference(q, k, v, h, causal)
     assert (out.float() - ref.float()).abs().max().item() <= atol
+    if dtype == torch.bfloat16:
+        assert torch.nn.functional.cosine_similarity(
+            out.float().flatten(), ref.float().flatten(), dim=0).item() >= 0.9999
 
 
 # Ragged f32 S for kernels 1-3 and 2 (hd 64), causal and not: one key tile,
@@ -206,8 +245,11 @@ def test_f32_kernels_match_plain_at_ragged_s_on_card(card, s, causal):
 
 def test_qtiled_kernel_equals_whole_row_kernel_on_card(card):
     """In f32 kernel 2 sums in kernel 1's order, so where both take a shape
-    their outputs are bit-equal; in bf16 kernel 1 runs on the tensor cores
-    (another order), so the two agree within the bf16 limits."""
+    their outputs are bit-equal.  In bf16 kernel 2 runs kernel 1's two-pass
+    tensor-core path (64-key chunks, 16-row warp tiles), so they are
+    bit-equal where kernel 1 takes that path too (S > 80 at hd 64, S > 32 at
+    hd 128); at S = 77 kernel 1 keeps a row's 80 keys in one chunk (another
+    order), and the two agree within the bf16 limits."""
     g = torch.Generator(device="cuda").manual_seed(1)
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v = (torch.randn(3, 77, 512, device="cuda", generator=g).to(dtype)
@@ -221,6 +263,14 @@ def test_qtiled_kernel_equals_whole_row_kernel_on_card(card):
                 assert (whole.float() - tiled.float()).abs().max().item() <= 2e-2
                 assert torch.nn.functional.cosine_similarity(
                     whole.float().flatten(), tiled.float().flatten(), dim=0).item() >= 0.9999
+    for s, d, h in [(81, 512, 8), (129, 512, 8), (577, 512, 8), (832, 512, 8), (1111, 256, 8),
+                    (33, 512, 4), (416, 512, 4)]:
+        q, k, v = (torch.randn(2, s, d, device="cuda", generator=g).bfloat16()
+                   for _ in range(3))
+        assert sa.supported_whole_row(q, k, v, h)
+        for causal in (False, True):
+            assert torch.equal(sa.short_attention_qtiled(q, k, v, h, causal=causal),
+                               sa.short_attention(q, k, v, h, causal=causal)), (s, d, h, causal)
 
 
 @pytest.mark.parametrize("b,s,d,h,causal,dtype", [

@@ -166,13 +166,15 @@ def test_folded_block_matches_plain_of_its_block_weights(block_index):
 
 def test_shared_memory_gates_pinned():
     """The tiles the H100 kernels keep per block (y1 with its halo and zero
-    border, y2, and in bf16 the tensor-core kernel's ring of four 20,480-byte
-    stage buffers), against the 232,448 bytes a block may use."""
+    border, y2, and the tensor-core kernel's ring of four 20,480-byte stage
+    buffers, in either dtype), against the 232,448 bytes a block may use."""
     assert tcg.smem_bytes(56, 64, 8, 1, 2) == 213504     # layer1, bf16, strip 8
     assert tcg.smem_bytes(14, 256, 14, 1, 2) == 313344   # layer3, bf16, strip 14: too big
     assert tcg.smem_bytes(14, 256, 7, 1, 2) == 205824    # layer3, bf16, strip 7
     assert tcg.smem_bytes(7, 512, 7, 1, 2) == 215040     # layer4, bf16, strip 7
-    assert tcg.smem_bytes(56, 64, 4, 1, 4) == 146432     # layer1, f32, strip 4
+    assert tcg.smem_bytes(56, 64, 4, 1, 4) == 146432 + 81920  # layer1, f32, strip 4
+    assert tcg.smem_bytes(28, 128, 4, 1, 4) == 231424    # layer2, f32, strip 4
+    assert tcg.smem_bytes(7, 512, 1, 1, 4) == 151552     # layer4, f32, strip 1
     assert tcg.smem_bytes(56, 64, 8, 1, 4) > tcg.SMEM_LIMIT_BYTES  # layer1 f32 strip 8
     # largest fitting strip per RN50 stage, bf16 / f32, and kernel 9's gate
     stages = {"layer1": (56, 64), "layer2": (28, 128), "layer3": (14, 256), "layer4": (7, 512)}
@@ -208,6 +210,87 @@ def test_bf16_needs_channels_in_multiples_of_16():
     assert got.dtype == torch.bfloat16 and got.shape == x.shape
 
 
+def _block_f64(x, w):
+    """The block in float64 (NHWC in and out), the yardstick of the f32 error."""
+    f = torch.nn.functional
+    h = x.double().permute(0, 3, 1, 2)
+
+    def conv(t, kernel_oihw, padding):
+        return f.conv2d(t, kernel_oihw.double(), padding=padding)
+
+    def one_by_one(name):
+        return w[name].t()[:, :, None, None]
+
+    def bias(name):
+        return w[name].double()[:, None, None]
+
+    y = torch.relu(conv(h, one_by_one("w1"), 0) + bias("b1"))
+    y = torch.relu(conv(y, w["w2"].permute(3, 2, 0, 1), 1) + bias("b2"))
+    y = conv(y, one_by_one("w3"), 0) + bias("b3")
+    r = h if "wd" not in w else conv(h, one_by_one("wd"), 0) + bias("bd")
+    return torch.relu(y + r).permute(0, 2, 3, 1)
+
+
+def _block_with(mm, x, w, shifted):
+    """Kernels 8 and 9 in f32 with every product taken by ``mm`` over
+    ``[pixels, K] x [K, N]``: kernel 8 takes conv2 as one K = 9M contraction
+    of the zero-padded y1 patches, kernel 9 each (dy, dx) shift's product on
+    its own, added to the sum; the biases and the residual added as the
+    kernel adds them."""
+    b, h, wd, cin = x.shape
+    m = w["w1"].shape[1]
+    xf = x.reshape(-1, cin)
+    y1 = torch.relu(mm("pk,kn->pn", xf, w["w1"]) + w["b1"]).reshape(b, h, wd, m)
+    y1 = torch.nn.functional.pad(y1, (0, 0, 1, 1, 1, 1))
+    patches = [y1[:, dy:dy + h, dx:dx + wd].reshape(-1, m) for dy in range(3) for dx in range(3)]
+    w2 = w["w2"].reshape(9, m, m)
+    if shifted:
+        acc = torch.zeros(xf.shape[0], m)
+        for shift, patch in enumerate(patches):
+            acc = acc + mm("pk,kn->pn", patch, w2[shift])
+    else:
+        acc = mm("pk,kn->pn", torch.cat(patches, 1), w2.reshape(9 * m, m))
+    y2 = torch.relu(acc + w["b2"])
+    r = xf if "wd" not in w else mm("pk,kn->pn", xf, w["wd"]) + w["bd"]
+    return torch.relu(mm("pk,kn->pn", y2, w["w3"]) + w["b3"] + r).reshape(b, h, wd, -1)
+
+
+@pytest.mark.parametrize("cin,m,cout,ds,shifted", [
+    (64, 16, 64, False, False), (32, 16, 64, True, False), (64, 16, 64, False, True)],
+    ids=["kernel8", "kernel8_downsample", "kernel9"])
+def test_split_tf32_block_matches_float64_and_jax(rng, cin, m, cout, ds, shifted):
+    """f32 kernels 8 and 9 run every product as three TF32 products on the
+    tensor cores (lo.hi + hi.lo + hi.hi, csrc/bottleneck.cu).  Emulated here
+    in torch: within 1e-4 of scale of the block in float64 and of the JAX
+    kernels in interpret mode, the f32 limit the card holds the kernels to
+    against the plain version.  A single TF32 product per product is printed
+    beside it, and is worse."""
+    from test_torch_flash_attention import _split_tf32_mm, _tf32_mm
+
+    jnp, jcg, jfb = _jax()
+    x = rng.standard_normal((2, 8, 8, cin)).astype(np.float32)
+    w = _weights(rng, cin, m, cout, ds)
+    tx, tw = torch.from_numpy(x), _torch(w)
+    exact = _block_f64(tx, tw)
+    got = _block_with(_split_tf32_mm, tx, tw, shifted)
+    single = _block_with(_tf32_mm, tx, tw, shifted)
+    scale = exact.abs().max().item()
+    err = (got.double() - exact).abs().max().item()
+    err1 = (single.double() - exact).abs().max().item()
+    print(f"split-TF32 {err / scale:.2e}, one TF32 product {err1 / scale:.2e} of scale "
+          f"against float64")
+    assert err <= 1e-4 * scale and err < err1, (err / scale, err1 / scale)
+    jw = {k: jnp.asarray(v) for k, v in w.items()}
+    if shifted:
+        ref = jfb.fused_bottleneck(jnp.asarray(x), *(jw[k] for k in ("w1", "b1", "w2", "b2",
+                                                                     "w3", "b3")),
+                                   interpret=True)
+    else:
+        ref = jcg.fused_bottleneck_gemm(jnp.asarray(x), **jw, strip_rows=4, interpret=True)
+    ref = np.asarray(ref)
+    assert np.abs(got.numpy() - ref).max() <= 1e-4 * np.abs(ref).max()
+
+
 # ------------------------------------------------------------- on the card --
 
 def _card_case(rng, b, h, cin, m, cout, ds, dtype):
@@ -219,7 +302,8 @@ def _card_case(rng, b, h, cin, m, cout, ds, dtype):
 def _agree(out, ref, dtype):
     """bf16: within 2e-2 of scale and cosine >= 0.9999 (a bf16 rounding of
     y1, y2 or y3 may land on either side where the f32 sums differ in
-    order); f32: within 1e-4 of scale (TF32 off in the plain version)."""
+    order); f32 (split-TF32 on the tensor cores, ~1e-6 of scale emulated):
+    within 1e-4 of scale (TF32 off in the plain version)."""
     err = (out.float() - ref.float()).abs().max().item()
     scale = ref.float().abs().max().item()
     cos = torch.nn.functional.cosine_similarity(out.float().flatten(), ref.float().flatten(),
@@ -241,8 +325,15 @@ def _agree(out, ref, dtype):
     (2, 14, 1024, 256, 1024, False, 7, 1, torch.bfloat16),
     (2, 7, 2048, 512, 2048, False, 7, 1, torch.bfloat16),
     (3, 16, 64, 48, 96, True, 8, 3, torch.bfloat16),
+    (2, 56, 64, 64, 256, True, 4, 1, torch.float32),
+    (2, 56, 256, 64, 256, False, 4, 1, torch.float32),
+    (2, 28, 512, 128, 512, False, 4, 1, torch.float32),
+    (2, 14, 1024, 256, 1024, False, 2, 1, torch.float32),
+    (2, 7, 2048, 512, 2048, False, 1, 1, torch.float32),
+    (3, 16, 64, 48, 96, True, 2, 3, torch.float32),
 ], ids=["f32", "ds_packed_bf16", "l1ish_bf16", "l4ish_f32", "l1b0_ds_bf16", "l1b1_bf16",
-        "l2b1_bf16", "l3b1_bf16", "l4b1_bf16", "odd_widths_packed_bf16"])
+        "l2b1_bf16", "l3b1_bf16", "l4b1_bf16", "odd_widths_packed_bf16", "l1b0_ds_f32",
+        "l1b1_f32", "l2b1_f32", "l3b1_f32", "l4b1_f32", "odd_widths_packed_f32"])
 def test_gemm_kernel_equals_plain_on_card(card, b, h, cin, m, cout, ds, strip, g, dtype):
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.default_rng(0)
@@ -258,7 +349,9 @@ def test_gemm_kernel_equals_plain_on_card(card, b, h, cin, m, cout, ds, strip, g
 @pytest.mark.parametrize("b,h,c,m,dtype", [
     (2, 8, 32, 8, torch.float32), (2, 14, 1024, 256, torch.bfloat16),
     (2, 56, 256, 64, torch.bfloat16), (2, 7, 2048, 512, torch.float32),
-], ids=["tiny_f32", "l3_bf16", "l1_bf16", "l4_f32"])
+    (2, 56, 256, 64, torch.float32), (2, 28, 512, 128, torch.float32),
+    (2, 14, 1024, 256, torch.float32),
+], ids=["tiny_f32", "l3_bf16", "l1_bf16", "l4_f32", "l1_f32", "l2_f32", "l3_f32"])
 def test_shifted_kernel_equals_plain_on_card(card, b, h, c, m, dtype):
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.default_rng(1)

@@ -137,8 +137,10 @@ def test_f32_and_qtiled_footprints_unchanged():
     past S = 128, where they fit), their f32 score rows (S rounded up to 4,
     plus 4 at a multiple of 32) and K_h, V_h (rows rounded up to 4, at least
     64); kernel 2 holds 64 query rows and two 128-key K/V tiles, or 32 rows
-    and two or one 64-key tiles.  bf16 kernel 2 keeps the 32-row design
-    (score and query rows plus one padded tile)."""
+    and two or one 64-key tiles.  bf16 kernel 2 holds a 128-row Q tile and
+    three stages of a 64-key K chunk and a V chunk, whatever S, and its gate
+    keeps the largest S of the first design (32 f32 score and query rows plus
+    one padded 64-key tile)."""
     assert sa.smem_bytes(77, 64, 4) == 4 * (32 * 64 + 32 * 80 + 2 * 80 * 64)
     assert sa.smem_bytes(257, 64, 4) == 4 * (64 * 64 + 64 * 260 + 2 * 260 * 64)
     assert sa.smem_bytes(5, 32, 4) == 4 * (32 * 32 + 32 * 8 + 2 * 64 * 32)
@@ -149,7 +151,8 @@ def test_f32_and_qtiled_footprints_unchanged():
     assert sa.qtiled_smem_bytes(1025, 64, 4) == 4 * (32 * 64 + 32 * 1028 + 2 * 64 * 64)
     assert sa.f32_streamed_tile(1622, 64) == (32, 1, 64)
     assert sa.qtiled_smem_bytes(1622, 64, 4) == 4 * (32 * 64 + 32 * 1624 + 64 * 64)
-    assert sa.qtiled_smem_bytes(1025, 64, 2) == 32 * (1025 + 64) * 4 + 64 * 66 * 2
+    assert sa.qtiled_smem_bytes(1025, 64, 2) == (128 + 3 * 2 * 64) * 64 * 2 == 65536
+    assert sa.qtiled_smem_bytes(1, 128, 2) == sa.qtiled_smem_bytes(4096, 128, 2) == 131072
 
     def largest(fn, hd, itemsize):
         s = 1
@@ -159,7 +162,15 @@ def test_f32_and_qtiled_footprints_unchanged():
 
     assert [largest(sa.smem_bytes, hd, 4) for hd in (32, 64, 128)] == [592, 348, 184]
     assert [largest(sa.qtiled_smem_bytes, hd, 4) for hd in (32, 64, 128)] == [1720, 1624, 1432]
-    assert [largest(sa.qtiled_smem_bytes, hd, 2) for hd in (32, 64, 128)] == [1750, 1686, 1558]
+
+    def largest_qtiled(hd, dtype):
+        s = 1
+        while sa.supported_qtiled(*[torch.empty(1, s + 1, 2 * hd, dtype=dtype,
+                                                device="meta")] * 3, 2):
+            s += 1
+        return s
+
+    assert [largest_qtiled(hd, torch.bfloat16) for hd in (32, 64, 128)] == [1750, 1686, 1558]
     # bf16 kernel 1 takes at least every S it took before the tensor-core
     # design (1,377 / 778 / 413)
     assert [largest(sa.smem_bytes, hd, 2) for hd in (32, 64, 128)] == [1744, 832, 416]
@@ -273,14 +284,19 @@ def test_kernel_matches_plain_on_card(card, dtype, atol, b, s, d, h, causal):
 
 def test_kernel_refuses_a_misaligned_bf16_view_on_card(card):
     """cp.async copies 16-byte chunks: a contiguous view whose storage
-    offset leaves the base pointer off a 16-byte boundary raises."""
+    offset leaves the base pointer off a 16-byte boundary raises, in kernel
+    1 and in kernel 2 (bf16 kernel 2 copies by cp.async too)."""
     flat = torch.zeros(2 * 50 * 512 + 1, device="cuda", dtype=torch.bfloat16)
     q = flat[1:].view(2, 50, 512)
     assert q.is_contiguous() and q.data_ptr() % 16
-    before = sa.short_attention.launches
-    with pytest.raises(ValueError, match="aligned"):
-        sa.short_attention(q, q, q, 8)
-    assert sa.short_attention.launches == before
+    long = torch.zeros(1025 * 512 + 1, device="cuda", dtype=torch.bfloat16)[1:].view(1, 1025, 512)
+    before = (sa.short_attention.launches, sa.short_attention_qtiled.launches)
+    for call in (lambda: sa.short_attention(q, q, q, 8),
+                 lambda: sa.short_attention_qtiled(q, q, q, 8),
+                 lambda: sa.short_attention(long, long, long, 8)):
+        with pytest.raises(ValueError, match="aligned"):
+            call()
+    assert (sa.short_attention.launches, sa.short_attention_qtiled.launches) == before
 
 
 def test_kernels_refuse_a_misaligned_f32_view_on_card(card):
