@@ -11,6 +11,8 @@
     python3 chip_smoke.py --only stage_b     # Stage B (adapter training) alone
     python3 chip_smoke.py --only contrastive # the contrastive adapter alone
     python3 chip_smoke.py --only sweep       # the stacked seed-and-grid sweep alone
+    python3 chip_smoke.py --only native_json # the native clip.json parser alone
+    python3 chip_smoke.py --only parallel    # the world-size-1 parallel paths alone
 
 Phases, in order, each printing one JSON line per case; any failure raises
 and exits nonzero, and only a run where every phase passed prints the final
@@ -174,7 +176,31 @@ line.
              steps; only the first 512 are timed if the whole would pass
              30 s), both under the sync check.  Then cli/sweep_main.py
              --device cuda on a small cache: one CSV per cell.
-13. summary — the wall seconds, one {"kernels": [...]} line, the card line, and
+13. native_json — the native clip.json parser and writer (native/ebdjson.cpp,
+             built with g++ into the port's build directory): a
+             Waterbirds-size cache (11,788 rows at RN50's D = 1024, seeded)
+             written by the store, loaded by the native parser and by the
+             Python parser (equal tables, both times), and the flagship
+             Stage-B run through cli/train_main.py from the JSON cache and
+             from the .npz (the same best-epoch line).  Fails if the library
+             did not build or the Python parser ran.
+14. parallel — a world-size-1 NCCL group on the card: ViT-B/32 at full width,
+             batch 256, through the data-parallel and the tensor-parallel
+             (tp = 1) extraction paths against the unsharded runner (kernel
+             1's launches as on the unsharded path: 12 per batch), Stage B
+             on the flagship configuration through shard_bundle, the 48-row
+             Waterbirds grid with the seed mesh (both timed in turns with
+             their unsharded runs: unsharded, sharded, sharded, unsharded),
+             ring and Ulysses attention at B=4 S=4096 H=16 hd=64 bf16
+             against plain attention, each timed beside its unsharded run;
+             then kernel 1 at the tp = 2 and 4
+             shard shapes of ViT-B/32 (image 6 / 3 heads at D = 384 / 192,
+             text 4 / 2 heads at D = 256 / 128) and kernel 7 at its tp shard
+             shapes (N = 192 padded to 256 by ops/quant.int8_matmul_padded),
+             each against its plain version.  NCCL cannot put two ranks on
+             one card, so the multi-rank checks run as CPU processes in the
+             tests (parallel/dryrun.py).
+15. summary — the wall seconds, one {"kernels": [...]} line, the card line, and
              {"ok": true, "device": {...}} as the last line.
 """
 
@@ -511,6 +537,7 @@ def _int8_case(label, m, k, n, with_bias, out_dtype, gen, timed):
 
     from debiasing_multi_modal_tpu_torch.ops import quant_gemm as qg
     from debiasing_multi_modal_tpu_torch.ops.quant import (
+        int8_matmul_padded,
         quantize_cols_int8,
         quantize_rows_int8,
     )
@@ -520,7 +547,14 @@ def _int8_case(label, m, k, n, with_bias, out_dtype, gen, timed):
     bias = torch.randn(n, device="cuda", generator=gen) if with_bias else None
     qx, sx = quantize_rows_int8(x)
     qk, sk = quantize_cols_int8(w)
-    out = qg.int8_matmul(qx, qk, sx, sk, bias, out_dtype=out_dtype)
+    # N not a multiple of 128 (a tp = 4 shard's q/k/v) goes through the
+    # caller's padding, as ops/quant.py::int8_dense takes it
+    if n % 128 == 0:
+        matmul = qg.int8_matmul
+    else:
+        def matmul(qx, qk, sx, sk, bias, out_dtype):
+            return int8_matmul_padded(qx, qk, sx, sk, bias, out_dtype)
+    out = matmul(qx, qk, sx, sk, bias, out_dtype=out_dtype)
     torch.cuda.synchronize()
     ref = qg.int8_matmul_reference(qx, qk, sx, sk, bias, out_dtype=out_dtype)
     err = (out.float() - ref.float()).abs().max().item()
@@ -535,7 +569,7 @@ def _int8_case(label, m, k, n, with_bias, out_dtype, gen, timed):
         from debiasing_multi_modal_tpu_torch.ops import cuda_build
 
         def kernel():
-            return qg.int8_matmul(qx, qk, sx, sk, bias, out_dtype=out_dtype)
+            return matmul(qx, qk, sx, sk, bias, out_dtype=out_dtype)
 
         row["ms"] = graph_ms(kernel)
         row["events_ms"] = time_ms(kernel)
@@ -2485,6 +2519,294 @@ def phase_sweep():
         raise AssertionError(f"sweep: {steps_perf} {celeba} {cli}")
     return {"sweep": launches}
 
+# ------------------------------------------------------------ native JSON --
+
+
+def phase_native_json():
+    """The native clip.json parser on a Waterbirds-size cache; returns the
+    path's launch counts (no kernel runs there)."""
+    import io
+
+    import numpy as np
+
+    from debiasing_multi_modal_tpu_torch.cli import train_main
+    from debiasing_multi_modal_tpu_torch.data import embeddings_store as store
+    from debiasing_multi_modal_tpu_torch.data.synthetic import (
+        SyntheticSpec,
+        make_synthetic_dataset,
+    )
+    from debiasing_multi_modal_tpu_torch.native import ebdjson
+    from debiasing_multi_modal_tpu_torch.train.config import TrainConfig
+
+    t = time.perf_counter()
+    library = ebdjson.build()  # raises if g++ or the source is missing
+    build_s = time.perf_counter() - t
+    data = make_synthetic_dataset(SyntheticSpec(**STAGE_B_SPEC, seed=SEED))
+    table = data[1]
+    cfg = TrainConfig(**STAGE_B_FLAGS)
+    python_before = (store._load_json_python.calls, store._save_json_python.calls)
+    _zero_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "RN50", "clip.json")
+        t = time.perf_counter()
+        store.save_embeddings(path, table, fmt="json", dataset="waterbirds")
+        write_s = time.perf_counter() - t
+        native_before = ebdjson.load_embeddings_json.calls
+        t = time.perf_counter()
+        native = store.load_embeddings(path, dataset="waterbirds")
+        native_s = time.perf_counter() - t
+        if ebdjson.load_embeddings_json.calls != native_before + 1:
+            raise AssertionError("the store did not load clip.json with the native parser")
+        if (store._load_json_python.calls, store._save_json_python.calls) != python_before:
+            raise AssertionError("the Python JSON parser or writer ran")
+        t = time.perf_counter()
+        python = store._load_json_python(path, "waterbirds")
+        python_s = time.perf_counter() - t
+        for col in ("filenames", "y", "place", "group", "split", "y_pred"):
+            np.testing.assert_array_equal(getattr(native, col), getattr(python, col))
+        np.testing.assert_allclose(native.embeddings, python.embeddings, rtol=1e-6, atol=1e-7)
+        np.testing.assert_allclose(native.embeddings, table.embeddings, rtol=1e-6, atol=1e-7)
+        file_mb = os.path.getsize(path) / 1e6
+        python_before = (store._load_json_python.calls, store._save_json_python.calls)
+        _write_stage_b_caches(data, tmp)
+        best = {}
+        for fmt in ("json", "npz"):
+            args = train_main.build_parser().parse_args([
+                "--dataset", "waterbirds", "--data_dir", tmp,
+                "--image_embedding_dir", os.path.join(tmp, "RN50", f"clip.{fmt}"),
+                "--text_embedding_dir", os.path.join(tmp, "clip_class.json"),
+                "--text_spurious_embedding_dir", os.path.join(tmp, "clip_spurious.json"),
+                "--text_group_embedding_dir", os.path.join(tmp, "clip_group.json"),
+                "--tl_method", cfg.tl_method, "--add_adapter", "--warm_reg",
+                "--epochs", str(cfg.epochs),
+                "--epochs_feature_learning", str(cfg.epochs_feature_learning),
+                "--batch_size", str(cfg.batch_size), "--batch_size_reg", str(cfg.batch_size_reg),
+                "--learning_rate", str(cfg.learning_rate),
+                "--learning_rate_reg", str(cfg.learning_rate_reg),
+                "--lr_decay_rate", str(cfg.lr_decay_rate), "--lr_decay_epochs", "90,95",
+                "--random_seed", str(cfg.random_seed), "--device", "cuda"])
+            out = io.StringIO()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = train_main.main(args)
+            best[fmt] = {"rc": rc, "seconds": time.perf_counter() - t,
+                         "best_test": next(line for line in out.getvalue().splitlines()
+                                           if line.startswith("best test:"))}
+        if (store._load_json_python.calls, store._save_json_python.calls) != python_before:
+            raise AssertionError("the Python JSON parser or writer ran")
+    launches = _read_counts()
+    _expect_counts("native_json", launches, {})
+    emit({"phase": "native_json", "library": os.path.relpath(library), "build_s": build_s,
+          "rows": len(table), "dim": int(table.embeddings.shape[1]), "file_mb": file_mb,
+          "write_native_s": write_s, "load_native_s": native_s, "load_python_s": python_s,
+          "native_loads": ebdjson.load_embeddings_json.calls, "train_main": best})
+    if not (best["json"]["rc"] == best["npz"]["rc"] == 0
+            and best["json"]["best_test"] == best["npz"]["best_test"]):
+        raise AssertionError(f"train_main from clip.json differs from clip.npz: {best}")
+    return {"native_json": launches}
+
+
+# ------------------------------------------------------------- parallelism --
+
+
+def _timed(fn):
+    """(result, host seconds) of ``fn``, the card synchronized at both ends."""
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def _parallel_extraction(mesh, data_mesh):
+    """ViT-B/32 at full width, batch 256: the unsharded runner, the
+    data-parallel and the tensor-parallel (tp = 1) paths, each with the
+    counts at 0 just before its batch and read just after."""
+    import numpy as np
+    import torch
+
+    from debiasing_multi_modal_tpu_torch.extract.runner import ExtractionRunner
+    from debiasing_multi_modal_tpu_torch.models import create_clip
+
+    model = create_clip("ViT-B/32", dtype=torch.bfloat16, device="cuda",
+                        generator=torch.Generator().manual_seed(SEED))
+    rng = np.random.default_rng(SEED + 7)
+    images = rng.integers(0, 256, (256, 256, 256, 3), dtype=np.uint8)
+    zs = rng.standard_normal((2, 512)).astype(np.float32)
+    want = {"short_attention": model.config.vision_layers}
+    out, launches = {}, {}
+    for name, kw in (("unsharded", {}), ("parallel_dp", {"mesh": data_mesh}),
+                     ("parallel_tp", {"mesh": mesh, "tensor_parallel": True})):
+        runner = ExtractionRunner(model, zs, **kw)
+        runner.encode_batch(images)  # warm
+        _zero_counts()
+        (emb, preds), _ = _timed(lambda: runner.encode_batch(images))
+        launches[name] = _read_counts()
+        _expect_counts(name, launches[name], want)
+        _, seconds = _timed(lambda: [runner.encode_batch(images) for _ in range(5)])
+        out[name] = {"emb": emb, "preds": preds, "imgs_per_s": 5 * 256 / seconds}
+    ref = out.pop("unsharded")
+    rows = {"unsharded_imgs_per_s": ref["imgs_per_s"]}
+    for name, got in out.items():
+        rows[name] = {"imgs_per_s": got["imgs_per_s"],
+                      "bit_equal": bool(np.array_equal(got["emb"], ref["emb"])),
+                      "max_rel_err": _rel(got["emb"], ref["emb"]),
+                      "cos_min": _cos_min(got["emb"], ref["emb"]),
+                      "preds_equal_share": float((got["preds"] == ref["preds"]).mean())}
+        if not (rows[name]["cos_min"] >= 0.999 and rows[name]["preds_equal_share"] >= 0.99):
+            raise AssertionError(f"{name} extraction disagrees with the unsharded runner: "
+                                 f"{rows[name]}")
+    if not rows["parallel_dp"]["bit_equal"]:
+        raise AssertionError("data-parallel extraction on one rank is not the unsharded one")
+    launches.pop("unsharded")
+    return rows, launches
+
+
+def _parallel_stage_b(data_mesh):
+    """The flagship Stage-B run through shard_bundle against the unsharded
+    run, and the 48-row Waterbirds grid with the seed mesh against the
+    unsharded grid (both on the card, every kernel count staying 0)."""
+    from debiasing_multi_modal_tpu_torch.data.synthetic import (
+        SyntheticSpec,
+        make_synthetic_dataset,
+    )
+    from debiasing_multi_modal_tpu_torch.sweep.runner import run_sweep
+    from debiasing_multi_modal_tpu_torch.train.config import TrainConfig
+    from debiasing_multi_modal_tpu_torch.train.loop import shard_bundle, train_all_epochs
+
+    data = make_synthetic_dataset(SyntheticSpec(**STAGE_B_SPEC, seed=SEED))
+    bundle = _stage_b_bundle(data, "cuda")
+    cfg = TrainConfig(**STAGE_B_FLAGS)
+    init = _stage_b_init(cfg)
+    _zero_counts()
+    sharded = shard_bundle(bundle, data_mesh)
+    runs = {"unsharded": [], "shard_bundle": []}
+    # in turns (unsharded, sharded, sharded, unsharded): the first run of a
+    # process pays the libraries' first calls
+    for name, b in (("unsharded", bundle), ("shard_bundle", sharded),
+                    ("shard_bundle", sharded), ("unsharded", bundle)):
+        res, seconds = _timed(lambda: train_all_epochs(cfg, b, verbose=False, init=init,
+                                                       device="cuda"))
+        runs[name].append((res[:2], seconds))
+    results = [r for rows in runs.values() for r, _ in rows]
+    out = {"stage_b": {"unsharded_s": [t for _, t in runs["unsharded"]],
+                       "shard_bundle_s": [t for _, t in runs["shard_bundle"]],
+                       "results_equal": all(r == results[0] for r in results)}}
+    base = TrainConfig(**SWEEP_WB["base"])
+    grid = {k: SWEEP_WB[k] for k in ("lr_list", "bs_list", "bsr_list", "lr_multiple")}
+    csvs = {"unsharded": [], "seed_mesh": []}
+    for name, mesh in (("unsharded", None), ("seed_mesh", data_mesh),
+                       ("seed_mesh", data_mesh), ("unsharded", None)):
+        with tempfile.TemporaryDirectory() as tmp:
+            _, seconds = _timed(lambda: run_sweep(
+                base, bundle, SWEEP_WB["seeds"], **grid, stack_lr_axis=True,
+                stack_bsr_axis=True, stack_bs_axis=True, result_root=tmp, mesh=mesh,
+                device="cuda"))
+            files = {}
+            for f in sorted(os.listdir(tmp)):
+                with open(os.path.join(tmp, f)) as fh:
+                    files[f] = fh.read()
+            csvs[name].append((files, seconds))
+    every = [files for rows in csvs.values() for files, _ in rows]
+    out["sweep"] = {"rows": 48, "cells": len(every[0]),
+                    "unsharded_s": [t for _, t in csvs["unsharded"]],
+                    "seed_mesh_s": [t for _, t in csvs["seed_mesh"]],
+                    "csvs_identical": all(files == every[0] for files in every)}
+    launches = _read_counts()
+    _expect_counts("parallel stage_b", launches, {})
+    if not (out["stage_b"]["results_equal"] and out["sweep"]["csvs_identical"]):
+        raise AssertionError(f"sharded Stage B differs from the unsharded run: {out}")
+    return out
+
+
+def _parallel_attention(data_mesh):
+    """Ring and Ulysses attention on one rank at B=4 S=4096 H=16 hd=64 bf16
+    against plain attention (the port's _xla_attention: bf16 logits) and an
+    f32 reference on the same inputs, errors at the reference's scale."""
+    import torch
+
+    from debiasing_multi_modal_tpu_torch.ops.attention import _xla_attention
+    from debiasing_multi_modal_tpu_torch.ops.ring_attention import sequence_parallel_attention
+    from debiasing_multi_modal_tpu_torch.ops.ulysses_attention import (
+        ulysses_sequence_parallel_attention,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    q, k, v = (torch.randn(4, 4096, 16, 64, device="cuda", generator=gen, dtype=torch.bfloat16)
+               for _ in range(3))
+    out = {}
+    for causal in (False, True):
+        plain, plain_s = _timed(lambda: _xla_attention(q, k, v, causal=causal))
+        ref32 = _xla_attention(q.float(), k.float(), v.float(), causal=causal)
+        scale = ref32.abs().max().item()
+        for name, fn in (("ring", sequence_parallel_attention),
+                         ("ulysses", ulysses_sequence_parallel_attention)):
+            got, seconds = _timed(lambda: fn(q, k, v, mesh=data_mesh, axis_name="data",
+                                             causal=causal))
+            row = {"s": seconds, "plain_s": plain_s,
+                   "err_vs_plain": (got.float() - plain.float()).abs().max().item() / scale,
+                   "err_vs_f32": (got.float() - ref32).abs().max().item() / scale,
+                   "bit_equal_plain": bool(torch.equal(got, plain))}
+            out[f"{name}_{'causal' if causal else 'full'}"] = row
+            if not (row["err_vs_plain"] <= 2e-2 and row["err_vs_f32"] <= 2e-2):
+                raise AssertionError(f"{name} attention disagrees with plain: {row}")
+            del got
+        del plain, ref32
+        torch.cuda.empty_cache()
+    return out
+
+
+def _shard_shape_cases(gen):
+    """Kernel 1 at the tp = 2 and 4 shard shapes of ViT-B/32 (image B=256
+    S=50, text B=256 S=77 causal), kernel 7 at the shards' Dense shapes
+    (M = 12,800 image tokens: c_fc and q/k/v column-parallel at N / tp,
+    c_proj and out_proj row-parallel at K / tp)."""
+    import torch
+
+    from debiasing_multi_modal_tpu_torch.ops import short_attention as sa
+
+    bf16 = torch.bfloat16
+    attention, int8 = [], []
+    for tp in (2, 4):
+        for label, b, s, d, h, causal in (("image", 256, 50, 768, 12, False),
+                                          ("text", 256, 77, 512, 8, True)):
+            attention.append(_attention_case(
+                sa.short_attention, sa.short_attention_reference,
+                f"vitb32_{label}_tp{tp}_bf16", b, s, d // tp, h // tp, causal, bf16, 2e-2,
+                gen, True))
+        for label, k, n in (("c_fc", 768, 3072 // tp), ("qkv", 768, 768 // tp),
+                            ("c_proj", 3072 // tp, 768), ("out_proj", 768 // tp, 768)):
+            int8.append(_int8_case(f"vitb32_{label}_tp{tp}_bf16", 12800, k, n,
+                                   label in ("c_fc", "qkv"), bf16, gen, True))
+    return {"short_attention": attention, "int8_matmul": int8}
+
+
+def phase_parallel():
+    """Data, tensor and sequence parallelism on a world-size-1 NCCL group
+    (see the module docstring); returns the main paths' launch counts and
+    the shard-shape kernel cases."""
+    import torch
+    import torch.distributed as dist
+
+    from debiasing_multi_modal_tpu_torch.parallel import multihost
+    from debiasing_multi_modal_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    with multihost.process_group("cuda"):
+        mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+        data_mesh = make_mesh((1,), ("data",), device="cuda")
+        extraction, launches = _parallel_extraction(mesh, data_mesh)
+        emit({"phase": "parallel", "backend": dist.get_backend(),
+              "world": dist.get_world_size(), "extraction": extraction, "launches": launches})
+        emit({"phase": "parallel", **_parallel_stage_b(data_mesh)})
+        emit({"phase": "parallel", "attention": _parallel_attention(data_mesh)})
+    cases = _shard_shape_cases(torch.Generator(device="cuda").manual_seed(SEED + 9))
+    emit({"phase": "parallel", "seconds": time.perf_counter() - t0})
+    return launches, cases
+
+
 
 F32_DESIGN = ("f32 on the CUDA cores from register tiles (attention_f32.cuh: 16x16 threads, "
               "4x8 logits and 4x4 outputs a thread at 64 query rows, 16-byte cp.async into "
@@ -2556,15 +2878,17 @@ def _kernel_line(name, source, replaces, cases, launches_by_path, card, design=N
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--only", choices=["flash_f32", "qtiled_bf16", "rn50_blocks",
-                                           "stage_b", "contrastive", "sweep"],
+                                           "stage_b", "contrastive", "sweep", "native_json",
+                                           "parallel"],
                         help="flash_f32: build, then only the timed f32 cases of kernels 4-6 "
                              "and the f32 128-pair training step; qtiled_bf16: build, then "
                              "only bf16 kernel 2's cases (timed at S=1025 beside SDPA); "
                              "rn50_blocks: build, fold the seeded RN50, then only the "
                              "rn50_blocks phase (kernels 8-9, bf16 and f32); each times "
                              "another tree's kernels with this script; "
-                             "stage_b, contrastive, sweep: only that phase (no kernel to "
-                             "build); none prints the final line")
+                             "stage_b, contrastive, sweep, native_json: only that phase (no "
+                             "kernel to build); parallel: build, then only that phase; none "
+                             "prints the final line")
     args = parser.parse_args(argv)
     t0 = time.perf_counter()
     info = phase_device()
@@ -2583,9 +2907,14 @@ def main(argv=None):
         _qtiled_bf16_cases(torch.Generator(device="cuda").manual_seed(SEED))
         emit({"phase": "summary", "only": args.only, "seconds": time.perf_counter() - t0})
         return 0
-    if args.only in ("stage_b", "contrastive", "sweep"):
+    if args.only in ("stage_b", "contrastive", "sweep", "native_json"):
         {"stage_b": phase_stage_b, "contrastive": phase_contrastive,
-         "sweep": phase_sweep}[args.only]()
+         "sweep": phase_sweep, "native_json": phase_native_json}[args.only]()
+        emit({"phase": "summary", "only": args.only, "seconds": time.perf_counter() - t0})
+        return 0
+    if args.only == "parallel":
+        phase_build(check=False)
+        phase_parallel()
         emit({"phase": "summary", "only": args.only, "seconds": time.perf_counter() - t0})
         return 0
     if args.only == "rn50_blocks":
@@ -2612,6 +2941,11 @@ def main(argv=None):
     launches.update(phase_stage_b())
     launches.update(phase_contrastive())
     launches.update(phase_sweep())
+    launches.update(phase_native_json())
+    parallel_launches, shard_cases = phase_parallel()
+    launches.update(parallel_launches)
+    for name, rows in shard_cases.items():
+        cases[name] += rows
     emit({"phase": "summary", "seconds": time.perf_counter() - t0})
     card = info["nvidia_smi"]
     emit({"kernels": [

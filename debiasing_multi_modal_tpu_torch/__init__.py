@@ -9,10 +9,13 @@ hand-written CUDA C++ kernel under ``csrc/``, built with ``nvcc`` at first use
 which the wrapper takes only for tensors on the CPU.
 
 Ported so far: Stage A extraction with the ResNet and ViT CLIP towers
-(``models/``, ``ops/``, ``weights/convert.py``, ``extract/``,
-``cli/extract_main.py``), with ``fuse_qkv`` and the int8 ``quant`` modes;
-Stage B adapter training (``models/adapter.py``, ``train/``,
-``cli/train_main.py``) for every method but ``contrastive_adapter``.
+(``models/``, ``ops/``, ``weights/``, ``extract/``,
+``cli/extract_main.py``), with ``fuse_bn``, ``fuse_qkv`` and the int8
+``quant`` modes; Stage B adapter training for every method (``models/
+adapter.py``, ``train/``, ``cli/train_main.py``) and the stacked sweep
+(``sweep/``, ``cli/sweep_main.py``); the native clip.json parser
+(``native/``); data, tensor and sequence parallelism on
+``torch.distributed`` (``parallel/``, ``ops/{ring,ulysses}_attention.py``).
 Public entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 
 Importing the package loads no kernel library and imports no Triton.

@@ -12,7 +12,18 @@ plain integer product) or ``int8_pallas`` (kernel 7) quantizes the ViT image
 tower's Dense GEMMs and raises ``ValueError`` on a ResNet, as the JAX CLI
 refuses it.  ``--fuse_bn`` folds a ResNet's frozen BatchNorms into its
 convs (``weights/fold.py``) after loading or seeding the weights, and exits
-on a ViT.  ``--tensor_parallel`` above 1 is not ported yet and raises.
+on a ViT.
+
+Under ``torchrun`` (one process per card) extraction is data-parallel over
+every rank, and ``--tensor_parallel N`` also shards the towers over groups
+of N ranks: the mesh is ``(world // N, N)`` over ``("data", "model")``, and
+N must divide the world.  Rank 0 writes the caches.
+
+    torchrun --nproc_per_node 2 -m debiasing_multi_modal_tpu_torch.cli.extract_main \
+        --tensor_parallel 2 --backbone ViT-B/32 --save ...
+
+One process with ``--tensor_parallel 1`` runs on its own device, with no
+process group.
 """
 
 from __future__ import annotations
@@ -59,16 +70,31 @@ def build_parser():
                         "the plain integer product, int8_pallas = the int8 "
                         "GEMM kernel (ViT backbones only)")
     p.add_argument("--tensor_parallel", type=int, default=1,
-                   help="shard encoder params over this many devices (not yet ported)")
+                   help="shard the towers over groups of this many ranks (torchrun)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="run on the card (bf16 towers) or the CPU (f32)")
     return p
 
 
 def main(args):
-    if args.tensor_parallel > 1:
-        raise NotImplementedError("--tensor_parallel > 1 is not yet ported")
+    if args.tensor_parallel <= 1 and "WORLD_SIZE" not in os.environ:
+        return _extract(args, None)
+    import torch.distributed as dist
 
+    from debiasing_multi_modal_tpu_torch.parallel import multihost
+    from debiasing_multi_modal_tpu_torch.parallel.mesh import make_mesh
+
+    tp = args.tensor_parallel
+    with multihost.process_group(args.device):
+        world = dist.get_world_size()
+        if world % tp:
+            raise SystemExit(f"--tensor_parallel {tp} does not divide {world} devices")
+        return _extract(args, make_mesh((world // tp, tp), ("data", "model"),
+                                        device=args.device))
+
+
+def _extract(args, mesh):
+    """The extraction itself; ``mesh`` (data x model) is None for one process."""
     from debiasing_multi_modal_tpu_torch.data.embeddings_store import (
         EmbeddingTable,
         save_embeddings,
@@ -82,6 +108,7 @@ def main(args):
         minority_report,
     )
     from debiasing_multi_modal_tpu_torch.models import create_clip
+    from debiasing_multi_modal_tpu_torch.parallel import multihost
     from debiasing_multi_modal_tpu_torch.templates import get_prompts
     from debiasing_multi_modal_tpu_torch.utils.platform import (
         compute_dtype,
@@ -94,8 +121,10 @@ def main(args):
     )
     from debiasing_multi_modal_tpu_torch.weights.fold import fold_resnet_bn
 
-    device = resolve_device(args.device)
+    device = resolve_device(args.device) if mesh is None else multihost.local_device(args.device)
     dtype = compute_dtype(device)
+    # every rank computes; rank 0 writes the files
+    writer = mesh is None or mesh.get_rank() == 0
     # quant raises ValueError on a ResNet (CLIP's own check)
     if args.checkpoint:
         model = clip_from_state_dict(load_openai_checkpoint(args.checkpoint),
@@ -125,7 +154,7 @@ def main(args):
     )
 
     emb_root = os.path.join(args.data_dir, args.embedding_dir, args.dataset)
-    if args.save:
+    if args.save and writer:
         os.makedirs(emb_root, exist_ok=True)
         for kind in ("class", "spurious", "group"):
             # one pooled row per phrase, keyed by its first template's rendering
@@ -136,7 +165,8 @@ def main(args):
             )
             print(f"save text emb ({kind})")
 
-    runner = ExtractionRunner(model, text["class"], normalized=args.normalized)
+    runner = ExtractionRunner(model, text["class"], normalized=args.normalized, mesh=mesh,
+                              tensor_parallel=args.tensor_parallel > 1)
 
     if args.dataset == "waterbirds":
         image_root = os.path.join(
@@ -190,7 +220,7 @@ def main(args):
         print(minority_report(table.y, table.place, table.y_pred, args.dataset))
         tables.append(table)
 
-    if args.save:
+    if args.save and writer:
         merged = EmbeddingTable(**{
             f: np.concatenate([getattr(t, f) for t in tables])
             for f in ("filenames", "y", "place", "group", "split", "y_pred", "embeddings")

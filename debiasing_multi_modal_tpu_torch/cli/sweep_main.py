@@ -8,7 +8,9 @@ Parity surface: reference ``run_multiple/final_main_iteration_wb.py``
 CSVs under ``results_iterative/``.  Seeds run as ONE stacked program by
 default (``--no_vmap`` falls back to the sequential loop); ``--stack_*``
 stack the grid's axes into it.  Runs on ``cuda`` unless ``--device cpu``.
-``--seed_mesh`` waits for the parallelism slice and raises.
+``--seed_mesh`` shards each stacked program's rows over every rank of the
+process group (``torchrun``, one process per card; one process alone is a
+group of one); rank 0 writes the CSVs.
 
     python -m debiasing_multi_modal_tpu_torch.cli.sweep_main \\
         --tl_method adapter_reg_seq_alter --add_adapter --warm_reg \\
@@ -49,14 +51,12 @@ def extend_parser(p):
                         "epochs pad per row too, so the ENTIRE grid is ONE "
                         "program (requires the inner axes stacked or singleton)")
     p.add_argument("--seed_mesh", action="store_true",
-                   help="shard each cell's seed axis across devices (not yet "
-                        "ported: waits for the parallelism slice)")
+                   help="shard each cell's seed axis across the ranks "
+                        "(torchrun: one process per card)")
     return p
 
 
 def main(args):
-    from debiasing_multi_modal_tpu_torch.sweep.runner import run_sweep
-    from debiasing_multi_modal_tpu_torch.train.loop import bundle_from_files
     from debiasing_multi_modal_tpu_torch.utils.platform import resolve_device
 
     cfg = config_from_args(args)
@@ -91,10 +91,21 @@ def main(args):
             "--stack_lr_axis/--stack_bsr_axis/--stack_bs_axis require the "
             "vmapped path; drop --no_vmap"
         )
-    if args.seed_mesh:
-        raise NotImplementedError(
-            "--seed_mesh is not yet ported; it waits for the parallelism slice")
-    device = resolve_device(args.device)
+    if not args.seed_mesh:
+        return _sweep(args, cfg, seeds, resolve_device(args.device), None)
+    from debiasing_multi_modal_tpu_torch.parallel import multihost
+    from debiasing_multi_modal_tpu_torch.parallel.mesh import make_mesh
+
+    with multihost.process_group(args.device):
+        return _sweep(args, cfg, seeds, multihost.local_device(args.device),
+                      make_mesh(axis_names=("data",), device=args.device))
+
+
+def _sweep(args, cfg, seeds, device, mesh):
+    """The sweep itself; ``mesh`` shards the stacked rows (None: one process)."""
+    from debiasing_multi_modal_tpu_torch.sweep.runner import run_sweep
+    from debiasing_multi_modal_tpu_torch.train.loop import bundle_from_files
+
     bundle = bundle_from_files(
         cfg.dataset,
         args.data_dir,
@@ -124,10 +135,12 @@ def main(args):
         stack_bsr_axis=args.stack_bsr_axis,
         stack_bs_axis=args.stack_bs_axis,
         skip_existing=args.skip_existing,
+        mesh=mesh,
         device=device,
     )
-    for path in out:
-        print("wrote", path)
+    if mesh is None or mesh.get_rank() == 0:
+        for path in out:
+            print("wrote", path)
     return 0
 
 

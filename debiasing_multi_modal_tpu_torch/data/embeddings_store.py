@@ -16,9 +16,13 @@ UN-normalized, exactly like the reference (clip_inference.py:64-66); callers
 normalize at use time (final_main.py:68,77).
 
 This is the PyTorch port's copy of the JAX package's store (the port
-imports nothing of that package).  It reads and writes JSON in pure Python;
-the JAX package's optional C++ accelerator (native/ebdjson) is not ported
-yet.  Caches either package writes load in the other.
+imports nothing of that package).  JSON goes through the port's own binding
+of the C++ parser and writer (``native/ebdjson.py``, built from the
+repository's ``native/ebdjson.cpp`` at first use) and, where that raises (no
+toolchain, no source), through the Python parser and writer here, with both
+diagnostics in the error when both fail, as the JAX store does.
+``_load_json_python.calls`` and ``_save_json_python.calls`` count the Python
+route's successful calls.  Caches either package writes load in the other.
 """
 
 from __future__ import annotations
@@ -122,21 +126,40 @@ def save_embeddings(
             embeddings=table.embeddings.astype(np.float32),
         )
     elif fmt == "json":
-        ykey, pkey = _JSON_KEYS[dataset]
-        out = {}
-        for i, fn in enumerate(table.filenames):
-            out[str(fn)] = {
-                ykey: str(int(table.y[i])),
-                "group": str(int(table.group[i])),
-                pkey: str(int(table.place[i])),
-                "split": str(int(table.split[i])),
-                "image_embedding": [float(v) for v in table.embeddings[i]],
-                "y_pred": str(int(table.y_pred[i])),
-            }
-        with open(path, "w") as f:
-            json.dump(out, f)
+        native_err = None
+        try:
+            from debiasing_multi_modal_tpu_torch.native import ebdjson
+
+            ebdjson.save_embeddings_json(path, table, dataset)
+            return
+        except Exception as e:  # fall through to the Python writer
+            native_err = e
+        try:
+            _save_json_python(path, table, dataset)
+        except Exception as py_err:
+            # keep the native diagnostic too (mirrors load_embeddings)
+            raise RuntimeError(
+                f"native writer: {native_err}; python writer: {py_err!r}"
+            ) from py_err
     else:
         raise ValueError(f"unknown format {fmt!r}")
+
+
+def _save_json_python(path: str, table: EmbeddingTable, dataset: str) -> None:
+    ykey, pkey = _JSON_KEYS[dataset]
+    out = {}
+    for i, fn in enumerate(table.filenames):
+        out[str(fn)] = {
+            ykey: str(int(table.y[i])),
+            "group": str(int(table.group[i])),
+            pkey: str(int(table.place[i])),
+            "split": str(int(table.split[i])),
+            "image_embedding": [float(v) for v in table.embeddings[i]],
+            "y_pred": str(int(table.y_pred[i])),
+        }
+    with open(path, "w") as f:
+        json.dump(out, f)
+    _save_json_python.calls += 1
 
 
 def _load_json_python(path: str, dataset: str) -> EmbeddingTable:
@@ -162,6 +185,7 @@ def _load_json_python(path: str, dataset: str) -> EmbeddingTable:
         if embeddings is None:
             embeddings = np.empty((n, emb.shape[0]), np.float32)
         embeddings[i] = emb
+    _load_json_python.calls += 1
     return EmbeddingTable(
         filenames=filenames.astype(str),
         y=y,
@@ -171,6 +195,10 @@ def _load_json_python(path: str, dataset: str) -> EmbeddingTable:
         y_pred=y_pred,
         embeddings=embeddings if embeddings is not None else np.zeros((0, 0), np.float32),
     )
+
+
+_save_json_python.calls = 0
+_load_json_python.calls = 0
 
 
 def load_embeddings(
@@ -190,7 +218,20 @@ def load_embeddings(
                 y_pred=z["y_pred"].astype(np.int32),
                 embeddings=z["embeddings"].astype(np.float32),
             )
-    return _load_json_python(path, dataset)
+    native_err = None
+    try:
+        from debiasing_multi_modal_tpu_torch.native import ebdjson
+
+        return ebdjson.load_embeddings_json(path, dataset)
+    except Exception as e:
+        native_err = e  # keep the precise C++ diagnostic (byte offset etc.)
+    try:
+        return _load_json_python(path, dataset)
+    except Exception as py_err:
+        raise ValueError(
+            f"failed to parse embedding JSON {path!r} — "
+            f"native parser: {native_err}; python parser: {py_err!r}"
+        ) from py_err
 
 
 # ------------------------------------------------------------------- text IO --

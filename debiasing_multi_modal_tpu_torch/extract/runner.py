@@ -15,8 +15,16 @@ on a side stream of its own, so the transfer overlaps the kernels of the
 batch before it), preprocessed on the device, encoded in the model's compute
 dtype, and run through the f32 zero-shot head.  A background thread decodes
 and uploads the next batches while the device runs the current one; a step
-never waits for the card on the host.  Mesh, data-parallel and
-tensor-parallel extraction are not ported yet.
+never waits for the card on the host.
+
+With a ``mesh`` (``parallel/mesh.make_mesh``) extraction is data-parallel
+over its ``data`` axis, as the JAX runner is over its mesh: each batch is
+padded to a multiple of the axis size, each data rank encodes its
+contiguous rows, and the embeddings and predictions are all-gathered in rank
+order (the pad rows dropped on the host); rank 0 writes any shards.
+``tensor_parallel=True`` also shards the towers over the mesh's ``model``
+axis (``parallel/tp.py``): every rank of one data slice encodes the same
+rows with its share of the heads.
 """
 
 from __future__ import annotations
@@ -30,6 +38,13 @@ from debiasing_multi_modal_tpu_torch.data.embeddings_store import EmbeddingTable
 from debiasing_multi_modal_tpu_torch.data.prefetch import prefetch
 from debiasing_multi_modal_tpu_torch.models.clip import CLIP, l2_normalize
 from debiasing_multi_modal_tpu_torch.ops.preprocess import normalize_only, preprocess_uint8
+from debiasing_multi_modal_tpu_torch.parallel.mesh import (
+    axis_group,
+    axis_rank,
+    axis_size,
+    batch_rows,
+    gather_rows,
+)
 from debiasing_multi_modal_tpu_torch.tokenizer import tokenize
 
 ZS_TEMPERATURE = 0.02  # clip_inference.py:124
@@ -71,7 +86,8 @@ def encode_text_prompts(
 
 
 class ExtractionRunner:
-    """Single-device image-embedding extraction on the model's device."""
+    """Image-embedding extraction on the model's device, data-parallel (and
+    optionally tensor-parallel) over a mesh's ranks when one is given."""
 
     def __init__(
         self,
@@ -79,7 +95,21 @@ class ExtractionRunner:
         zeroshot_text: np.ndarray,  # [C, D] un-normalized class text embeddings
         preprocessed: bool = False,
         normalized: bool = False,
+        mesh=None,
+        tensor_parallel: bool = False,
     ):
+        if tensor_parallel:
+            from debiasing_multi_modal_tpu_torch.parallel.tp import shard_variables, validate_tp
+
+            if mesh is None or "model" not in mesh.mesh_dim_names:
+                raise ValueError("tensor_parallel requires a mesh with a 'model' axis")
+            validate_tp(model.config, axis_size(mesh, "model"))
+            model = shard_variables(model, mesh)
+        self.mesh = mesh
+        self._data = None  # (group, size, rank) of the data axis, with a mesh
+        if mesh is not None and "data" in mesh.mesh_dim_names:
+            self._data = (axis_group(mesh, "data"), axis_size(mesh, "data"),
+                          axis_rank(mesh, "data"))
         self.model = model
         self.device = _model_device(model)
         self.preprocessed = preprocessed
@@ -112,15 +142,19 @@ class ExtractionRunner:
         memory on the runner's upload stream, and an event marks its end:
         the step that uses the batch waits on that event on the card, so the
         transfer overlaps whatever the compute stream is running."""
+        rows = len(images)
+        if self._data is not None:
+            _, n, rank = self._data
+            images = batch_rows(images, n, rank)
         host = torch.from_numpy(np.ascontiguousarray(images))
         if self.device.type != "cuda":
-            return UploadedBatch(host.to(self.device), len(images))
+            return UploadedBatch(host.to(self.device), rows)
         host = host.pin_memory()
         with torch.cuda.stream(self._upload_stream):
             staged = host.to(self.device, non_blocking=True)
             ready = torch.cuda.Event()
             ready.record(self._upload_stream)
-        return UploadedBatch(staged, len(images), ready)
+        return UploadedBatch(staged, rows, ready)
 
     def encode_batch_async(self, images):
         """Launch one batch; returns device tensors (no host sync).
@@ -137,6 +171,9 @@ class ExtractionRunner:
             compute.wait_event(images.ready)
             images.images.record_stream(compute)
         emb, preds = self._step(images.images)
+        if self._data is not None:  # every data rank's rows, in rank order
+            group = self._data[0]
+            emb, preds = gather_rows(emb, group), gather_rows(preds, group)
         return emb, preds, images.rows
 
     def encode_batch(self, images: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -202,7 +239,12 @@ class ExtractionRunner:
             piece = {k: np.concatenate(v) for k, v in cols.items()}
             piece["y_pred"] = np.concatenate(preds)
             piece["embeddings"] = np.concatenate(embs)
-            _write_shard(shard_dir, piece, since_flush, shard_meta)
+            if self._data is None:
+                _write_shard(shard_dir, piece, since_flush, shard_meta)
+            else:  # rank 0 writes; every rank reads the manifest after
+                if torch.distributed.get_rank() == 0:
+                    _write_shard(shard_dir, piece, since_flush, shard_meta)
+                torch.distributed.barrier()
             since_flush = 0
             embs, preds = [], []
             for k in cols:

@@ -59,6 +59,15 @@ def _linear(fan_in: int, fan_out: int, generator: Optional[torch.Generator]) -> 
     return layer
 
 
+def _group_sum(group):
+    """The sum over ``group``'s ranks (identity without a group)."""
+    if group is None:
+        return lambda t: t
+    from debiasing_multi_modal_tpu_torch.parallel.collectives import all_reduce_sum
+
+    return lambda t: all_reduce_sum(t, group)
+
+
 class MaskedBatchNorm(nn.Module):
     """torch-semantics BatchNorm1d with an optional row-validity mask.
 
@@ -68,7 +77,14 @@ class MaskedBatchNorm(nn.Module):
     and the unbiased variance ``var * n / max(n - 1, 1)``.  In eval mode the
     running averages normalize.  ``num_batches_tracked`` is kept for the
     reference's state-dict layout only: with a fixed momentum nothing reads
-    it, so it stays 0, as the JAX package's export writes it."""
+    it, so it stays 0, as the JAX package's export writes it.
+
+    ``group`` (None unless a data-parallel epoch sets it,
+    ``train/steps.py``) is the process group a batch's rows are spread
+    over: the masked sums and counts are then all-reduced over it
+    (``parallel/collectives.all_reduce_sum``, differentiable), so the
+    statistics, the running averages and the gradients are the whole
+    batch's."""
 
     def __init__(self, features: int, momentum: float = 0.1, eps: float = 1e-5):
         super().__init__()
@@ -79,20 +95,23 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
+        self.group = None
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         x32 = x.float()
         if self.training:
-            if mask is None:
+            total = _group_sum(self.group)
+            if mask is None and self.group is None:
                 n = float(x.shape[0])
                 mean = x32.mean(0)
                 var = ((x32 - mean) ** 2).mean(0)
                 bessel = max(n - 1.0, 1.0)
             else:
-                m = mask.to(torch.float32)[:, None]
-                n = m.sum().clamp_min(1.0)
-                mean = (x32 * m).sum(0) / n
-                var = (((x32 - mean) ** 2) * m).sum(0) / n
+                m = (torch.ones(x.shape[0], device=x.device) if mask is None
+                     else mask.to(torch.float32))[:, None]
+                n = total(m.sum()).clamp_min(1.0)
+                mean = total((x32 * m).sum(0)) / n
+                var = total((((x32 - mean) ** 2) * m).sum(0)) / n
                 bessel = (n - 1.0).clamp_min(1.0)
             with torch.no_grad():
                 unbiased = var * n / bessel

@@ -60,8 +60,10 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
 def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
     """``layer`` applied in ``dtype`` with its f32 parameters cast at use;
     an :class:`Int8Dense` runs its own W8A8 path (quantizing ``x`` as it
-    comes, as the JAX package's ``Int8Dense`` does)."""
-    if isinstance(layer, Int8Dense):
+    comes, as the JAX package's ``Int8Dense`` does), and a layer that is no
+    ``nn.Linear`` (a tensor-parallel shard, ``parallel/tp.py``) its own
+    forward."""
+    if isinstance(layer, Int8Dense) or not isinstance(layer, nn.Linear):
         return layer(x)
     bias = None if layer.bias is None else layer.bias.to(dtype)
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
@@ -134,7 +136,7 @@ class MultiHeadAttentionBlock(nn.Module):
         self.out_proj = make_dense(width, width, dtype=dtype, quant=quant)
 
     def forward(self, x: torch.Tensor, *, causal: bool = False) -> torch.Tensor:
-        d = x.shape[-1]
+        d = self.in_proj_weight.shape[0] // 3  # D, or D/tp for a tensor-parallel shard
         if self.quant != "none":
             impl = quant_impl(self.quant)
             q, k, v = (int8_dense(x, self.in_proj_weight[i * d:(i + 1) * d].t(),

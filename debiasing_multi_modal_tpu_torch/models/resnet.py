@@ -113,6 +113,7 @@ class AttentionPool2d(nn.Module):
         tokens = torch.cat([tokens.mean(dim=1, keepdim=True), tokens], dim=1)
         tokens = tokens + self.positional_embedding.to(tokens.dtype)
         dt = self.dtype
+        c = self.q_proj.out_features  # C, or C/tp for a tensor-parallel shard
         hd = c // self.num_heads
         # the mean token is the only query: [N, 1, C] against HW+1 keys
         q = linear(tokens[:, :1], self.q_proj, dt)

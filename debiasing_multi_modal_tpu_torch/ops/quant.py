@@ -45,13 +45,23 @@ from debiasing_multi_modal_tpu_torch.ops.quant_gemm import dequantize, int8_matm
 _SCALE_FLOOR = torch.finfo(torch.float32).tiny
 
 
+def int8_scale(amax: torch.Tensor) -> torch.Tensor:
+    """The symmetric int8 scale of an f32 absolute maximum."""
+    return (amax / 127.0).clamp_min(_SCALE_FLOOR)
+
+
+def quantize_with_scale(x32: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Round half to even of ``x32 / scale`` into int8."""
+    return torch.round(x32 / scale).to(torch.int8)
+
+
 def quantize_rows_int8(x: torch.Tensor):
     """Symmetric per-row int8 quantization over the last axis: ``(q,
     scale)`` with ``q`` int8 of x's shape and ``scale`` f32 of
     ``x.shape[:-1] + (1,)``, ``q * scale ~= x``."""
     x32 = x.float()
-    scale = (x32.abs().amax(dim=-1, keepdim=True) / 127.0).clamp_min(_SCALE_FLOOR)
-    return torch.round(x32 / scale).to(torch.int8), scale
+    scale = int8_scale(x32.abs().amax(dim=-1, keepdim=True))
+    return quantize_with_scale(x32, scale), scale
 
 
 def quantize_cols_int8(kernel: torch.Tensor):
@@ -60,8 +70,8 @@ def quantize_cols_int8(kernel: torch.Tensor):
     the transposed view of a Linear weight quantizes into the transposed view
     of a K-contiguous ``[N, K]`` tensor."""
     k32 = kernel.float()
-    scale = (k32.abs().amax(dim=0) / 127.0).clamp_min(_SCALE_FLOOR)
-    return torch.round(k32 / scale).to(torch.int8), scale
+    scale = int8_scale(k32.abs().amax(dim=0))
+    return quantize_with_scale(k32, scale), scale
 
 
 def _int_product(qx: torch.Tensor, qk: torch.Tensor) -> torch.Tensor:
@@ -69,6 +79,21 @@ def _int_product(qx: torch.Tensor, qk: torch.Tensor) -> torch.Tensor:
     if qx.device.type == "cpu":
         return qx.to(torch.int32) @ qk.to(torch.int32)
     return torch._int_mm(qx, qk)
+
+
+def int8_matmul_padded(qx, qk, sx, sk, bias, out_dtype) -> torch.Tensor:
+    """Kernel 7 at any N: a weight whose N is not a multiple of 128 (a
+    tensor-parallel shard, e.g. ViT-B/32's q/k/v at tp = 4, N = 192) is
+    padded here with zero columns (scale 1, bias 0), as the kernel's
+    contract asks of its caller, and the padded columns are dropped."""
+    n = qk.shape[1]
+    pad = -n % 128
+    if not pad:
+        return int8_matmul(qx, qk, sx, sk, bias=bias, out_dtype=out_dtype)
+    qk = torch.nn.functional.pad(qk, (0, pad))
+    sk = torch.nn.functional.pad(sk, (0, pad), value=1.0)
+    bias = None if bias is None else torch.nn.functional.pad(bias, (0, pad))
+    return int8_matmul(qx, qk, sx, sk, bias=bias, out_dtype=out_dtype)[:, :n]
 
 
 def int8_dense(x: torch.Tensor, kernel: torch.Tensor,
@@ -89,8 +114,7 @@ def int8_dense(x: torch.Tensor, kernel: torch.Tensor,
     qx, sx = qx.reshape(-1, k), sx.reshape(-1, 1)
     bias32 = None if bias is None else bias.float()
     if impl == "pallas":
-        out = int8_matmul(qx, qk, sx, sk, bias=bias32, out_dtype=out_dtype)
-        return out.reshape(*lead, n)
+        return int8_matmul_padded(qx, qk, sx, sk, bias32, out_dtype).reshape(*lead, n)
     out = dequantize(_int_product(qx, qk), sx, sk, bias32, fused=False)
     return out.reshape(*lead, n).to(out_dtype)
 

@@ -11,9 +11,10 @@ train / val / zs-target blocks.
 
 Execution is either the stacked simultaneous-row program (default,
 sweep/vmap_loop.py) or the sequential loop (debug/verification), on
-``device`` (``cuda`` unless the caller asks for the CPU).  ``mesh`` waits for
-the parallelism slice and must be None.  The CSVs are byte-identical to the
-JAX package's for the same result dicts."""
+``device`` (``cuda`` unless the caller asks for the CPU).  ``mesh`` shards
+the stacked rows over its ``data`` axis (``train_seeds_vmapped``); every
+rank trains its rows, and rank 0 writes each CSV once.  The CSVs are
+byte-identical to the JAX package's for the same result dicts."""
 
 from __future__ import annotations
 
@@ -22,7 +23,10 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from debiasing_multi_modal_tpu_torch.sweep.vmap_loop import refuse_mesh, train_seeds_vmapped
+import torch.distributed as dist
+
+from debiasing_multi_modal_tpu_torch.parallel.mesh import axis_group, axis_size
+from debiasing_multi_modal_tpu_torch.sweep.vmap_loop import train_seeds_vmapped
 from debiasing_multi_modal_tpu_torch.train.config import TrainConfig
 from debiasing_multi_modal_tpu_torch.train.loop import DataBundle, train_all_epochs
 from debiasing_multi_modal_tpu_torch.utils.platform import DeviceLike
@@ -37,10 +41,13 @@ def run_seeds(
     mesh=None,
     device: DeviceLike = None,
 ):
-    """Per-seed result tuples ((train, val, test), (zs_class, zs_spurious))."""
-    refuse_mesh(mesh)
+    """Per-seed result tuples ((train, val, test), (zs_class, zs_spurious)).
+
+    ``mesh`` (stacked path only) shards the seed axis over its ``data``
+    axis; see ``train_seeds_vmapped``."""
     if use_vmap:
-        return train_seeds_vmapped(cfg, bundle, seeds, verbose=verbose, device=device)
+        return train_seeds_vmapped(cfg, bundle, seeds, verbose=verbose, mesh=mesh,
+                                   device=device)
     out = []
     for seed in seeds:
         res = train_all_epochs(cfg.replace(random_seed=seed), bundle, verbose=verbose,
@@ -153,8 +160,19 @@ def run_sweep(
     (lr x bsr x bs) cell x every seed — is ONE stacked program.  It
     requires the inner axes to be stacked or trivial (lr stacked or
     singleton; bsr stacked, singleton, or inert because the method has no
-    reg phase — inert bsr cells stack as duplicate rows)."""
-    refuse_mesh(mesh)
+    reg phase — inert bsr cells stack as duplicate rows).
+
+    ``mesh`` shards each stacked program's rows over its ``data`` axis; a
+    grid whose rows do not divide it is padded with copies of its last
+    cell, whose rows are dropped.  Rank 0 writes the CSVs."""
+    group = None if mesh is None else axis_group(mesh, "data")
+
+    def write(results, path):
+        """One CSV, written once; every rank waits until it is on disk."""
+        if group is None or dist.get_rank() == 0:
+            aggregate_csv(results, path)
+        if group is not None:
+            dist.barrier(group=group)
 
     def _cell_cfg(cfg, lr):
         if lr is None:
@@ -223,14 +241,22 @@ def run_sweep(
             ]
             if not grid_cfgs:
                 return
+        # mesh sharding needs rows = cells x seeds divisible by the data
+        # axis: pad with copies of the last cell (whole cells keep the row
+        # layout), whose rows are dropped below
+        run_cfgs = grid_cfgs
+        if mesh is not None:
+            while (len(run_cfgs) * len(seeds)) % axis_size(mesh, "data"):
+                run_cfgs = run_cfgs + [grid_cfgs[-1]]
         rows = train_seeds_vmapped(
-            cfg0, bundle, seeds, verbose=verbose, cell_grid=grid_cfgs, device=device,
+            cfg0, bundle, seeds, verbose=verbose, mesh=mesh, cell_grid=run_cfgs,
+            device=device,
         )
         n = len(seeds)
         for gi, cfg in enumerate(grid_cfgs):
             results = rows[gi * n : (gi + 1) * n]
             path = os.path.join(result_root, cell_filename(cfg))
-            aggregate_csv(results, path)
+            write(results, path)
             all_results[path] = results
 
     if stack_bs:
@@ -271,8 +297,8 @@ def run_sweep(
                         continue
                     results = run_seeds(
                         cfg, bundle, seeds, use_vmap=use_vmap,
-                        verbose=verbose, device=device,
+                        verbose=verbose, mesh=mesh, device=device,
                     )
-                    aggregate_csv(results, path)
+                    write(results, path)
                     all_results[path] = results
     return all_results

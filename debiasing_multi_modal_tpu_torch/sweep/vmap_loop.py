@@ -16,6 +16,10 @@ order; rows of one seed therefore share their initial weights.  ``inits``
 gives the rows' initial weights instead, in ``train_all_epochs``'s ``init``
 layout.  Best-model snapshots stay on the device (:func:`_select_rows`); the
 host reads each epoch's meters once, for every row together.
+
+With a ``mesh`` the rows are sharded over its ``data`` axis, as the JAX
+sweep shards its seed axis: each rank trains its contiguous rows as one
+stacked program, and every row's results are gathered in row order.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from debiasing_multi_modal_tpu_torch.data.samplers import (
     balanced_subset_indices,
@@ -33,11 +38,13 @@ from debiasing_multi_modal_tpu_torch.data.samplers import (
     stratified_split_indices,
     weighted_sample_indices,
 )
+from debiasing_multi_modal_tpu_torch.parallel.mesh import axis_group, axis_rank, axis_size
 from debiasing_multi_modal_tpu_torch.train.config import TrainConfig
 from debiasing_multi_modal_tpu_torch.train.contrastive import train_contrastive_epoch_vmapped
 from debiasing_multi_modal_tpu_torch.train.loop import (
     DataBundle,
     _tensors,
+    gather_bundle,
     contrastive_epoch_rows,
     contrastive_rows_and_counts,
     make_classifier,
@@ -59,14 +66,6 @@ from debiasing_multi_modal_tpu_torch.utils.platform import DeviceLike, resolve_d
 from debiasing_multi_modal_tpu_torch.utils.staging import DeviceCache, upload
 
 Tree = Dict[str, torch.Tensor]
-
-
-def refuse_mesh(mesh) -> None:
-    """Seed-axis sharding over several cards waits for the parallelism slice."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh (the seed axis sharded over several devices) is not yet ported; "
-            "it waits for the parallelism slice")
 
 
 @torch.no_grad()
@@ -133,9 +132,14 @@ def train_seeds_vmapped(
     ``inits`` (one per row, in ``train_all_epochs``'s ``init`` layout) gives
     the rows' initial weights; without it each row draws from a CPU
     ``torch.Generator`` seeded with its seed, in the sequential loop's
-    order.  ``mesh`` waits for the parallelism slice and must be None.
+    order.
+
+    ``mesh`` (whose axes include ``data``) shards the rows over the data
+    axis: the row count (grid cells x seeds) must divide by its size; each
+    rank trains its contiguous rows, and every rank returns every row's
+    results in row order.  A bundle from ``train/loop.shard_bundle`` is
+    gathered whole first (the rows, not the data, are what is sharded).
     """
-    refuse_mesh(mesh)
     if cell_grid is not None and lr_grid is not None:
         raise ValueError("pass either lr_grid or cell_grid, not both")
     if lr_grid is not None:
@@ -158,8 +162,29 @@ def train_seeds_vmapped(
     if inits is not None and len(inits) != S:
         raise ValueError(f"inits has {len(inits)} entries for {S} rows")
     inits = list(inits) if inits is not None else [{}] * S
+    # eval batching is semantics-free (running BN stats, per-row logits,
+    # exact group counts): grid-stacked rows share the largest cell's
+    eval_bs = (
+        (max(rc.batch_size_reg for rc in row_cfgs) if row_cfgs is not None
+         else cfg.batch_size_reg)
+        if cfg.is_reg_method
+        else (max(rc.batch_size for rc in row_cfgs) if row_cfgs is not None
+              else cfg.batch_size)
+    )
+    data_group = None
+    if mesh is not None:
+        n_data = axis_size(mesh, "data")
+        if S % n_data:
+            what = (f"rows (grid cells x seeds) = {S}" if row_cfgs is not None
+                    else f"len(seeds)={S}")
+            raise ValueError(f"{what} must be divisible by the mesh data axis size ({n_data})")
+        data_group = axis_group(mesh, "data")
+        S //= n_data
+        mine = slice(axis_rank(mesh, "data") * S, (axis_rank(mesh, "data") + 1) * S)
+        seeds, inits = seeds[mine], inits[mine]
+        row_cfgs = row_cfgs[mine] if row_cfgs is not None else None
     dev = resolve_device(device)
-    bundle = move_bundle(bundle, dev)
+    bundle = move_bundle(gather_bundle(bundle), dev)
     rngs = [np.random.default_rng(s) for s in seeds]
     gens = [torch.Generator().manual_seed(int(s)) for s in seeds]
 
@@ -192,15 +217,6 @@ def train_seeds_vmapped(
         val_split = bundle.val.take(val_idx)
     else:
         reg_split, val_split = None, bundle.val
-    # eval batching is semantics-free (running BN stats, per-row logits,
-    # exact group counts): grid-stacked rows share the largest cell's
-    eval_bs = (
-        (max(rc.batch_size_reg for rc in row_cfgs) if row_cfgs is not None
-         else cfg.batch_size_reg)
-        if cfg.is_reg_method
-        else (max(rc.batch_size for rc in row_cfgs) if row_cfgs is not None
-              else cfg.batch_size)
-    )
     # the train batch size per row when bs-stacked (a list gives per-row plans)
     train_bs = [rc.batch_size for rc in row_cfgs] if row_cfgs is not None else cfg.batch_size
 
@@ -498,4 +514,8 @@ def train_seeds_vmapped(
         results.append(((history["train"][i][be - 1], history["val"][i][be - 1],
                          history["test"][i][be - 1]),
                         (ordered(zs_class[i]), ordered(zs_spurious[i]))))
-    return results
+    if data_group is None:
+        return results
+    parts = [None] * dist.get_world_size(data_group)
+    dist.all_gather_object(parts, results, group=data_group)
+    return [row for part in parts for row in part]

@@ -34,7 +34,14 @@ package's, in its order, so one ``random_seed`` gives both packages the same
 batch plans.  The epochs run on ``device`` (``cuda`` unless the caller asks
 for the CPU) through train/steps.py; the host reads each epoch's meters
 once, for the result dicts and the best-model comparison (and a contrastive
-epoch's mean loss).  ``shard_bundle`` waits for the parallelism slice.
+epoch's mean loss).
+
+:func:`shard_bundle` makes Stage B data-parallel over a mesh's ``data``
+axis: each rank keeps its padded block of each split's embedding rows, and
+every epoch runs the shared batch plans on the rows each rank holds
+(``train/steps.py``), with the BatchNorm statistics, the losses, the
+gradients and the meters all-reduced, so the result dicts are the unsharded
+run's.  Rank 0 writes the checkpoints and the results.
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from debiasing_multi_modal_tpu_torch.data.groups import GroupTable
 from debiasing_multi_modal_tpu_torch.data.samplers import (
@@ -68,6 +76,7 @@ from debiasing_multi_modal_tpu_torch.models.adapter import (
     MultipleAdapterClassifier,
     zero_shot_logits,
 )
+from debiasing_multi_modal_tpu_torch.parallel.mesh import RowShard, axis_group
 from debiasing_multi_modal_tpu_torch.train.config import TrainConfig
 from debiasing_multi_modal_tpu_torch.train.contrastive import train_contrastive_epoch
 from debiasing_multi_modal_tpu_torch.train.metrics import ordered, results_from_counts
@@ -95,13 +104,15 @@ from debiasing_multi_modal_tpu_torch.utils.staging import DeviceCache, upload
 @dataclasses.dataclass
 class SplitArrays:
     """One split's columns: the embeddings on the device, the rest on the
-    host."""
+    host.  With ``shard`` (:func:`shard_bundle`) ``emb`` holds only this
+    rank's block of the rows."""
 
-    emb: torch.Tensor  # [N, D] float32
+    emb: torch.Tensor  # [N, D] float32, or this rank's [N/n, D] block
     y: np.ndarray
     place: np.ndarray
     group: np.ndarray
     y_pred: np.ndarray
+    shard: Optional[RowShard] = None
 
     def __len__(self):
         return len(self.y)
@@ -114,14 +125,25 @@ class SplitArrays:
         }[target].astype(np.int32)
 
     def take(self, idx: np.ndarray) -> "SplitArrays":
+        """The rows ``idx``, sharded as this split is."""
         idx = np.asarray(idx)
+        emb = self.full_emb().index_select(0, upload(idx.astype(np.int64), self.emb.device))
+        shard = None
+        if self.shard is not None:
+            shard = RowShard.of(len(idx), self.shard.group)
+            emb = shard.take(emb)
         return SplitArrays(
-            emb=self.emb.index_select(0, upload(idx.astype(np.int64), self.emb.device)),
+            emb=emb,
             y=self.y[idx],
             place=self.place[idx],
             group=self.group[idx],
             y_pred=self.y_pred[idx],
+            shard=shard,
         )
+
+    def full_emb(self) -> torch.Tensor:
+        """Every row's embedding (gathered from the ranks when sharded)."""
+        return self.emb if self.shard is None else self.shard.gather(self.emb)
 
     def to(self, device: torch.device) -> "SplitArrays":
         return dataclasses.replace(self, emb=self.emb.to(device))
@@ -207,6 +229,35 @@ def bundle_from_files(
     )
 
 
+def shard_bundle(bundle: DataBundle, mesh, axis: str = "data") -> DataBundle:
+    """The bundle with each split's embedding rows sharded over the mesh's
+    ``axis``: this rank keeps its contiguous block, zero-padded to the axis
+    size (pad rows are never read: the batch plans index by the label
+    arrays' length, which stays the split's).  Pass the result to
+    ``train_all_epochs``, whose epochs then run data-parallel."""
+    group = axis_group(mesh, axis)
+
+    def place(split: SplitArrays) -> SplitArrays:
+        shard = RowShard.of(len(split), group)
+        return dataclasses.replace(split, emb=shard.take(split.full_emb()), shard=shard)
+
+    return dataclasses.replace(bundle, train=place(bundle.train), val=place(bundle.val),
+                               test=place(bundle.test))
+
+
+def gather_bundle(bundle: DataBundle) -> DataBundle:
+    """The bundle with every split's rows whole on each rank (itself if it
+    is not sharded)."""
+    if bundle.train.shard is None:
+        return bundle
+
+    def whole(split: SplitArrays) -> SplitArrays:
+        return dataclasses.replace(split, emb=split.full_emb(), shard=None)
+
+    return dataclasses.replace(bundle, train=whole(bundle.train), val=whole(bundle.val),
+                               test=whole(bundle.test))
+
+
 def move_bundle(bundle: DataBundle, device: torch.device) -> DataBundle:
     """The bundle with its embeddings on ``device`` (itself if they are)."""
     if on_device(bundle.train.emb, device):
@@ -245,7 +296,7 @@ def _evaluate(
     dev = split.emb.device
     idx, mask = cached_eval_plan(plan_cache, split, batch_size, lambda a: upload(a, dev))
     return eval_epoch(module, split.emb, stage(labels), stage(split.group), idx, mask,
-                      stage(text), n_groups=bundle.n_groups)
+                      stage(text), n_groups=bundle.n_groups, shard=split.shard)
 
 
 def zero_shot_results(bundle: DataBundle, target: str,
@@ -254,14 +305,23 @@ def zero_shot_results(bundle: DataBundle, target: str,
     CLIP baseline the reference's linear_probing branch probes
     (final_main.py:757)."""
     text = bundle.text_class if target == "class" else bundle.text_spurious
-    labels = bundle.test.labels(target)
-    emb = bundle.test.emb
+    test = bundle.test
+    emb, rows = test.emb, slice(None)
+    if test.shard is not None:  # this rank's rows; the counts summed over ranks
+        lo = test.shard.lo
+        rows = slice(lo, max(lo, min(lo + test.shard.local, len(test))))
+        emb = emb[:rows.stop - rows.start]
     with torch.no_grad(), full_f32():
         logits = zero_shot_logits(emb, upload(text, emb.device), zs_temperature)
-    correct = logits.argmax(1).cpu().numpy() == labels
-    corr = np.bincount(bundle.test.group, weights=correct, minlength=bundle.n_groups)
-    cnt = np.bincount(bundle.test.group, minlength=bundle.n_groups)
-    return results_from_counts(corr, cnt, bundle.n_places, bundle.train_group_ratio)
+    correct = logits.argmax(1).cpu().numpy() == test.labels(target)[rows]
+    group = test.group[rows]
+    counts = np.stack([np.bincount(group, weights=correct, minlength=bundle.n_groups),
+                       np.bincount(group, minlength=bundle.n_groups)])
+    if test.shard is not None:
+        summed = torch.from_numpy(counts).to(test.emb.device)
+        dist.all_reduce(summed, group=test.shard.group)
+        counts = summed.cpu().numpy()
+    return results_from_counts(counts[0], counts[1], bundle.n_places, bundle.train_group_ratio)
 
 
 def make_classifier(cfg: TrainConfig, generator: Optional[torch.Generator] = None):
@@ -369,9 +429,11 @@ def train_all_epochs(
     bundle = move_bundle(bundle, dev)
     init = init or {}
     rng, gen = set_seed(cfg.random_seed)
+    # under shard_bundle every rank trains; rank 0 writes and prints
+    writer = bundle.train.shard is None or dist.get_rank() == 0
 
     def log(*a):
-        if verbose:
+        if verbose and writer:
             print(*a)
 
     # ----- data: reg/val split for the regularized methods
@@ -452,7 +514,7 @@ def train_all_epochs(
     # run they are the first rng consumption, and a resumed run must train
     # on the ORIGINAL rows (the restored rng state already accounts for
     # these draws).
-    contrastive_rows = None
+    contrastive_rows = train_full = None
     if cfg.tl_method == "contrastive_adapter":
         (contrastive_rows,), ca_counts = contrastive_rows_and_counts(cfg, bundle, [rng], log)
         log(f"contrastive rows: {contrastive_rows.shape}")
@@ -506,7 +568,7 @@ def train_all_epochs(
             sub_state, split.emb, stage(labels), stage(split.group),
             upload(plan.indices, dev), upload(plan.mask, dev), lrs, stage(text),
             mask_tree, n_groups=bundle.n_groups, momentum=cfg.momentum,
-            weight_decay=cfg.weight_decay,
+            weight_decay=cfg.weight_decay, shard=split.shard,
         )
 
     for epoch in range(start_epoch, cfg.epochs + 1):
@@ -582,8 +644,10 @@ def train_all_epochs(
             rows = contrastive_epoch_rows(contrastive_rows, rng, cfg.batch_factor)
             enc_state = TrainState(encoder, {**{k: v for k, v in state.trace.items()
                                                 if k.startswith("adapter.")}, **head_trace})
+            if train_full is None:  # the SupCon steps read rows of every rank
+                train_full = bundle.train.full_emb()
             _, cl_losses = train_contrastive_epoch(
-                enc_state, bundle.train.emb, upload(rows, dev),
+                enc_state, train_full, upload(rows, dev),
                 epoch_batch_lrs(cfg, epoch, len(rows), 1), ones_mask(enc_state.params),
                 num_anchor=ca_counts[0], num_positive=ca_counts[1], num_negative=ca_counts[2],
                 temperature=cfg.cl_temperature, contrastive_weight=cfg.contrastive_weight,
@@ -641,7 +705,7 @@ def train_all_epochs(
             best.update(acc=val_res["worst_acc"], epoch=epoch, sd=_snapshot(cur.module),
                         multiple=module is multiple)
 
-        if checkpoint_dir and (
+        if checkpoint_dir and writer and (
             # checkpoint_every <= 0 means final-epoch-only checkpoints
             (checkpoint_every > 0 and epoch % checkpoint_every == 0)
             or epoch == cfg.epochs
@@ -700,7 +764,7 @@ def train_all_epochs(
     log("zero-shot (test, class):", ordered(zs_class))
     log("zero-shot (test, spurious):", ordered(zs_spurious))
 
-    if cfg.save_results and results_dir:
+    if cfg.save_results and results_dir and writer:
         os.makedirs(results_dir, exist_ok=True)
         name = encode_run_name(cfg)
         payload = {

@@ -19,15 +19,20 @@ import torch
 
 
 def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                         mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                         mask: Optional[torch.Tensor] = None,
+                         count: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean CE over valid rows (padded rows excluded from the mean):
-    ``logits [..., B, C]`` -> ``[...]``."""
+    ``logits [..., B, C]`` -> ``[...]``.  ``count`` replaces the mask's own
+    count of valid rows as the divisor: under data parallelism each rank
+    sums its rows' CE over the whole batch's count, and the ranks' shares
+    add up to the batch's mean."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, labels.long().unsqueeze(-1)).squeeze(-1)
     if mask is None:
         return nll.mean(-1)
     m = mask.to(torch.float32)
-    return (nll * m).sum(-1) / m.sum(-1).clamp_min(1.0)
+    denom = m.sum(-1) if count is None else count
+    return (nll * m).sum(-1) / denom.clamp_min(1.0)
 
 
 def _normalize(x: torch.Tensor) -> torch.Tensor:

@@ -28,18 +28,32 @@ products as ``torch.baddbmm``, one ``backward`` of the sum of the rows'
 losses (which gives each row exactly its own gradient), a per-row learning
 rate from an ``[S, nb]`` device tensor, and an ``active [S, nb]`` flag that
 makes a row's padded step a true no-op.
+
+Data parallelism (``train/loop.py::shard_bundle``): with a ``shard``
+(:class:`~debiasing_multi_modal_tpu_torch.parallel.mesh.RowShard`) the
+embeddings are this rank's block of the split's rows, and each rank runs
+every batch of the shared plan on the rows it holds (the others masked
+out).  The masked BatchNorm sums and counts are all-reduced over the
+shard's group, each rank's CE is its rows' share of the batch mean (the
+divisor all-reduced), the gradients are all-reduced before the update and
+the epoch's meters once at its end, so the parameters, the running
+statistics and the meters are the unsharded run's up to the order of the
+sums.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
-from debiasing_multi_modal_tpu_torch.models.adapter import stacked_logits
+from debiasing_multi_modal_tpu_torch.models.adapter import MaskedBatchNorm, stacked_logits
+from debiasing_multi_modal_tpu_torch.parallel.mesh import RowShard
 from debiasing_multi_modal_tpu_torch.train.losses import masked_cross_entropy
 from debiasing_multi_modal_tpu_torch.train.metrics import batch_group_counts, stacked_group_counts
 from debiasing_multi_modal_tpu_torch.utils.platform import full_f32
@@ -142,15 +156,21 @@ class EpochStats(NamedTuple):
         return EpochStats(*(a + b for a, b in zip(self, other)))
 
     @torch.no_grad()
-    def add_batch(self, logits, labels, groups, mask, loss) -> None:
-        """Accumulate one (padded) batch in place, on the device."""
+    def add_batch(self, logits, labels, groups, mask, loss, loss_weight=None) -> None:
+        """Accumulate one (padded) batch in place, on the device;
+        ``loss_weight`` replaces the batch's valid-row count as the loss's
+        weight (a data-parallel rank's share weighs by the whole batch's)."""
         corrects, counts = batch_group_counts(logits, labels, groups, mask,
                                               self.counts.shape[0])
         self.corrects.add_(corrects)
         self.counts.add_(counts)
         nvalid = mask.to(torch.float32).sum()
-        self.loss_sum.add_(loss.detach() * nvalid)
+        self.loss_sum.add_(loss.detach() * (nvalid if loss_weight is None else loss_weight))
         self.n.add_(nvalid)
+
+    def all_reduce(self, group) -> "EpochStats":
+        """Every meter summed over ``group``'s ranks, in one collective."""
+        return EpochStats(*_summed(list(self), group))
 
 
     @torch.no_grad()
@@ -164,6 +184,50 @@ class EpochStats(NamedTuple):
         nvalid = mask.to(torch.float32).sum(-1)
         self.loss_sum.add_(loss.detach() * nvalid)
         self.n.add_(nvalid)
+
+
+@contextlib.contextmanager
+def _batch_stats_over(module: nn.Module, shard: Optional[RowShard]):
+    """The module's masked BatchNorms take their statistics over the
+    shard's group inside the block."""
+    if shard is None:
+        yield
+        return
+    bns = [m for m in module.modules() if isinstance(m, MaskedBatchNorm)]
+    for bn in bns:
+        bn.group = shard.group
+    try:
+        yield
+    finally:
+        for bn in bns:
+            bn.group = None
+
+
+def _batch(embeddings, labels, b_idx, b_mask, shard):
+    """A batch's rows, labels and mask; with a shard, this rank's rows of
+    it, the mask narrowed to them, and the batch's valid-row count."""
+    if shard is None:
+        return embeddings[b_idx], labels[b_idx], b_mask, None
+    local, mask = shard.rows_of(b_idx, b_mask)
+    count = b_mask.to(torch.float32).sum()  # every rank holds the whole plan
+    return embeddings[local], labels[b_idx], mask, count
+
+
+def _summed(tensors, group):
+    """Each tensor summed over ``group``'s ranks, in one collective on one
+    flat buffer; a None stays None."""
+    present = [t for t in tensors if t is not None]
+    if not present:
+        return list(tensors)
+    flat = torch.cat([t.reshape(-1) for t in present])
+    dist.all_reduce(flat, group=group)
+    out, at = [], 0
+    for t in tensors:
+        if t is not None:
+            t = flat[at:at + t.numel()].view_as(t)
+            at += t.numel()
+        out.append(t)
+    return out
 
 
 def train_epoch(
@@ -180,26 +244,29 @@ def train_epoch(
     n_groups: int = 4,
     momentum: float = 0.9,
     weight_decay: float = 5e-5,
+    shard: Optional[RowShard] = None,
 ) -> Tuple[TrainState, EpochStats]:
     """One epoch of SGD in training mode (the JAX ``_train_epoch_impl``);
-    updates ``state`` in place and returns it with the epoch's meters."""
+    updates ``state`` in place and returns it with the epoch's meters.
+    With ``shard``, the epoch is data-parallel (module docstring)."""
     module = state.module.train()
     params = state.params
     live, _ = _live(train_mask)
     live_params = [params[n] for n in live]
     stats = EpochStats.zeros(n_groups, embeddings.device)
     lrs = np.asarray(lrs, np.float32)
-    with full_f32():
+    with full_f32(), _batch_stats_over(module, shard):
         for b in range(idx.shape[0]):
-            b_idx, b_mask = idx[b], mask[b]
-            lab = labels[b_idx]
-            logits = module(embeddings[b_idx], text, b_mask)
-            loss = masked_cross_entropy(logits, lab, b_mask)
+            x, lab, b_mask, count = _batch(embeddings, labels, idx[b], mask[b], shard)
+            logits = module(x, text, b_mask)
+            loss = masked_cross_entropy(logits, lab, b_mask, count)
             grads = torch.autograd.grad(loss, live_params, allow_unused=True)
+            if shard is not None:
+                grads = _summed(grads, shard.group)
             _sgd(params, dict(zip(live, grads)), state.trace, float(lrs[b]),
                  momentum, weight_decay, train_mask)
-            stats.add_batch(logits, lab, groups[b_idx], b_mask, loss)
-    return state, stats
+            stats.add_batch(logits, lab, groups[idx[b]], b_mask, loss, count)
+    return state, stats if shard is None else stats.all_reduce(shard.group)
 
 
 @torch.no_grad()
@@ -213,18 +280,19 @@ def eval_epoch(
     text: torch.Tensor,
     *,
     n_groups: int = 4,
+    shard: Optional[RowShard] = None,
 ) -> EpochStats:
-    """Evaluation with running BatchNorm statistics (classifier.eval())."""
+    """Evaluation with running BatchNorm statistics (classifier.eval());
+    with ``shard``, data-parallel as :func:`train_epoch`."""
     module.eval()
     stats = EpochStats.zeros(n_groups, embeddings.device)
     with full_f32():
         for b in range(idx.shape[0]):
-            b_idx, b_mask = idx[b], mask[b]
-            lab = labels[b_idx]
-            logits = module(embeddings[b_idx], text, b_mask)
-            loss = masked_cross_entropy(logits, lab, b_mask)
-            stats.add_batch(logits, lab, groups[b_idx], b_mask, loss)
-    return stats
+            x, lab, b_mask, count = _batch(embeddings, labels, idx[b], mask[b], shard)
+            logits = module(x, text, b_mask)
+            loss = masked_cross_entropy(logits, lab, b_mask, count)
+            stats.add_batch(logits, lab, groups[idx[b]], b_mask, loss, count)
+    return stats if shard is None else stats.all_reduce(shard.group)
 
 
 # ------------------------------------------------ stacked rows (the sweep) --

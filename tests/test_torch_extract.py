@@ -287,7 +287,9 @@ def test_cli_extracts_waterbirds_on_cpu(tmp_path, synthetic_bpe):
     with pytest.raises(ValueError, match="ViT-only"):
         extract_main.main(extract_main.build_parser().parse_args(
             ["--device", "cpu", "--quantize", "int8"]))
-    with pytest.raises(NotImplementedError):
+    # one process is a world of one rank: tp = 2 does not divide it (the
+    # JAX CLI's check and message)
+    with pytest.raises(SystemExit, match="--tensor_parallel 2 does not divide 1 devices"):
         extract_main.main(extract_main.build_parser().parse_args(
             ["--device", "cpu", "--tensor_parallel", "2"]))
     assert os.path.isdir(out)

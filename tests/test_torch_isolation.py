@@ -6,8 +6,10 @@ plain, with ``fuse_qkv`` (the packed attention path) and with both int8
 modes — a contrastive
 gradient step through a ViT CLIP on the flash path with ``remat``, a
 two-epoch Stage-B ``train_all_epochs`` across the phase boundary with the
-second adapter, a contrastive ``train_all_epochs`` with the linear head and
-a two-seed stacked ``run_seeds`` imports neither ``jax`` nor anything of
+second adapter, a contrastive ``train_all_epochs`` with the linear head,
+a two-seed stacked ``run_seeds``, a native clip.json write and load, and
+(on two launched gloo ranks, each checked too) a tensor-parallel extraction
+and a seed-mesh sweep imports neither ``jax`` nor anything of
 ``debiasing_multi_modal_tpu``; importing the
 package alone imports no Triton and loads no kernel library."""
 
@@ -105,11 +107,22 @@ assert len(history["cl_loss"]) == 2
 from debiasing_multi_modal_tpu_torch.sweep.runner import run_seeds
 cfg = TrainConfig(tl_method="adapter", epochs=2, input_dim=16, adapter_feat_dim=8, batch_size=32)
 assert len(run_seeds(cfg, bundle, [42, 32], device="cpu")) == 2
+import os, tempfile
+from debiasing_multi_modal_tpu_torch.data.embeddings_store import load_embeddings, save_embeddings
+from debiasing_multi_modal_tpu_torch.native import ebdjson
+with tempfile.TemporaryDirectory() as tmp:
+    save_embeddings(os.path.join(tmp, "clip.json"), emb_table, fmt="json")
+    assert len(load_embeddings(os.path.join(tmp, "clip.json"))) == len(emb_table)
+assert ebdjson.load_embeddings_json.calls == ebdjson.save_embeddings_json.calls == 1
+sys.path.insert(0, os.path.join(os.getcwd(), "tests"))
+import torch_parallel_worker
+from debiasing_multi_modal_tpu_torch.parallel.multihost import launch
+ranks_bad = launch(torch_parallel_worker.isolation, 2, timeout_s=240)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "flax"))
              or m == "debiasing_multi_modal_tpu"
              or m.startswith("debiasing_multi_modal_tpu."))
-print(json.dumps({"after_import": after_import, "bad": bad}))
+print(json.dumps({"after_import": after_import, "bad": bad, "ranks_bad": ranks_bad}))
 """
 
 
@@ -120,6 +133,7 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert proc.returncode == 0, proc.stderr[-4000:]
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     assert result["bad"] == []
+    assert result["ranks_bad"] == [[], []]
     assert result["after_import"] == {"triton": False, "libs": []}
 
 

@@ -16,10 +16,11 @@ against the JAX package's, f32 on the CPU.
 - The CSVs: ``aggregate_csv`` writes the JAX function's bytes, and
   ``run_sweep`` on a two-cell grid writes the JAX ``run_sweep``'s file names
   and bytes; ``skip_existing`` stacks only the missing cells; seeds past
-  2**32 run; ``mesh`` raises.
+  2**32 run; a one-process ``mesh`` changes nothing.
 - The CLI on caches the port's own extraction CLI wrote writes the JAX
   ``sweep_main``'s file names and the port library's bytes, and rejects
-  ``--no_vmap`` with ``--stack_*`` and ``--seed_mesh``.
+  ``--no_vmap`` with ``--stack_*``; ``--seed_mesh`` in one process
+  writes the same bytes.
 """
 
 import os
@@ -337,10 +338,16 @@ def test_seeds_past_uint32_and_mesh(bundles):
     seq = trunner.run_seeds(cfg, tb, big, use_vmap=False, device="cpu")
     vm = trunner.run_seeds(cfg, tb, big, use_vmap=True, device="cpu")
     assert seq == vm
-    with pytest.raises(NotImplementedError, match="parallelism slice"):
-        trunner.run_seeds(cfg, tb, [42], mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="parallelism slice"):
-        trunner.run_sweep(cfg, tb, [42], mesh=object(), device="cpu")
+    # a mesh of this one process (multi-rank meshes: test_torch_seed_mesh.py)
+    from debiasing_multi_modal_tpu_torch.parallel import multihost
+    from debiasing_multi_modal_tpu_torch.parallel.mesh import make_mesh
+
+    with multihost.process_group("cpu"):
+        mesh = make_mesh(device="cpu")
+        assert trunner.run_seeds(cfg, tb, big, mesh=mesh, device="cpu") == vm
+        with pytest.raises(ValueError, match="no 'data' axis"):
+            trunner.run_seeds(cfg, tb, big, mesh=make_mesh((1, 1), ("model", "seq"),
+                                                          device="cpu"), device="cpu")
 
 
 # ---------------------------------------------------------------------- CLI --
@@ -405,5 +412,8 @@ def test_sweep_cli_on_caches_the_port_extracted(tmp_path, monkeypatch, capsys, s
             (tmp_path / "library" / name).read_bytes()
     with pytest.raises(SystemExit, match="drop --no_vmap"):
         tsweep.main(parse(flags + ["--no_vmap", "--device", "cpu"]))
-    with pytest.raises(NotImplementedError, match="parallelism slice"):
-        tsweep.main(parse(flags + ["--seed_mesh", "--device", "cpu"]))
+    # --seed_mesh in one process: a group of one rank, the same bytes
+    assert tsweep.main(parse(flags + ["--result_root", str(tmp_path / "mesh"),
+                                      "--seed_mesh", "--device", "cpu"])) == 0
+    for name in names:
+        assert (tmp_path / "mesh" / name).read_bytes() == (tmp_path / "port" / name).read_bytes()
