@@ -13,6 +13,7 @@
     python3 chip_smoke.py --only sweep       # the stacked seed-and-grid sweep alone
     python3 chip_smoke.py --only native_json # the native clip.json parser alone
     python3 chip_smoke.py --only parallel    # the world-size-1 parallel paths alone
+    python3 chip_smoke.py --only leaves      # the side modules alone
 
 Phases, in order, each printing one JSON line per case; any failure raises
 and exits nonzero, and only a run where every phase passed prints the final
@@ -197,10 +198,40 @@ line.
              shard shapes of ViT-B/32 (image 6 / 3 heads at D = 384 / 192,
              text 4 / 2 heads at D = 256 / 128) and kernel 7 at its tp shard
              shapes (N = 192 padded to 256 by ops/quant.int8_matmul_padded),
-             each against its plain version.  NCCL cannot put two ranks on
+             each against its plain version.  Then the pipeline schedule
+             (parallel/pp.py) on a ("data", "stage", "model", "seq") mesh of
+             shape (1, 1, 1, 1), bf16, 4 microbatches: the RN50 text tower
+             (256 prompts of 77 tokens) and the ViT-B/32 image tower (256
+             images, S = 50) pipelined against the same model's unpipelined
+             encode (cosine >= 0.999, max error, prompts/s or imgs/s beside
+             the unpipelined rate, kernel 1's launches: 12 layers x 4
+             microbatches = 48 each; the ViT encode under the sync check),
+             the ViT encode once more through the manual tp/sp block (model
+             and seq axes set, ring attention at size 1; cosine >= 0.999),
+             and one loss through pipeline_transformer on 128 images with
+             remat off and on against the unpipelined tower's gradients
+             (cosine >= 0.99 per parameter, >= 0.999 flattened; remat within
+             1e-6 of scale of remat off; kernel 1 48 / 96 launches, its
+             backward the plain VJP).  NCCL cannot put two ranks on
              one card, so the multi-rank checks run as CPU processes in the
              tests (parallel/dryrun.py).
-15. summary — the wall seconds, one {"kernels": [...]} line, the card line, and
+15. leaves — the side modules on the card against the CPU, no kernel
+             launched (every count stays 0 through the first four):
+             entry() (f32 predictions equal, the bf16 default's features
+             cosine >= 0.999), train_augment's crop and flip of 256 uint8
+             256x256 images to 224 at given boxes (within 1e-5 of scale;
+             imgs/s), a plain ResNet-50 train-mode SGD step at batch 64 in
+             f32 (output and running statistics within 1e-3 of scale,
+             gradients cosine >= 0.99 per parameter and >= 0.999 flattened,
+             the f64 step on the card beside) and its bf16 forward imgs/s at
+             batch 256, linear_probe on a CelebA-size table (162,770 x 1024,
+             2 epochs: weights within 1e-4 of scale, accuracy within 5e-3;
+             one epoch under the sync check, rows/s) and adapted_embeddings
+             of 32,768 of its rows (within 1e-5 of scale); then zoo.load of
+             a seeded ViT-B/32 archive written by save_jit_state_dict_archive
+             (its encode equal to clip_from_state_dict's; kernel 1 runs in
+             these encodes).
+16. summary — the wall seconds, one {"kernels": [...]} line, the card line, and
              {"ok": true, "device": {...}} as the last line.
 """
 
@@ -210,11 +241,12 @@ import copy
 import json
 import os
 import re
-import statistics
 import subprocess
 import sys
 import tempfile
 import time
+
+from debiasing_multi_modal_tpu_torch.utils.timing import graph_ms, time_ms
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense), for bound_ms.
 HBM_BYTES_PER_S = 3.35e12
@@ -227,53 +259,6 @@ BF16_ULP = 2.0 ** -8
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
-
-
-def time_ms(fn, runs=20, calls=20, warmup=5):
-    """Device time of one call: the median over ``runs`` of CUDA events around
-    ``calls`` back-to-back calls, divided by ``calls``.  The calls queue up
-    behind each other, so the host's time per call hides behind the card's
-    as long as it is the shorter of the two."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(calls):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return statistics.median(times)
-
-
-def graph_ms(fn, runs=20, calls=20, warmup=5, stream=None):
-    """Device time of one call with the host out of the way: ``calls`` calls
-    captured once in a CUDA graph, then :func:`time_ms` of its replay,
-    divided by ``calls``.  A kernel of a few tens of microseconds is shorter
-    than its Python wrapper's host time on a loaded host, where
-    :func:`time_ms` would time the host.  ``stream`` is the side stream to
-    warm up and capture on (a fresh one by default)."""
-    import torch
-
-    side = stream if stream is not None else torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(warmup):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=side):
-        for _ in range(calls):
-            fn()
-    ms = time_ms(graph.replay, runs=runs, calls=1, warmup=2) / calls
-    del graph
-    return ms
 
 
 @contextlib.contextmanager
@@ -2783,6 +2768,125 @@ def _shard_shape_cases(gen):
     return {"short_attention": attention, "int8_matmul": int8}
 
 
+def _cos_flat(a, b):
+    import torch.nn.functional as F
+
+    return F.cosine_similarity(a.flatten().double(), b.flatten().double(), dim=0).item()
+
+
+def _pipelined_encodes(mesh):
+    """The RN50 text tower and the ViT-B/32 image tower pipelined (bf16, 4
+    microbatches) against the same model's unpipelined encode, each with the
+    counts at 0 just before it and read just after; the ViT encode again
+    under the sync check and through the manual tp/sp block."""
+    import numpy as np
+    import torch
+
+    from debiasing_multi_modal_tpu_torch.models import create_clip
+    from debiasing_multi_modal_tpu_torch.parallel import pp
+
+    rng = np.random.default_rng(SEED + 11)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    kw = dict(mesh=mesh, microbatches=4, batch_axis="data")
+    rows, launches = {}, {}
+    for name, backbone in (("pipeline_rn50_text", "RN50"), ("pipeline_vitb32_image", "ViT-B/32")):
+        model = create_clip(backbone, dtype=torch.bfloat16, device="cuda",
+                            generator=torch.Generator().manual_seed(SEED))
+        if name.endswith("text"):
+            inputs = torch.from_numpy(_tokens(256, rng)).cuda()
+            tower, piped = model.transformer, pp.pipelined_text_encode
+            unpiped = model.encode_text
+        else:
+            inputs = torch.randn(256, 224, 224, 3, device="cuda", generator=gen)
+            tower, piped = model.visual.transformer, pp.pipelined_vit_encode
+            unpiped = model.encode_image
+        with torch.no_grad():
+            stacked, n_layers = pp.stack_block_params(tower)
+            ref = unpiped(inputs)
+            piped(model, None, inputs, stacked=stacked, **kw)  # warm
+            _zero_counts()
+            out = piped(model, None, inputs, stacked=stacked, **kw)
+            torch.cuda.synchronize()
+            launches[name] = _read_counts()
+            _expect_counts(name, launches[name], {"short_attention": n_layers * 4})
+            row = {"layers": n_layers, "microbatches": 4, "items": 256,
+                   "cos_min": _cos_min(out, ref), "cos": _cos_flat(out, ref),
+                   "max_abs_err": (out.float() - ref.float()).abs().max().item(),
+                   "scale": ref.float().abs().max().item(),
+                   "per_s": _rate(lambda: piped(model, None, inputs, stacked=stacked, **kw),
+                                  256, 5),
+                   "unpipelined_per_s": _rate(lambda: unpiped(inputs), 256, 5)}
+            if name.endswith("image"):
+                with no_host_sync():
+                    again = piped(model, None, inputs, stacked=stacked, **kw)
+                torch.cuda.synchronize()
+                row["sync_checked_equal"] = bool(torch.equal(again, out))
+                local = pp.shard_stage_params(stacked, mesh, model_axis="model")
+                manual = piped(model, None, inputs, stacked=local, model_axis="model",
+                               seq_axis="seq", **kw)
+                row["manual_block"] = {"cos_min": _cos_min(manual, ref),
+                                       "max_abs_err": (manual.float() - ref.float()).abs()
+                                       .max().item()}
+                if row["manual_block"]["cos_min"] < 0.999:
+                    raise AssertionError(f"the manual tp/sp block disagrees: {row}")
+        rows[name] = row
+        if row["cos_min"] < 0.999:
+            raise AssertionError(f"{name} disagrees with the unpipelined encode: {row}")
+        del model, ref, out
+        torch.cuda.empty_cache()
+    return rows, launches
+
+
+def _pipelined_gradients(mesh):
+    """One loss through pipeline_transformer (the ViT-B/32 image tower on
+    128 images, bf16, 4 microbatches) with remat off and on, against the
+    unpipelined tower's gradients."""
+    import torch
+
+    from debiasing_multi_modal_tpu_torch.models import create_clip
+    from debiasing_multi_modal_tpu_torch.parallel import pp
+
+    model = create_clip("ViT-B/32", dtype=torch.bfloat16, device="cuda",
+                        generator=torch.Generator().manual_seed(SEED)).requires_grad_(True)
+    params = [p for p in model.visual.parameters()]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    images = torch.randn(128, 224, 224, 3, device="cuda", generator=gen)
+    target = torch.randn(128, 512, device="cuda", generator=gen)
+
+    def grads(encode):
+        loss = ((encode(images).float() - target) ** 2).mean()
+        return [g.detach().clone() for g in torch.autograd.grad(loss, params)]
+
+    ref = grads(model.encode_image)
+    rows, launches, got = {}, {}, {}
+    for name, remat, want in (("pipeline_vitb32_grad", False, 48),
+                              ("pipeline_vitb32_grad_remat", True, 96)):
+        def piped(x, remat=remat):
+            return pp.pipelined_vit_encode(model, None, x, mesh=mesh, microbatches=4,
+                                           batch_axis="data", remat=remat)
+        _zero_counts()
+        got[name] = grads(piped)
+        torch.cuda.synchronize()
+        launches[name] = _read_counts()
+        _expect_counts(name, launches[name], {"short_attention": want})
+        per = [_cos_flat(a, b) for a, b in zip(got[name], ref)]
+        rows[name] = {"cos_min_per_param": min(per),
+                      "cos_flat": _cos_flat(torch.cat([g.flatten() for g in got[name]]),
+                                            torch.cat([g.flatten() for g in ref]))}
+        if not (rows[name]["cos_min_per_param"] >= 0.99 and rows[name]["cos_flat"] >= 0.999):
+            raise AssertionError(f"{name} disagrees with the unpipelined gradients: {rows}")
+    plain, remat = got["pipeline_vitb32_grad"], got["pipeline_vitb32_grad_remat"]
+    scale = max(g.abs().max().item() for g in plain)
+    err = max((a - b).abs().max().item() for a, b in zip(remat, plain))
+    rows["remat_vs_plain"] = {"max_abs_err": err, "scale": scale,
+                              "bit_equal": all(torch.equal(a, b) for a, b in zip(remat, plain))}
+    if err > 1e-6 * scale:
+        raise AssertionError(f"remat gradients differ from remat off: {rows}")
+    del model, got, ref
+    torch.cuda.empty_cache()
+    return rows, launches
+
+
 def phase_parallel():
     """Data, tensor and sequence parallelism on a world-size-1 NCCL group
     (see the module docstring); returns the main paths' launch counts and
@@ -2802,10 +2906,243 @@ def phase_parallel():
               "world": dist.get_world_size(), "extraction": extraction, "launches": launches})
         emit({"phase": "parallel", **_parallel_stage_b(data_mesh)})
         emit({"phase": "parallel", "attention": _parallel_attention(data_mesh)})
+        t1 = time.perf_counter()
+        pp_mesh = make_mesh((1, 1, 1, 1), ("data", "stage", "model", "seq"), device="cuda")
+        encodes, pp_launches = _pipelined_encodes(pp_mesh)
+        grads, grad_launches = _pipelined_gradients(pp_mesh)
+        pp_launches.update(grad_launches)
+        launches.update(pp_launches)
+        emit({"phase": "parallel", "pipeline": {"encodes": encodes, "gradients": grads,
+                                                "launches": pp_launches,
+                                                "seconds": time.perf_counter() - t1}})
     cases = _shard_shape_cases(torch.Generator(device="cuda").manual_seed(SEED + 9))
     emit({"phase": "parallel", "seconds": time.perf_counter() - t0})
     return launches, cases
 
+
+
+def _leaves_entry():
+    """entry() on the card against the CPU: in f32 the predictions equal,
+    the bf16 default's features within cosine 0.999 of the CPU's."""
+    import torch
+
+    from debiasing_multi_modal_tpu_torch.entry import entry
+
+    out = {}
+    for name, device, dtype in (("cpu", "cpu", None), ("card_f32", "cuda", torch.float32),
+                                ("card_bf16", "cuda", None)):
+        fn, args = entry(device=device, dtype=dtype)
+        feats, preds = fn(*args)
+        out[name] = (feats.float().cpu(), preds.cpu())
+    row = {"preds_f32_equal": bool(torch.equal(out["card_f32"][1], out["cpu"][1])),
+           "cos_min_f32": _cos_min(out["card_f32"][0], out["cpu"][0]),
+           "cos_min_bf16": _cos_min(out["card_bf16"][0], out["cpu"][0]),
+           "preds_bf16_equal_share": (out["card_bf16"][1] == out["cpu"][1]).float().mean().item()}
+    if not (row["preds_f32_equal"] and row["cos_min_bf16"] >= 0.999):
+        raise AssertionError(f"entry() on the card disagrees with the CPU: {row}")
+    return row
+
+
+def _leaves_augment():
+    """train_augment's crop and flip of 256 uint8 256x256 images to 224 at
+    boxes and flips drawn once on the CPU: card against CPU within 1e-5 of
+    scale, and the card's images per second (CUDA events)."""
+    import numpy as np
+    import torch
+
+    from debiasing_multi_modal_tpu_torch.ops import augment
+
+    rng = np.random.default_rng(SEED + 13)
+    images = torch.from_numpy(rng.integers(0, 256, (256, 256, 256, 3), dtype=np.uint8))
+    gen = torch.Generator().manual_seed(SEED + 13)
+    boxes = augment.crop_boxes(gen, 256, 256, 256)
+    flips = augment.flip_draws(gen, 256)
+
+    def run(imgs, device):
+        return augment.horizontal_flip(
+            augment.resized_crop(imgs, *(b.to(device) for b in boxes), out_res=224),
+            flips.to(device))
+
+    ref = run(images, "cpu")
+    card_images = images.cuda()
+    got = run(card_images, "cuda").cpu()
+    scale = ref.abs().max().item()
+    row = {"max_abs_err": (got - ref).abs().max().item(), "scale": scale,
+           "ms": time_ms(lambda: run(card_images, "cuda"), runs=5, calls=3, warmup=2)}
+    row["imgs_per_s"] = 256 / row["ms"] * 1e3
+    if row["max_abs_err"] > 1e-5 * scale:
+        raise AssertionError(f"train_augment on the card disagrees with the CPU: {row}")
+    return row
+
+
+def _leaves_resnet():
+    """A plain ResNet-50 train-mode SGD step at batch 64 in f32, card
+    against CPU: the output and the updated running statistics within 1e-3
+    of scale, the gradients by the standing limits (cosine >= 0.99 per
+    parameter, >= 0.999 flattened; the same step in f64 on the card says
+    how far f32 itself is from exact), and the bf16 forward's images per
+    second at batch 256."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from debiasing_multi_modal_tpu_torch.models.resnet_plain import resnet50
+
+    rng = np.random.default_rng(SEED + 14)
+    x = torch.from_numpy(rng.standard_normal((64, 224, 224, 3)).astype(np.float32))
+    tgt = torch.from_numpy(rng.standard_normal((64, 2048)).astype(np.float32))
+    result = {}
+    for name, device, dtype in (("cpu", "cpu", torch.float32), ("card", "cuda", torch.float32),
+                                ("card_f64", "cuda", torch.float64)):
+        model = resnet50(dtype=dtype, generator=torch.Generator().manual_seed(SEED))
+        model = model.to(device=device, dtype=dtype).train()
+        out = model(x.to(device))
+        ((out - tgt.to(device, dtype)) ** 2).mean().backward()
+        grads = {n: p.grad.detach().double().cpu() for n, p in model.named_parameters()}
+        stats = {k: v.double().cpu() for k, v in model.state_dict().items()
+                 if k.endswith(("running_mean", "running_var"))}
+        result[name] = (out.detach().double().cpu(), grads, stats)
+        del model, out
+    (out_c, g_c, st_c), (out_g, g_g, st_g), (_, g_64, _) = (
+        result["cpu"], result["card"], result["card_f64"])
+
+    def rel(a, b, scale=None):
+        return (a - b).abs().max().item() / (scale or max(b.abs().max().item(), 1e-30))
+
+    def cos(a, b):
+        return F.cosine_similarity(a.flatten(), b.flatten(), dim=0).item()
+
+    g_scale = max(g.abs().max().item() for g in g_64.values())
+    row = {"out": rel(out_g, out_c), "running_stats": max(rel(st_g[k], st_c[k]) for k in st_c),
+           "grads_cos_min": min(cos(g_g[n], g_c[n]) for n in g_c if g_c[n].abs().max() > 0),
+           "grads_cos_flat": cos(torch.cat([g.flatten() for g in g_g.values()]),
+                                 torch.cat([g.flatten() for g in g_c.values()])),
+           "grads_card_vs_cpu": max(rel(g_g[n], g_c[n], g_scale) for n in g_c),
+           "grads_card_f32_vs_f64": max(rel(g_g[n], g_64[n], g_scale) for n in g_c),
+           "grads_cpu_f32_vs_card_f64": max(rel(g_c[n], g_64[n], g_scale) for n in g_c)}
+    del result
+    torch.cuda.empty_cache()
+    model = resnet50(dtype=torch.bfloat16, generator=torch.Generator().manual_seed(SEED)).cuda()
+    big = torch.randn(256, 224, 224, 3, device="cuda", dtype=torch.bfloat16)
+    with torch.no_grad():
+        model.eval()
+        row["bf16_forward_imgs_per_s"] = _rate(lambda: model(big), 256, 5)
+    if not (max(row["out"], row["running_stats"]) <= 1e-3 and row["grads_cos_min"] >= 0.99
+            and row["grads_cos_flat"] >= 0.999):
+        raise AssertionError(f"plain ResNet-50 step on the card disagrees with the CPU: {row}")
+    del model, big
+    torch.cuda.empty_cache()
+    return row
+
+
+def _leaves_linear_probe():
+    """linear_probe on a CelebA-size synthetic table (162,770 x 1024, 2
+    epochs) on the card against the CPU; one epoch under the sync check,
+    its rows per second; then adapted_embeddings of the table."""
+    import numpy as np
+    import torch
+
+    from debiasing_multi_modal_tpu_torch.data.samplers import epoch_plan
+    from debiasing_multi_modal_tpu_torch.models.adapter import AdapterMLP
+    from debiasing_multi_modal_tpu_torch.train import linear_eval
+    from debiasing_multi_modal_tpu_torch.utils.staging import upload
+    from debiasing_multi_modal_tpu_torch.viz.analysis import adapted_embeddings
+
+    rng = np.random.default_rng(SEED + 15)
+    n, d = 162770, 1024
+    labels = rng.integers(0, 2, n)
+    feats = (rng.standard_normal((n, d)) + 0.1 * labels[:, None]).astype(np.float32)
+    kw = dict(epochs=2, batch_size=256, learning_rate=0.1)
+    (w_c, acc_c), cpu_s = _host_timed(lambda: linear_eval.linear_probe(feats, labels,
+                                                                        device="cpu", **kw))
+    (w_g, acc_g), card_s = _host_timed(lambda: linear_eval.linear_probe(feats, labels,
+                                                                         device="cuda", **kw))
+    scale = max(np.abs(w_c["w"]).max(), np.abs(w_c["b"]).max())
+    row = {"params_err": float(max(np.abs(w_g[k] - w_c[k]).max() for k in w_c) / scale),
+           "acc_card": acc_g, "acc_cpu": acc_c, "card_s": card_s, "cpu_s": cpu_s}
+    # one epoch alone under the sync check, timed
+    dev = torch.device("cuda")
+    params = {"w": torch.zeros(d, 2, device=dev, requires_grad=True),
+              "b": torch.zeros(2, device=dev, requires_grad=True)}
+    trace = {k: torch.zeros_like(v) for k, v in params.items()}
+    table, labs = upload(feats, dev), upload(labels.astype(np.int64), dev)
+    plan = epoch_plan(n, 256, shuffle=True, rng=np.random.default_rng(0))
+    lrs = np.full(plan.num_batches, 0.1, np.float32)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with no_host_sync():
+        idx, mask = upload(plan.indices.astype(np.int64), dev), upload(plan.mask, dev)
+        linear_eval._linear_epoch(params, trace, table, labs, idx, mask, lrs,
+                                  momentum=0.9, weight_decay=0.0)
+    torch.cuda.synchronize()
+    row["epoch_s"] = time.perf_counter() - t
+    row["rows_per_s"] = n / row["epoch_s"]
+    if not (row["params_err"] <= 1e-4 and abs(acc_g - acc_c) <= 5e-3):
+        raise AssertionError(f"linear_probe on the card disagrees with the CPU: {row}")
+    adapter = AdapterMLP(d, 128, generator=torch.Generator().manual_seed(SEED))
+    with torch.no_grad():  # non-trivial running statistics
+        bn = adapter.layers[1]
+        bn.running_mean.copy_(torch.randn(128, generator=torch.Generator().manual_seed(1)))
+        bn.running_var.uniform_(0.5, 1.5, generator=torch.Generator().manual_seed(2))
+    ref = adapted_embeddings(adapter, None, None, feats[:32768], batch_size=4096)
+    got = adapted_embeddings(adapter.cuda(), None, None, feats[:32768], batch_size=4096)
+    row["adapted_rel_err"] = float(np.abs(got - ref).max() / np.abs(ref).max())
+    if row["adapted_rel_err"] > 1e-5:
+        raise AssertionError(f"adapted_embeddings on the card disagrees with the CPU: {row}")
+    return row
+
+
+def _leaves_zoo():
+    """zoo.load of a seeded ViT-B/32 archive written by
+    save_jit_state_dict_archive: its encode equals clip_from_state_dict's."""
+    import torch
+
+    from debiasing_multi_modal_tpu_torch.models import create_clip
+    from debiasing_multi_modal_tpu_torch.weights import convert, zoo
+
+    model = create_clip("ViT-B/32", device="cpu", generator=torch.Generator().manual_seed(SEED))
+    sd = {k: v.numpy() for k, v in model.state_dict().items()}
+    del model
+    images = torch.randn(16, 224, 224, 3, generator=torch.Generator().manual_seed(SEED),
+                         device="cpu").cuda()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "vit_b32.pt")
+        _, write_s = _host_timed(lambda: convert.save_jit_state_dict_archive(sd, path))
+        size_mb = os.path.getsize(path) / 2 ** 20
+        loaded, load_s = _host_timed(lambda: zoo.load(path, device="cuda"))
+    direct = convert.clip_from_state_dict(sd, device="cuda")
+    with torch.no_grad():
+        equal = bool(torch.equal(loaded.encode_image(images), direct.encode_image(images)))
+    row = {"archive_mb": size_mb, "write_s": write_s, "load_s": load_s,
+           "encode_equal": equal, "keys": len(sd)}
+    del loaded, direct
+    torch.cuda.empty_cache()
+    if not equal:
+        raise AssertionError(f"zoo.load's model differs from clip_from_state_dict's: {row}")
+    return row
+
+
+def _host_timed(fn):
+    """(result, host seconds) of ``fn``."""
+    t = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t
+
+
+def phase_leaves():
+    """The side modules on the card against the CPU (see the module
+    docstring); every kernel count stays 0."""
+    t0 = time.perf_counter()
+    _zero_counts()
+    rows = {"entry": _leaves_entry(), "augment": _leaves_augment(),
+            "resnet_plain": _leaves_resnet(), "linear_probe": _leaves_linear_probe()}
+    launches = _read_counts()
+    _expect_counts("leaves", launches, {})
+    # after the counts: the check's ViT-B/32 encodes run kernel 1, zoo.load none
+    rows["zoo"] = _leaves_zoo()
+    emit({"phase": "leaves", **rows, "launches": launches,
+          "seconds": time.perf_counter() - t0})
+    return {"leaves": launches}
 
 
 F32_DESIGN = ("f32 on the CUDA cores from register tiles (attention_f32.cuh: 16x16 threads, "
@@ -2879,7 +3216,7 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--only", choices=["flash_f32", "qtiled_bf16", "rn50_blocks",
                                            "stage_b", "contrastive", "sweep", "native_json",
-                                           "parallel"],
+                                           "parallel", "leaves"],
                         help="flash_f32: build, then only the timed f32 cases of kernels 4-6 "
                              "and the f32 128-pair training step; qtiled_bf16: build, then "
                              "only bf16 kernel 2's cases (timed at S=1025 beside SDPA); "
@@ -2887,7 +3224,8 @@ def main(argv=None):
                              "rn50_blocks phase (kernels 8-9, bf16 and f32); each times "
                              "another tree's kernels with this script; "
                              "stage_b, contrastive, sweep, native_json: only that phase (no "
-                             "kernel to build); parallel: build, then only that phase; none "
+                             "kernel to build); parallel: build, then only that phase; "
+                             "leaves: only the side modules (no kernel runs); none "
                              "prints the final line")
     args = parser.parse_args(argv)
     t0 = time.perf_counter()
@@ -2907,9 +3245,10 @@ def main(argv=None):
         _qtiled_bf16_cases(torch.Generator(device="cuda").manual_seed(SEED))
         emit({"phase": "summary", "only": args.only, "seconds": time.perf_counter() - t0})
         return 0
-    if args.only in ("stage_b", "contrastive", "sweep", "native_json"):
+    if args.only in ("stage_b", "contrastive", "sweep", "native_json", "leaves"):
         {"stage_b": phase_stage_b, "contrastive": phase_contrastive,
-         "sweep": phase_sweep, "native_json": phase_native_json}[args.only]()
+         "sweep": phase_sweep, "native_json": phase_native_json,
+         "leaves": phase_leaves}[args.only]()
         emit({"phase": "summary", "only": args.only, "seconds": time.perf_counter() - t0})
         return 0
     if args.only == "parallel":
@@ -2946,6 +3285,7 @@ def main(argv=None):
     launches.update(parallel_launches)
     for name, rows in shard_cases.items():
         cases[name] += rows
+    launches.update(phase_leaves())
     emit({"phase": "summary", "seconds": time.perf_counter() - t0})
     card = info["nvidia_smi"]
     emit({"kernels": [

@@ -40,15 +40,16 @@ def _causal_add(sl: int, idx: int, src: int, device) -> torch.Tensor:
     return torch.where(keep, 0.0, _NEG_INF)[None, None]
 
 
-def _rotate(tensors, group):
-    """Every tensor one hop around the ring: sent to the next rank, replaced
-    by the previous rank's."""
+def _rotate(tensors, group, step: int = 1):
+    """Every tensor one hop around the ring: sent to the next rank (the
+    previous one for ``step=-1``), replaced by the previous rank's (the
+    next one's)."""
     n = dist.get_world_size(group)
     if n == 1:
         return list(tensors)
     rank = dist.get_rank(group)
-    nxt = dist.get_global_rank(group, (rank + 1) % n)
-    prv = dist.get_global_rank(group, (rank - 1) % n)
+    nxt = dist.get_global_rank(group, (rank + step) % n)
+    prv = dist.get_global_rank(group, (rank - step) % n)
     outs = [torch.empty_like(t) for t in tensors]
     ops = []
     for t, o in zip(tensors, outs):

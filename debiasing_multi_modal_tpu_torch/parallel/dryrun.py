@@ -3,8 +3,7 @@
 
 :func:`dryrun_multichip` runs, on ``n`` ranks started by
 ``parallel/multihost.launch`` (gloo CPU processes, or one rank per card on
-NCCL), the checks of the JAX dry run but its pipeline stage
-(``parallel/pp.py`` is not ported yet):
+NCCL), the checks of the JAX dry run:
 
 - one epoch of two adapter SGD steps on a dp x tp mesh (tp = 2 when n is
   even and at least 4): rows over ``data``, and over ``model`` fc1
@@ -18,7 +17,11 @@ NCCL), the checks of the JAX dry run but its pipeline stage
   unsharded stacked sweep;
 - kernel 1 and kernel 4's forward on each rank's own rows of a batch (no
   gather of q, k, v), kernel 1 within 2e-5 of its plain version;
-- ring and Ulysses attention over all ranks, equal to plain attention.
+- ring and Ulysses attention over all ranks, equal to plain attention;
+- a tiny text tower's 4-layer stack pipelined over 4 stages (2 when n is
+  even but not a multiple of 4) with the rest of the ranks on ``data``, or
+  over dp x pp 2 x tp 2 x sp 2 when n is a multiple of 8, with GPipe
+  microbatches, equal to the sequential stack (``parallel/pp.py``).
 
 Every check raises on a mismatch; each rank returns what it checked.
 """
@@ -236,6 +239,47 @@ def _sequence_parallel(data_mesh, n, device) -> List[str]:
     return ["ring attention", "ulysses attention"]
 
 
+def _pipeline(n, device) -> List[str]:
+    from debiasing_multi_modal_tpu_torch.models import create_clip
+    from debiasing_multi_modal_tpu_torch.models.config import CLIPConfig
+    from debiasing_multi_modal_tpu_torch.parallel.mesh import make_mesh
+    from debiasing_multi_modal_tpu_torch.parallel.pp import (
+        pipeline_transformer,
+        stack_block_params,
+    )
+
+    stages = 4 if n % 4 == 0 else (2 if n % 2 == 0 else 1)
+    if stages == 1:
+        return []
+    cfg = CLIPConfig(name="dryrun-pp", embed_dim=32, image_resolution=32, vision_layers=1,
+                     vision_width=128, vision_patch_size=16, transformer_width=64,
+                     transformer_heads=2, transformer_layers=4, vocab_size=128)
+    model = create_clip(cfg, dtype=torch.float32, device=device,
+                        generator=torch.Generator().manual_seed(3))
+    stacked, n_layers = stack_block_params(model.transformer)
+    four_d = n % 8 == 0
+    if four_d:  # dp x pp x tp x sp on one mesh
+        stages, tp, sp = 2, 2, 2
+        dp = n // 8
+        mesh = make_mesh((dp, stages, tp, sp), ("data", "stage", "model", "seq"),
+                         device=device.type)
+    else:
+        tp = sp = 1
+        dp = n // stages
+        mesh = make_mesh((dp, stages), ("data", "stage"), device=device.type)
+    rng = np.random.default_rng(5)
+    xs = torch.from_numpy(rng.standard_normal((4 * dp, 64, 64)).astype(np.float32)).to(device)
+    with torch.no_grad():
+        seq = model.transformer(xs)  # the text tower's stack is causal
+        piped = pipeline_transformer(stacked, xs, mesh=mesh, num_heads=2, microbatches=2,
+                                     causal=True, batch_axis="data",
+                                     model_axis="model" if four_d else None,
+                                     seq_axis="seq" if four_d else None)
+    _close(piped, seq, "pipeline parallel")
+    return [f"pipeline parallel: {n_layers} layers over {stages} stages x dp={dp} x tp={tp} "
+            f"x sp={sp} == sequential stack"]
+
+
 def dryrun_rank(device: str) -> List[str]:
     """Every check on this rank of the launched world."""
     import torch.distributed as dist
@@ -253,6 +297,7 @@ def dryrun_rank(device: str) -> List[str]:
     done += _sweeps(data_mesh, n, dev)
     done += _kernels_on_shards(data_mesh, n, dev)
     done += _sequence_parallel(data_mesh, n, dev)
+    done += _pipeline(n, dev)
     return done
 
 

@@ -23,6 +23,7 @@ from __future__ import annotations
 import contextlib
 import datetime
 import os
+import pickle
 import queue as queue_lib
 import shutil
 import tempfile
@@ -106,8 +107,10 @@ def global_batch(local_batch: np.ndarray, mesh, axis: str = "data",
 # ------------------------------------------------------------------ launch --
 
 
-def _child(fn, rank, world, init_method, device_type, timeout_s, args, results):
+def _child(call_path, rank, world, init_method, device_type, timeout_s, results):
     try:
+        with open(call_path, "rb") as f:
+            fn, args = pickle.load(f)
         if device_type == "cpu":
             torch.set_num_threads(1)  # n ranks share the host's cores
             backend, kwargs = "gloo", {}
@@ -130,10 +133,10 @@ def launch(fn: Callable, n: int, args: Sequence = (), device: DeviceLike = "cpu"
            timeout_s: float = DEFAULT_TIMEOUT_S) -> List[object]:
     """Run ``fn(*args)`` on ``n`` new processes, rank ``r`` of a world of
     ``n`` each, and return their results in rank order.  ``fn`` and
-    ``args`` are pickled (``fn`` by import path).  Raises ``RuntimeError``
-    with every failed rank's traceback, or when the launch outlives
-    ``timeout_s``; every child is gone when this returns or raises.  CPU
-    ranks run one intra-op thread each."""
+    ``args`` are pickled (``fn`` by import path) to a file the ranks read.
+    Raises ``RuntimeError`` with every failed rank's traceback, or when the
+    launch outlives ``timeout_s``; every child is gone when this returns or
+    raises.  CPU ranks run one intra-op thread each."""
     import torch.multiprocessing as mp
 
     dev = resolve_device(device)
@@ -144,8 +147,14 @@ def launch(fn: Callable, n: int, args: Sequence = (), device: DeviceLike = "cpu"
     results = ctx.Queue()
     tmp = tempfile.mkdtemp(prefix="dmm_launch_")
     init_method = "file://" + os.path.join(tmp, "rendezvous")
-    procs = [ctx.Process(target=_child, args=(fn, r, n, init_method, dev.type, timeout_s,
-                                              tuple(args), results))
+    # the call goes through a file: a process's spawn arguments go through a
+    # pipe, and arguments past the pipe's buffer would make each start wait
+    # for its child's interpreter, one child after another
+    call_path = os.path.join(tmp, "call.pkl")
+    with open(call_path, "wb") as f:
+        pickle.dump((fn, tuple(args)), f)
+    procs = [ctx.Process(target=_child, args=(call_path, r, n, init_method, dev.type,
+                                              timeout_s, results))
              for r in range(n)]
     deadline = time.monotonic() + timeout_s
     got, failures = {}, []

@@ -19,6 +19,8 @@ and carries the JAX package's weights across
 - a folded tree (JAX ``fold_resnet_bn``, no visual ``batch_stats``) -> conv
   ``weight`` and ``bias``, no BatchNorm keys
 
+It also writes OpenAI's archive (:func:`save_jit_state_dict_archive`),
+carries the plain ResNet across (:func:`plain_resnet_state_dict_from_jax`),
 and the Stage-B classifiers both ways
 (:func:`classifier_state_dict_from_jax_variables` and its inverse), in the
 reference's adapter key layout, and the contrastive head both ways
@@ -231,6 +233,29 @@ def _resnet(out, visual, vstats):
         _dense(out, f"visual.attnpool.{proj}", pool[proj])
 
 
+def plain_resnet_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """The JAX ``PlainResNet``'s ``{'params', 'batch_stats'}`` -> the port's
+    ``models/resnet_plain.PlainResNet`` state dict (``layer{s}_{b}`` ->
+    ``layer{s}.{b}``, ``downsample_conv`` / ``downsample_bn`` ->
+    ``downsample.0`` / ``.1``)."""
+    params, stats = variables["params"], variables["batch_stats"]
+    out: Dict[str, np.ndarray] = {}
+    _conv(out, "conv1", params["conv1"])
+    _bn(out, "bn1", params["bn1"], stats["bn1"])
+    for key in params:
+        m = re.fullmatch(r"layer(\d)_(\d+)", key)
+        if not m:
+            continue
+        t, node, st = f"layer{m.group(1)}.{m.group(2)}", params[key], stats[key]
+        for c in (1, 2, 3):
+            _conv(out, f"{t}.conv{c}", node[f"conv{c}"])
+            _bn(out, f"{t}.bn{c}", node[f"bn{c}"], st[f"bn{c}"])
+        if "downsample_conv" in node:
+            _conv(out, f"{t}.downsample.0", node["downsample_conv"])
+            _bn(out, f"{t}.downsample.1", node["downsample_bn"], st["downsample_bn"])
+    return out
+
+
 def state_dict_from_jax_variables(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
     """The JAX package's ``{'params', 'batch_stats'}`` CLIP tree (arrays of
     any array type) -> an OpenAI-layout state dict of numpy arrays."""
@@ -331,3 +356,23 @@ def jax_ca_head_from_state_dict(sd: Mapping[str, Any]) -> Dict[str, np.ndarray]:
     sd = {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v
           for k, v in sd.items()}
     return {"kernel": _f32(sd["head.weight"]).T, "bias": _f32(sd["head.bias"])}
+
+
+def save_jit_state_dict_archive(sd: Mapping[str, Any], path: str) -> None:
+    """Wrap a flat state dict in a TorchScript archive whose ``state_dict()``
+    reproduces the keys byte-for-byte — the distribution format of the
+    OpenAI checkpoints (``torch.jit.load(...).state_dict()``, reference
+    clip/clip.py:129,136).  The inverse of :func:`load_openai_checkpoint`."""
+    root = torch.nn.Module()
+    for key, val in sd.items():
+        parts = key.split(".")
+        node = root
+        for p in parts[:-1]:
+            child = getattr(node, p, None)
+            if child is None:
+                child = torch.nn.Module()
+                node.add_module(p, child)
+            node = child
+        node.register_buffer(parts[-1], torch.as_tensor(np.asarray(val)))
+    root.forward = lambda: torch.zeros(1)
+    torch.jit.trace(root, ()).save(path)

@@ -12,9 +12,10 @@
 2. Two Stage-A paths no port test ran: the CelebA layout (the extraction
    CLI's default ``--dataset``), through both packages' CLIs on one tiny
    synthetic CelebA tree, caches held to each other; and ``--checkpoint``:
-   an archive the JAX package's ``save_jit_state_dict_archive`` writes,
-   read alike by both packages, and the weights both CLIs extract with in
-   the CelebA test.
+   an archive the port's ``save_jit_state_dict_archive`` writes (the JAX
+   package's reads the same, ``tests/test_torch_leaves.py``), read alike by
+   both packages, and the weights both CLIs extract with in the CelebA
+   test.
 3. The tokenizer searches fewer places for the merges file than the JAX
    package's, by design: it searches ``$CLIP_BPE_PATH``, its own assets
    directory and ``~/.cache/clip``, and never the JAX package's absolute
@@ -115,7 +116,7 @@ def test_f32_rn50_tower_matches_cpu_on_card(card_at_defaults):
 
 
 def _archive(tmp_path):
-    from debiasing_multi_modal_tpu.weights.convert import save_jit_state_dict_archive
+    from debiasing_multi_modal_tpu_torch.weights.convert import save_jit_state_dict_archive
 
     model = create_clip(CLIPConfig(**SMALL_RN), device="cpu",
                         generator=torch.Generator().manual_seed(4))

@@ -7,9 +7,13 @@ modes — a contrastive
 gradient step through a ViT CLIP on the flash path with ``remat``, a
 two-epoch Stage-B ``train_all_epochs`` across the phase boundary with the
 second adapter, a contrastive ``train_all_epochs`` with the linear head,
-a two-seed stacked ``run_seeds``, a native clip.json write and load, and
-(on two launched gloo ranks, each checked too) a tensor-parallel extraction
-and a seed-mesh sweep imports neither ``jax`` nor anything of
+a two-seed stacked ``run_seeds``, a native clip.json write and load, a
+pipelined stack on a one-rank group, the side modules (``ops.augment``,
+``models.resnet_plain``, ``train.linear_eval``, ``weights.zoo``,
+``viz.*``, ``utils.{timing,meters}``, ``data.predictions``, ``entry``),
+and (on two launched gloo ranks, each checked too) a tensor-parallel
+extraction, a seed-mesh sweep and a two-stage pipeline imports neither
+``jax`` nor anything of
 ``debiasing_multi_modal_tpu``; importing the
 package alone imports no Triton and loads no kernel library."""
 
@@ -114,6 +118,36 @@ with tempfile.TemporaryDirectory() as tmp:
     save_embeddings(os.path.join(tmp, "clip.json"), emb_table, fmt="json")
     assert len(load_embeddings(os.path.join(tmp, "clip.json"))) == len(emb_table)
 assert ebdjson.load_embeddings_json.calls == ebdjson.save_embeddings_json.calls == 1
+from debiasing_multi_modal_tpu_torch import entry as entry_module
+from debiasing_multi_modal_tpu_torch.data import predictions
+from debiasing_multi_modal_tpu_torch.models.resnet_plain import PlainResNet
+from debiasing_multi_modal_tpu_torch.ops.augment import train_augment
+from debiasing_multi_modal_tpu_torch.parallel import multihost, pp
+from debiasing_multi_modal_tpu_torch.parallel.mesh import make_mesh
+from debiasing_multi_modal_tpu_torch.train.linear_eval import linear_probe
+from debiasing_multi_modal_tpu_torch.utils import meters, timing
+from debiasing_multi_modal_tpu_torch.viz import analysis, plots, umap_lite
+from debiasing_multi_modal_tpu_torch.weights import zoo
+assert callable(entry_module.entry) and callable(plots.plot_splits) and zoo.available_models()
+with multihost.process_group("cpu"):
+    mesh = make_mesh((1,), ("stage",), device="cpu")
+    stacked, _ = pp.stack_block_params(create_clip(vit, device="cpu").transformer)
+    assert pp.pipeline_transformer(stacked, torch.zeros(2, 8, 128), mesh=mesh, num_heads=2,
+                                   microbatches=2).shape == (2, 8, 128)
+assert train_augment(torch.Generator().manual_seed(0), torch.rand(2, 16, 16, 3),
+                     out_res=8).shape == (2, 8, 8, 3)
+with torch.no_grad():
+    assert PlainResNet((1, 1, 1, 1), width=4)(torch.zeros(2, 32, 32, 3)).shape == (2, 128)
+params, acc = linear_probe(np.eye(8, dtype=np.float32), np.arange(8) % 2, epochs=1,
+                           batch_size=4, device="cpu")
+assert params["w"].shape == (8, 2)
+assert umap_lite.UMAP(n_epochs=2).fit_transform(rng.standard_normal((12, 4))).shape == (12, 2)
+assert len(analysis.group_stats(rng.standard_normal((8, 4)), np.arange(8) % 4)) == 4
+meter = meters.AverageMeter()
+meter.update(1.0)
+assert timing.measure_upload_ms(np.zeros(4, np.uint8), device="cpu") >= 0
+with tempfile.TemporaryDirectory() as tmp:
+    predictions.save_predictions(os.path.join(tmp, "p.csv"), ["a"], [1])
 sys.path.insert(0, os.path.join(os.getcwd(), "tests"))
 import torch_parallel_worker
 from debiasing_multi_modal_tpu_torch.parallel.multihost import launch

@@ -158,7 +158,8 @@ def seed_mesh_runs(spec, flags, seeds, inits, grid, result_root):
 
 
 def isolation():
-    """A 2-rank tensor-parallel extraction and seed-mesh sweep on this rank;
+    """A 2-rank tensor-parallel extraction, seed-mesh sweep and pipelined
+    stack on this rank;
     returns the modules of jax or the JAX package that got imported."""
     from debiasing_multi_modal_tpu_torch.extract.runner import ExtractionRunner
     from debiasing_multi_modal_tpu_torch.sweep.runner import run_seeds
@@ -177,7 +178,145 @@ def isolation():
     assert len(run_seeds(TrainConfig(**flags), _bundle(dict(dim=16, n_train=64, n_val=32,
                                                             n_test=32), False),
                          [42, 32], mesh=make_mesh(device="cpu"), device="cpu")) == 2
+    from debiasing_multi_modal_tpu_torch.parallel import pp
+
+    from debiasing_multi_modal_tpu_torch.models.layers import Transformer
+
+    stacked, _ = pp.stack_block_params(Transformer(64, 2, 2))
+    stages = make_mesh((dist.get_world_size(),), ("stage",), device="cpu")
+    x = torch.zeros(2, 8, 64, requires_grad=True)
+    pp.pipeline_transformer(stacked, x, mesh=stages, num_heads=2).sum().backward()
+    assert x.grad.shape == x.shape
     return sorted(m for m in sys.modules
                   if m == "jax" or m.startswith(("jax.", "jaxlib", "flax"))
                   or m == "debiasing_multi_modal_tpu"
                   or m.startswith("debiasing_multi_modal_tpu."))
+
+
+def _pp_loss_grads(out, tgt, params, x):
+    loss = ((out - tgt) ** 2).mean()
+    leaves = list(params.values()) + [x]
+    got = torch.autograd.grad(loss, leaves)
+    return {k: g.numpy() for k, g in zip(params, got[:-1])}, got[-1].numpy()
+
+
+def pipeline_cases(sd, x, tgt, cases):
+    """For each ``(label, mesh shape, axis names, kwargs, mode)`` the
+    pipelined stack of the ``resblocks.*`` state dict ``sd`` on ``x``:
+    ``mode`` "fwd" returns the output; "grad" / "remat" also the gradients
+    of ``mean((out - tgt)**2)`` for this rank's own layers (its
+    ``shard_stage_params``, tensor-parallel slice included) and for ``x``;
+    "shard" checks that the rank holds its ``L / n`` layers alone and that
+    the run gathers no parameter.  Every rank returns its stage and model
+    coordinates beside each result."""
+    from debiasing_multi_modal_tpu_torch.parallel import pp
+    from debiasing_multi_modal_tpu_torch.parallel.mesh import axis_rank, axis_size
+
+    stacked, n_layers = pp.stack_block_params({k: torch.from_numpy(v) for k, v in sd.items()})
+    out = {}
+    for label, shape, names, kw, mode in cases:
+        mesh = make_mesh(shape, names, device="cpu")
+        coords = {axis: axis_rank(mesh, axis) for axis in names}
+        xt = torch.from_numpy(x)
+        if mode == "fwd":
+            with torch.no_grad():
+                y = pp.pipeline_transformer(stacked, xt, mesh=mesh, **kw)
+            out[label] = {"out": y.numpy(), "coords": coords}
+            continue
+        local = pp.shard_stage_params(stacked, mesh, stage_axis=kw.get("stage_axis", "stage"),
+                                      model_axis=kw.get("model_axis"))
+        if mode == "shard":
+            calls = []
+            real = dist.all_gather, dist.all_gather_into_tensor, dist.batch_isend_irecv
+
+            def count(fn, name):
+                def wrapped(*a, **k):
+                    calls.append(name)
+                    return fn(*a, **k)
+                return wrapped
+
+            dist.all_gather = count(real[0], "all_gather")
+            dist.all_gather_into_tensor = count(real[1], "all_gather_into_tensor")
+            dist.batch_isend_irecv = count(real[2], "batch_isend_irecv")
+            try:
+                with torch.no_grad():
+                    y = pp.pipeline_transformer(local, xt, mesh=mesh, **kw)
+            finally:
+                dist.all_gather, dist.all_gather_into_tensor, dist.batch_isend_irecv = real
+            per = n_layers // axis_size(mesh, "stage")
+            stage = coords["stage"]
+            out[label] = {"out": y.numpy(), "coords": coords,
+                          "local_layers": {k: int(v.shape[0]) for k, v in local.items()},
+                          "local_equal": all(
+                              torch.equal(v, stacked[k][stage * per:(stage + 1) * per])
+                              for k, v in local.items()),
+                          "calls": sorted(set(calls)), "n_sends": calls.count("batch_isend_irecv")}
+            continue
+        params = {k: v.requires_grad_() for k, v in local.items()}
+        xg = xt.clone().requires_grad_()
+        y = pp.pipeline_transformer(local, xg, mesh=mesh, remat=(mode == "remat"), **kw)
+        grads, gx = _pp_loss_grads(y, torch.from_numpy(tgt), params, xg)
+        out[label] = {"out": y.detach().numpy(), "grads": grads, "x_grad": gx, "coords": coords}
+    return out
+
+
+def pipeline_errors(sd, x, cases):
+    """For each ``(mesh shape, axis names, kwargs)``: the message of the
+    ``ValueError`` ``pipeline_transformer`` raises (before any collective)."""
+    from debiasing_multi_modal_tpu_torch.parallel import pp
+
+    stacked, _ = pp.stack_block_params({k: torch.from_numpy(v) for k, v in sd.items()})
+    out = []
+    for shape, names, kw in cases:
+        mesh = make_mesh(shape, names, device="cpu")
+        kw = dict(kw)
+        layers = kw.pop("layers", None)
+        st = stacked if layers is None else {k: v[:layers] for k, v in stacked.items()}
+        xs = torch.from_numpy(x)[:, :kw.pop("seq_len")] if "seq_len" in kw else torch.from_numpy(x)
+        try:
+            pp.pipeline_transformer(st, xs, mesh=mesh, **kw)
+            out.append(None)
+        except ValueError as e:
+            out.append(str(e))
+    return out
+
+
+def pipelined_encode_cases(cfg_kwargs, sd, images, ids, cases):
+    """For each ``(label, mesh shape, axis names, dtype name, kwargs)``: the
+    pipelined ViT and text encodes of a CLIP built from ``sd`` beside the
+    model's own ``encode_image`` / ``encode_text``, and the ViT encode from
+    a pre-stacked ``stacked=``."""
+    from debiasing_multi_modal_tpu_torch.parallel import pp
+
+    out = {}
+    for label, shape, names, dtype, kw in cases:
+        model = create_clip(CLIPConfig(**cfg_kwargs), dtype=getattr(torch, dtype), device="cpu")
+        model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
+        mesh = make_mesh(shape, names, device="cpu")
+        imgs, toks = torch.from_numpy(images), torch.from_numpy(ids)
+        with torch.no_grad():
+            vit = pp.pipelined_vit_encode(model, None, imgs, mesh=mesh, **kw)
+            text = pp.pipelined_text_encode(model, None, toks, mesh=mesh, **kw)
+            pre, _ = pp.stack_block_params(model.visual.transformer)
+            vit_pre = pp.pipelined_vit_encode(model, sd, imgs, mesh=mesh, stacked=pre, **kw)
+            out[label] = {"vit": vit.float().numpy(), "text": text.float().numpy(),
+                          "vit_pre": vit_pre.float().numpy(), "dtype": str(vit.dtype),
+                          "ref_vit": model.encode_image(imgs).float().numpy(),
+                          "ref_text": model.encode_text(toks).float().numpy()}
+    return out
+
+
+def pipeline_suite(sd, x, tgt, cases, errors=(), towers=None):
+    """:func:`pipeline_cases`, then :func:`pipeline_errors` and, with
+    ``towers = (cfg_kwargs, sd, images, ids, cases)``,
+    :func:`pipelined_encode_cases`, in one launch."""
+    import time
+
+    t0 = time.perf_counter()
+    out = {"cases": pipeline_cases(sd, x, tgt, cases)}
+    t1 = time.perf_counter()
+    out["errors"] = pipeline_errors(sd, x, errors)
+    t2 = time.perf_counter()
+    out["towers"] = pipelined_encode_cases(*towers) if towers is not None else None
+    out["seconds"] = (t1 - t0, t2 - t1, time.perf_counter() - t2)
+    return out
