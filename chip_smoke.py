@@ -14,6 +14,7 @@
     python3 chip_smoke.py --only native_json # the native clip.json parser alone
     python3 chip_smoke.py --only parallel    # the world-size-1 parallel paths alone
     python3 chip_smoke.py --only leaves      # the side modules alone
+    python3 chip_smoke.py --only reproduce   # the reproduction chain alone
 
 Phases, in order, each printing one JSON line per case; any failure raises
 and exits nonzero, and only a run where every phase passed prints the final
@@ -231,7 +232,22 @@ line.
              a seeded ViT-B/32 archive written by save_jit_state_dict_archive
              (its encode equal to clip_from_state_dict's; kernel 1 runs in
              these encodes).
-16. summary — the wall seconds, one {"kernels": [...]} line, the card line, and
+16. reproduce — the reproduction chain (scripts/reproduce_all_torch.sh) on the
+             card at RN50's full widths: the synthetic fixture
+             (scripts/make_synthetic_fixture.py --skip_checkpoint, 64 images a
+             split) and a seeded RN50 checkpoint
+             (scripts/make_synthetic_checkpoint_torch.py --geometry RN50),
+             a synthetic merges file, then the chain with REPRO_DEVICE=cuda,
+             no ablations and 3-epoch one-seed sweeps over the real grids,
+             each grid stacked into one program:
+             both extractions (kernel 1: 12 launches per text encode, read
+             from each extract_main's "kernel launches" line; no other
+             kernel), both headline CSVs, the tables and the structural
+             check.  The card's Stage-A caches are held to extract_main
+             --device cpu on the same fixture and checkpoint (predictions
+             >= 99 % equal, image embeddings and text JSONs cosine >= 0.999
+             per row).  Each stage's wall seconds and the chain's.
+17. summary — the wall seconds, one {"kernels": [...]} line, the card line, and
              {"ok": true, "device": {...}} as the last line.
 """
 
@@ -889,21 +905,9 @@ def _tokens(n, rng):
 
 
 def _counters():
-    from debiasing_multi_modal_tpu_torch.ops import conv_gemm as cg
-    from debiasing_multi_modal_tpu_torch.ops import flash_attention as fa
-    from debiasing_multi_modal_tpu_torch.ops import fused_bottleneck as fb
-    from debiasing_multi_modal_tpu_torch.ops import quant_gemm as qg
-    from debiasing_multi_modal_tpu_torch.ops import short_attention as sa
+    from debiasing_multi_modal_tpu_torch.ops import kernel_wrappers
 
-    return {"short_attention": sa.short_attention,
-            "short_attention_qtiled": sa.short_attention_qtiled,
-            "short_attention_packed": sa.short_attention_packed,
-            "int8_matmul": qg.int8_matmul,
-            "flash_attention": fa.flash_attention,
-            "flash_attention_dq": fa.flash_attention_dq,
-            "flash_attention_dkv": fa.flash_attention_dkv,
-            "fused_bottleneck_gemm": cg.fused_bottleneck_gemm,
-            "fused_bottleneck": fb.fused_bottleneck}
+    return kernel_wrappers()
 
 
 def _zero_counts():
@@ -3145,6 +3149,133 @@ def phase_leaves():
     return {"leaves": launches}
 
 
+# the mini chain's sweep flags: 3 epochs, one seed, the real grids, each grid
+# stacked into one program (the stacked CSVs are the per-cell path's bytes)
+REPRO_SWEEP = ("--epochs 3 --epochs_feature_learning 1 --num_iter 1 --random_seeds 42 "
+               "--stack_lr_axis --stack_bsr_axis --stack_bs_axis")
+REPRO_N_PER_SPLIT = 64
+
+
+def _run_checked(cmd, env=None, timeout=600):
+    proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                          capture_output=True, text=True, timeout=timeout)
+    if proc.returncode:
+        raise AssertionError(f"{cmd[:3]} exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def _cache_gaps(card_dir, cpu_dir):
+    """The card's Stage-A cache against the CPU's: predictions equal share,
+    least per-row cosine of the image embeddings and of each text JSON."""
+    import numpy as np
+
+    card, cpu = (np.load(os.path.join(d, "RN50", "clip.npz")) for d in (card_dir, cpu_dir))
+    for key in ("filenames", "y", "place", "group", "split"):
+        if not np.array_equal(card[key], cpu[key]):
+            raise AssertionError(f"reproduce: the caches' {key} differ")
+    text = {}
+    for kind in ("class", "spurious", "group"):
+        rows = []
+        for d in (card_dir, cpu_dir):
+            with open(os.path.join(d, f"clip_{kind}.json")) as f:
+                rows.append(np.array(list(json.load(f).values()), np.float32))
+        text[kind] = _cos_min(*rows)
+    return {"rows": int(len(cpu["y"])),
+            "pred_equal": float((card["y_pred"] == cpu["y_pred"]).mean()),
+            "image_cos_min": _cos_min(card["embeddings"], cpu["embeddings"]),
+            "text_cos_min": text}
+
+
+def phase_reproduce():
+    """The reproduction chain on the card (see the module docstring); returns
+    the kernel launches the chain's processes made."""
+    import shutil
+
+    from debiasing_multi_modal_tpu_torch.cli import extract_main
+    from debiasing_multi_modal_tpu_torch.tokenizer import bpe
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_reproduce_")
+    root, results = os.path.join(tmp, "assets"), os.path.join(tmp, "results")
+    merges = os.path.join(tmp, "bpe_simple_vocab_16e6.txt.gz")
+    seconds = {}
+    try:
+        t = time.perf_counter()
+        _run_checked([sys.executable, "scripts/make_synthetic_fixture.py", root,
+                      "--skip_checkpoint", "--n_per_split", str(REPRO_N_PER_SPLIT)])
+        _run_checked([sys.executable, "scripts/make_synthetic_checkpoint_torch.py", root,
+                      "--geometry", "RN50"])
+        bpe.write_synthetic_merges(merges)
+        seconds["fixture"] = time.perf_counter() - t
+        env = dict(os.environ, CLIP_BPE_PATH=merges, REPRO_DATA_ROOT=root,
+                   REPRO_RESULT_ROOT=results, REPRO_CKPT=os.path.join(root, "RN50.pt"),
+                   REPRO_DEVICE="cuda", REPRO_EXTRACT_ARGS="--batch_size 64",
+                   REPRO_SWEEP_ARGS=REPRO_SWEEP, REPRO_CHECK_ARGS="--structural",
+                   REPRO_ABLATIONS="0")
+        t = time.perf_counter()
+        out = _run_checked(["bash", "scripts/reproduce_all_torch.sh"], env=env, timeout=900)
+        seconds["chain_host_clock"] = time.perf_counter() - t
+        for line in out.splitlines():
+            if m := re.match(r"stage (\w+): (\d+) ms$", line):
+                seconds[m.group(1)] = int(m.group(2)) / 1e3
+        per_process = [json.loads(line.split(":", 1)[1]) for line in out.splitlines()
+                       if line.startswith("kernel launches:")]
+        # extract_main's own per-split rate on the card, host clock
+        card_imgs_per_s = [float(m.group(1)) for m in
+                           re.finditer(r"^\w+: \d+ images in [\d.]+s \((\d+) imgs/s\)$", out,
+                                       re.MULTILINE)]
+        if len(per_process) != 2:
+            raise AssertionError(f"reproduce: {len(per_process)} extract_main launch lines")
+        launches = {name: sum(p["launches"][name] for p in per_process) for name in _counters()}
+        for p in per_process:
+            _expect_counts("reproduce extract_main", p["launches"],
+                           {"short_attention": 12 * p["text_encodes"]})
+        for cell in ("ds_waterbirds_tl_adapter_reg_seq_alter_bs_1024_lr_1.0_lrr1.0_bsr256_"
+                     "MA+rn.csv",
+                     "ds_celeba_tl_adapter_reg_seq_alter_bs_1024_lr_0.1_lrr1.0_bsr4_balval_"
+                     "MA+rn.csv"):
+            with open(os.path.join(results, cell)) as f:
+                if "worst_acc" not in f.read():
+                    raise AssertionError(f"reproduce: {cell} lacks worst_acc")
+        if "structural check only" not in out:
+            raise AssertionError("reproduce: check_vs_baseline did not run its structural check")
+
+        # the same extract_main on the CPU, in this process (f32)
+        t = time.perf_counter()
+        old = os.environ.get("CLIP_BPE_PATH")
+        os.environ["CLIP_BPE_PATH"] = merges
+        bpe.default_tokenizer.cache_clear()
+        try:
+            for dataset in ("celeba", "waterbirds"):
+                extract_main.main(extract_main.build_parser().parse_args([
+                    "--data_dir", root, "--dataset", dataset, "--embedding_dir", "emb_cpu",
+                    "--save", "--split", "all", "--backbone", "RN50", "--batch_size", "64",
+                    "--checkpoint", os.path.join(root, "RN50.pt"), "--device", "cpu"]))
+        finally:
+            if old is None:
+                os.environ.pop("CLIP_BPE_PATH")
+            else:
+                os.environ["CLIP_BPE_PATH"] = old
+            bpe.default_tokenizer.cache_clear()
+        seconds["extract_cpu"] = time.perf_counter() - t
+        gaps = {ds: _cache_gaps(os.path.join(root, "embeddings_unnormalized", ds),
+                                os.path.join(root, "emb_cpu", ds))
+                for ds in ("waterbirds", "celeba")}
+        for ds, g in gaps.items():
+            if not (g["pred_equal"] >= 0.99 and g["image_cos_min"] >= 0.999
+                    and min(g["text_cos_min"].values()) >= 0.999):
+                raise AssertionError(f"reproduce: the card's {ds} cache against the CPU's: {g}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "reproduce", "geometry": "RN50", "images_per_split": REPRO_N_PER_SPLIT,
+          "sweep_args": REPRO_SWEEP, "seconds": seconds,
+          "card_imgs_per_s_by_split": card_imgs_per_s, "cache_vs_cpu": gaps,
+          "launches": launches, "text_encodes": sum(p["text_encodes"] for p in per_process),
+          "phase_seconds": time.perf_counter() - t_phase})
+    return {"reproduce": launches}
+
+
 F32_DESIGN = ("f32 on the CUDA cores from register tiles (attention_f32.cuh: 16x16 threads, "
               "4x8 logits and 4x4 outputs a thread at 64 query rows, 16-byte cp.async into "
               "swizzled shared memory, warp-per-row exact softmax)")
@@ -3216,7 +3347,7 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--only", choices=["flash_f32", "qtiled_bf16", "rn50_blocks",
                                            "stage_b", "contrastive", "sweep", "native_json",
-                                           "parallel", "leaves"],
+                                           "parallel", "leaves", "reproduce"],
                         help="flash_f32: build, then only the timed f32 cases of kernels 4-6 "
                              "and the f32 128-pair training step; qtiled_bf16: build, then "
                              "only bf16 kernel 2's cases (timed at S=1025 beside SDPA); "
@@ -3225,7 +3356,8 @@ def main(argv=None):
                              "another tree's kernels with this script; "
                              "stage_b, contrastive, sweep, native_json: only that phase (no "
                              "kernel to build); parallel: build, then only that phase; "
-                             "leaves: only the side modules (no kernel runs); none "
+                             "leaves: only the side modules (no kernel runs); reproduce: "
+                             "build, then only the reproduction chain; none "
                              "prints the final line")
     args = parser.parse_args(argv)
     t0 = time.perf_counter()
@@ -3251,9 +3383,9 @@ def main(argv=None):
          "leaves": phase_leaves}[args.only]()
         emit({"phase": "summary", "only": args.only, "seconds": time.perf_counter() - t0})
         return 0
-    if args.only == "parallel":
+    if args.only in ("parallel", "reproduce"):
         phase_build(check=False)
-        phase_parallel()
+        {"parallel": phase_parallel, "reproduce": phase_reproduce}[args.only]()
         emit({"phase": "summary", "only": args.only, "seconds": time.perf_counter() - t0})
         return 0
     if args.only == "rn50_blocks":
@@ -3286,6 +3418,7 @@ def main(argv=None):
     for name, rows in shard_cases.items():
         cases[name] += rows
     launches.update(phase_leaves())
+    launches.update(phase_reproduce())
     emit({"phase": "summary", "seconds": time.perf_counter() - t0})
     card = info["nvidia_smi"]
     emit({"kernels": [

@@ -12,7 +12,9 @@ plain integer product) or ``int8_pallas`` (kernel 7) quantizes the ViT image
 tower's Dense GEMMs and raises ``ValueError`` on a ResNet, as the JAX CLI
 refuses it.  ``--fuse_bn`` folds a ResNet's frozen BatchNorms into its
 convs (``weights/fold.py``) after loading or seeding the weights, and exits
-on a ViT.
+on a ViT.  The last line printed is ``kernel launches: {"text_encodes": 3,
+"launches": {...}}``: the prompt encodes and each kernel's launch count in
+the process.
 
 Under ``torchrun`` (one process per card) extraction is data-parallel over
 every rank, and ``--tensor_parallel N`` also shards the towers over groups
@@ -29,6 +31,7 @@ process group.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 import time
@@ -108,6 +111,7 @@ def _extract(args, mesh):
         minority_report,
     )
     from debiasing_multi_modal_tpu_torch.models import create_clip
+    from debiasing_multi_modal_tpu_torch.ops import launch_counts
     from debiasing_multi_modal_tpu_torch.parallel import multihost
     from debiasing_multi_modal_tpu_torch.templates import get_prompts
     from debiasing_multi_modal_tpu_torch.utils.platform import (
@@ -234,6 +238,9 @@ def _extract(args, mesh):
             save_embeddings(os.path.join(out_dir, "clip.npz"), merged, fmt="npz")
         print(f"dataset size: {len(merged)}")
         print("save img and pred")
+    # one line a caller can parse: how often each kernel ran in this process
+    print("kernel launches: " + json.dumps({"text_encodes": len(text),
+                                            "launches": launch_counts()}))
 
 
 def _entry():

@@ -22,7 +22,9 @@ BatchNorm follows torch ``BatchNorm1d`` semantics (biased variance to
 normalize, unbiased for the running update, momentum 0.1) with a
 row-validity mask, so the padded rows of a fixed-shape batch leave the
 statistics untouched (:class:`MaskedBatchNorm`).  Training or evaluation is
-the module's ``train()`` / ``eval()`` mode.  Everything runs in f32.  The
+the module's ``train()`` / ``eval()`` mode.  Everything runs in f32; a
+module and inputs in float64 stay in float64 (``utils/platform.at_least_f32``,
+for the dry run's identity check).  The
 JAX package's ``Precision.HIGHEST`` is set per stage, not per product: the
 callers (``train/steps.py``'s epochs, ``train/loop.zero_shot_results``) run
 under ``utils/platform.full_f32``, so the products never fall to TF32 on
@@ -46,6 +48,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from debiasing_multi_modal_tpu_torch.utils.platform import at_least_f32
 
 
 def _linear(fan_in: int, fan_out: int, generator: Optional[torch.Generator]) -> nn.Linear:
@@ -98,7 +102,7 @@ class MaskedBatchNorm(nn.Module):
         self.group = None
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x32 = x.float()
+        x32 = at_least_f32(x)
         if self.training:
             total = _group_sum(self.group)
             if mask is None and self.group is None:
@@ -120,8 +124,8 @@ class MaskedBatchNorm(nn.Module):
                 self.running_var.copy_((1 - mom) * self.running_var + mom * unbiased)
         else:
             mean, var = self.running_mean, self.running_var
-        inv = torch.rsqrt(var + self.eps) * self.weight.float()
-        out = (x32 - mean) * inv + self.bias.float()
+        inv = torch.rsqrt(var + self.eps) * at_least_f32(self.weight)
+        out = (x32 - mean) * inv + at_least_f32(self.bias)
         return out.to(x.dtype)
 
 
@@ -141,12 +145,12 @@ class AdapterMLP(nn.Module):
 
 
 def _row_normalize(x: torch.Tensor) -> torch.Tensor:
-    x32 = x.float()
+    x32 = at_least_f32(x)
     return x32 / torch.linalg.vector_norm(x32, dim=-1, keepdim=True)
 
 
 def _col_normalize(text: torch.Tensor) -> torch.Tensor:
-    t32 = text.float()
+    t32 = at_least_f32(text)
     return t32 / torch.linalg.vector_norm(t32, dim=0, keepdim=True)
 
 

@@ -8,7 +8,10 @@ NCCL), the checks of the JAX dry run:
 - one epoch of two adapter SGD steps on a dp x tp mesh (tp = 2 when n is
   even and at least 4): rows over ``data``, and over ``model`` fc1
   column-parallel, the BatchNorm split on the hidden features and fc2
-  row-parallel; parameters and meters equal to the unsharded epoch's;
+  row-parallel; in float64 the parameters equal the unsharded epoch's within
+  1e-12 of scale, and in f32 they lie as close to the float64 epoch as the
+  unsharded epoch with its sums reordered does (``_adapter_step``); the
+  meters equal the unsharded epoch's;
 - data-parallel extraction of a tiny ViT, and with ``fuse_qkv`` (the packed
   attention, kernel 3 on the card) to the same embeddings and predictions;
 - tensor-parallel extraction of the ViT and of a ResNet's attention pool,
@@ -47,11 +50,70 @@ def _close(a, b, what, tol=TOL):
     return err
 
 
-def _adapter_step(mesh, device) -> Dict[str, float]:
-    """The dp x tp adapter epoch against the unsharded one."""
+def _adapter_problem(dp: int, device, dtype):
+    """The epoch's data and its unsharded classifier, in ``dtype``."""
+    from debiasing_multi_modal_tpu_torch.models.adapter import AdapterClassifier
+
+    dim, hidden, bs, nb = 64, 32, 8 * dp, 2
+    rng = np.random.default_rng(0)
+    data = dict(
+        emb=torch.from_numpy(rng.standard_normal((bs * nb, dim))).to(device, dtype),
+        labels=torch.from_numpy(rng.integers(0, 2, bs * nb)).to(device),
+        groups=torch.from_numpy(rng.integers(0, 4, bs * nb)).to(device),
+        text=torch.from_numpy(rng.standard_normal((dim, 2))).to(device, dtype),
+        idx=torch.arange(bs * nb, device=device).reshape(nb, bs),
+        mask=torch.ones(nb, bs, dtype=torch.bool, device=device),
+        lrs=np.full(nb, 0.1, np.float32))
+    full = AdapterClassifier(dim, hidden, 0.01, generator=torch.Generator().manual_seed(0))
+    return data, full.to(device, dtype)
+
+
+def _state_of(module) -> Dict[str, torch.Tensor]:
+    named = dict(module.named_parameters())
+    named.update(module.named_buffers())
+    return named
+
+
+# the adapter's tensors indexed by its hidden units: fc1's and the
+# BatchNorm's rows, and fc2's columns
+_HIDDEN_ROWS = tuple(f"adapter.layers.{i}.{t}" for i, t in (
+    (0, "weight"), (0, "bias"), (1, "weight"), (1, "bias"), (1, "running_mean"),
+    (1, "running_var")))
+_HIDDEN_COLUMNS = "adapter.layers.3.weight"
+
+
+def _unsharded_epoch(full, data, rows=None, hidden=None):
+    """The plain epoch; ``rows`` reorders each batch's rows and ``hidden``
+    the adapter's hidden units: the same function with its sums in another
+    order.  Returns the final state in the original order, and the meters."""
+    from debiasing_multi_modal_tpu_torch.train.steps import init_train_state, ones_mask, train_epoch
+
+    module = copy.deepcopy(full)
+    if hidden is not None:
+        start = _state_of(module)
+        with torch.no_grad():
+            for name in _HIDDEN_ROWS:
+                start[name].copy_(start[name][hidden])
+            start[_HIDDEN_COLUMNS].copy_(start[_HIDDEN_COLUMNS][:, hidden])
+    idx = data["idx"] if rows is None else data["idx"][:, rows]
+    state, stats = train_epoch(init_train_state(module), data["emb"], data["labels"],
+                               data["groups"], idx, data["mask"], data["lrs"], data["text"],
+                               ones_mask(dict(module.named_parameters())))
+    out = _state_of(state.module)
+    if hidden is not None:
+        back = torch.argsort(hidden)
+        for name in _HIDDEN_ROWS:
+            out[name] = out[name][back]
+        out[_HIDDEN_COLUMNS] = out[_HIDDEN_COLUMNS][:, back]
+    return out, stats
+
+
+def _sharded_epoch(full, data, mesh, device):
+    """The dp x tp epoch; returns the state gathered to the unsharded
+    shapes, and the meters."""
     from torch import nn
 
-    from debiasing_multi_modal_tpu_torch.models.adapter import AdapterClassifier, MaskedBatchNorm
+    from debiasing_multi_modal_tpu_torch.models.adapter import MaskedBatchNorm
     from debiasing_multi_modal_tpu_torch.parallel.mesh import (
         RowShard,
         axis_group,
@@ -66,56 +128,114 @@ def _adapter_step(mesh, device) -> Dict[str, float]:
     )
     from debiasing_multi_modal_tpu_torch.train.steps import init_train_state, ones_mask, train_epoch
 
-    dp, tp = axis_size(mesh, "data"), axis_size(mesh, "model")
-    dim, hidden, bs, nb = 64, 32, 8 * dp, 2
-    rng = np.random.default_rng(0)
-    emb = torch.from_numpy(rng.standard_normal((bs * nb, dim)).astype(np.float32)).to(device)
-    labels = torch.from_numpy(rng.integers(0, 2, bs * nb)).to(device)
-    groups = torch.from_numpy(rng.integers(0, 4, bs * nb)).to(device)
-    text = torch.from_numpy(rng.standard_normal((dim, 2)).astype(np.float32)).to(device)
-    idx = torch.arange(bs * nb, device=device).reshape(nb, bs)
-    mask = torch.ones(nb, bs, dtype=torch.bool, device=device)
-    lrs = np.full(nb, 0.1, np.float32)
-    full = AdapterClassifier(dim, hidden, 0.01, generator=torch.Generator().manual_seed(0))
-    full = full.to(device)
-
+    tp, dtype = axis_size(mesh, "model"), data["emb"].dtype
+    rows, hidden = data["emb"].shape[0], full.adapter.layers[0].out_features
     # the sharded module: fc1 rows, the BatchNorm's features and fc2's
     # columns of this model rank; the input enters through Megatron's f
     local = copy.deepcopy(full)
     mlp = local.adapter
     fc1, bn, _, fc2 = mlp.layers
-    block = slice(axis_rank(mesh, "model") * hidden // tp,
-                  (axis_rank(mesh, "model") + 1) * hidden // tp)
-    small_bn = MaskedBatchNorm(hidden // tp).to(device)
+    model_group, model_rank = axis_group(mesh, "model"), axis_rank(mesh, "model")
+    block = slice(model_rank * hidden // tp, (model_rank + 1) * hidden // tp)
+    small_bn = MaskedBatchNorm(hidden // tp).to(device, dtype)
     small_bn.load_state_dict({k: (v[block] if v.dim() else v) for k, v in bn.state_dict().items()})
     mlp.layers = nn.ModuleList([
         _narrowed(fc1, block), small_bn, nn.ReLU(),
-        RowParallelLinear(fc2, block, axis_group(mesh, "model"), axis_rank(mesh, "model"),
-                          torch.float32)])
-    mlp.register_forward_pre_hook(_copy_hook(axis_group(mesh, "model")))
-
-    ref_state, ref_stats = train_epoch(init_train_state(full), emb, labels, groups, idx, mask,
-                                       lrs, text, ones_mask(dict(full.named_parameters())))
-    shard = RowShard.of(bs * nb, axis_group(mesh, "data"))
-    state, stats = train_epoch(init_train_state(local), shard.take(emb), labels, groups, idx,
-                               mask, lrs, text, ones_mask(dict(local.named_parameters())),
+        RowParallelLinear(fc2, block, model_group, model_rank, dtype)])
+    mlp.register_forward_pre_hook(_copy_hook(model_group))
+    shard = RowShard.of(rows, axis_group(mesh, "data"))
+    state, stats = train_epoch(init_train_state(local), shard.take(data["emb"]), data["labels"],
+                               data["groups"], data["idx"], data["mask"], data["lrs"],
+                               data["text"], ones_mask(dict(local.named_parameters())),
                                shard=shard)
-    model_group = axis_group(mesh, "model")
-    got = dict(state.module.named_parameters())
-    got.update(state.module.named_buffers())
-    want = dict(ref_state.module.named_parameters())
-    want.update(ref_state.module.named_buffers())
-    errs = {}
-    for name, w in want.items():
+    got = _state_of(state.module)
+    for name, want in _state_of(full).items():
         g = got[name]
         if name.endswith("layers.3.weight"):  # fc2: columns per model rank
-            g = gather_rows(g.t().contiguous(), model_group).t()
-        elif g.shape != w.shape:  # fc1 and the BatchNorm: rows per model rank
-            g = gather_rows(g.contiguous(), model_group)
-        errs[name] = _close(g, w, f"adapter dp x tp {name}", 1e-5)
+            got[name] = gather_rows(g.t().contiguous(), model_group).t()
+        elif g.shape != want.shape:  # fc1 and the BatchNorm: rows per model rank
+            got[name] = gather_rows(g.contiguous(), model_group)
+    return got, stats
+
+
+def _distance(a: Dict[str, torch.Tensor], b: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    """Max abs difference per tensor over ``b``'s scale (at least 1), in float64."""
+    out = {}
+    for name, w in b.items():
+        x, y = a[name].detach().double().cpu(), w.detach().double().cpu()
+        if x.shape != y.shape:
+            raise AssertionError(f"adapter {name}: shapes {x.shape}, {y.shape}")
+        if not torch.is_floating_point(w):
+            continue
+        out[name] = ((x - y).abs().max() / max(1.0, y.abs().max().item())).item()
+    return out
+
+
+# The float64 identity check: the sharded epoch is the unsharded one with its
+# sums in another order, so in float64 the two differ by the rounding of
+# float64 alone.  Measured on the CPU ranks: 3.5e-15 of scale at 8 ranks and
+# 8.4e-16 at 4 (``dryrun_multichip(n, device="cpu")``'s adapter line); a
+# wrong sum (a dropped shard, a doubled all-reduce) moves a parameter by
+# 1e-3 or more of scale.
+F64_LIMIT = 1e-12
+# The f32 check, derived from the f32 order noise at this very shape.  Each of
+# REORDERINGS runs the unsharded epoch with its rows and hidden units in
+# another order: the same function, every sum in another order, as sharding
+# does.  Their largest distance to the float64 epoch is the spread that order
+# alone gives in f32 (the step's temperature of 0.01 multiplies the logits'
+# rounding by 100).  The sharded epoch is one more order, so its distance to
+# float64 must lie within ORDER_FACTOR times that spread, plus F32_FLOOR, one
+# f32 ulp of scale (twice the half ulp by which storing a float64 result in
+# f32 alone moves it), for the case where the spread comes out near zero.
+# ORDER_FACTOR = 2: the sharded epoch is one more draw of this noise.  At 8
+# ranks the five unsharded draws lie 5.8e-6 to 1.98e-5 from float64 (the
+# largest 3.4 times the smallest) and the sharded one 1.61e-5; at 4 ranks
+# 6.2e-7 to 9.2e-7 and 8.1e-7.  Twice the largest draw leaves room for one
+# more draw's spread; an error in the sharded arithmetic itself is the float64
+# check's to catch.
+REORDERINGS = 4
+ORDER_FACTOR = 2.0
+F32_FLOOR = 2.0 ** -23
+
+
+def _adapter_step(mesh, device) -> Dict[str, float]:
+    """The dp x tp adapter epoch against the unsharded one: in float64
+    within :data:`F64_LIMIT`, and in f32 within the f32 order noise of the
+    unsharded epoch at this shape (see :data:`ORDER_FACTOR`).  Returns the
+    distances; the f32 meters must match within 1e-5."""
+    from debiasing_multi_modal_tpu_torch.parallel.mesh import axis_size
+
+    dp = axis_size(mesh, "data")
+    data64, full64 = _adapter_problem(dp, device, torch.float64)
+    plain64, _ = _unsharded_epoch(full64, data64)
+    sharded64, _ = _sharded_epoch(full64, data64, mesh, device)
+    f64 = max(_distance(sharded64, plain64).values())
+    if not f64 <= F64_LIMIT:
+        raise AssertionError(f"adapter dp x tp float64 epoch: {f64:.2e} of scale from the "
+                             f"unsharded one (limit {F64_LIMIT:.0e})")
+
+    data, full = _adapter_problem(dp, device, torch.float32)
+    plain, ref_stats = _unsharded_epoch(full, data)
+    sharded, stats = _sharded_epoch(full, data, mesh, device)
+    noise = [max(_distance(plain, plain64).values())]
+    gen = torch.Generator().manual_seed(7)
+    hidden = full.adapter.layers[0].out_features
+    for _ in range(REORDERINGS):
+        rows = torch.randperm(data["idx"].shape[1], generator=gen).to(device)
+        units = torch.randperm(hidden, generator=gen).to(device)
+        noise.append(max(_distance(_unsharded_epoch(full, data, rows, units)[0],
+                                   plain64).values()))
+    f32 = max(_distance(sharded, plain64).values())
+    limit = ORDER_FACTOR * max(noise) + F32_FLOOR
+    if not f32 <= limit:
+        raise AssertionError(
+            f"adapter dp x tp f32 epoch: {f32:.2e} of scale from float64, past "
+            f"{ORDER_FACTOR} x the unsharded epoch's order noise {max(noise):.2e} "
+            f"+ {F32_FLOOR:.1e} = {limit:.2e}")
     for a, b, what in zip(stats, ref_stats, ("corrects", "counts", "loss_sum", "n")):
         _close(a, b, f"adapter meters {what}", 1e-5)
-    return errs
+    return {"f64": f64, "f32": f32, "f32_unsharded": noise[0], "f32_order_noise": max(noise),
+            "f32_limit": limit, "f32_to_unsharded": max(_distance(sharded, plain).values())}
 
 
 def _tiny_clip_configs():
@@ -291,8 +411,13 @@ def dryrun_rank(device: str) -> List[str]:
     tp = 2 if n % 2 == 0 and n >= 4 else 1
     mesh = make_mesh((n // tp, tp), ("data", "model"), device=device)
     data_mesh = make_mesh((n,), ("data",), device=device)
-    done = [f"adapter dp={n // tp} x tp={tp} epoch == unsharded "
-            f"(max err {max(_adapter_step(mesh, dev).values()):.2e})"]
+    adapter = _adapter_step(mesh, dev)
+    done = [f"adapter dp={n // tp} x tp={tp} epoch == unsharded in float64 "
+            f"(within {F64_LIMIT:.0e} of scale)",
+            f"adapter dp={n // tp} x tp={tp} epoch in f32 within the order noise "
+            f"(distances to float64: {adapter['f32']:.2e} sharded, "
+            f"{adapter['f32_unsharded']:.2e} unsharded, {adapter['f32_order_noise']:.2e} "
+            f"reordered; limit {adapter['f32_limit']:.2e}; float64 {adapter['f64']:.1e})"]
     done += _extraction(mesh, data_mesh, n, dev)
     done += _sweeps(data_mesh, n, dev)
     done += _kernels_on_shards(data_mesh, n, dev)

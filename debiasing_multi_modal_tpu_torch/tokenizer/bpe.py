@@ -285,6 +285,19 @@ def _vocab_symbol_order() -> List[str]:
     return [alphabet[b] for b in printable + rest]
 
 
+def write_synthetic_merges(path: str) -> None:
+    """A stand-in merges file for tests and smoke runs, where OpenAI's is
+    not at hand: a header line and 48,894 distinct rules over pairs of byte
+    symbols, which give the full 49,408-id vocabulary.  Its token ids are
+    not CLIP's."""
+    n_merges = VOCAB_SIZE - 2 * 256 - 2
+    syms = _vocab_symbol_order()
+    merges = [rule for a in syms for b in syms
+              for rule in (f"{a} {b}", f"{a} {b}</w>")][:n_merges]
+    with gzip.open(path, "wt", encoding="utf-8") as f:
+        f.write("\n".join(["#version: synthetic"] + merges) + "\n")
+
+
 @lru_cache()
 def default_tokenizer() -> ClipTokenizer:
     return ClipTokenizer()

@@ -17,6 +17,8 @@ from typing import Optional
 
 import torch
 
+from debiasing_multi_modal_tpu_torch.utils.platform import at_least_f32
+
 
 def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                          mask: Optional[torch.Tensor] = None,
@@ -26,7 +28,7 @@ def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     count of valid rows as the divisor: under data parallelism each rank
     sums its rows' CE over the whole batch's count, and the ranks' shares
     add up to the batch's mean."""
-    logp = torch.log_softmax(logits.float(), dim=-1)
+    logp = torch.log_softmax(at_least_f32(logits), dim=-1)
     nll = -logp.gather(-1, labels.long().unsqueeze(-1)).squeeze(-1)
     if mask is None:
         return nll.mean(-1)

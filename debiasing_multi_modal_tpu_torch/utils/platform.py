@@ -30,6 +30,14 @@ def compute_dtype(device: torch.device) -> torch.dtype:
     return torch.bfloat16 if device.type == "cuda" else torch.float32
 
 
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x.float()``, except that float64 stays float64: the f32 casts of
+    Stage B (``models/adapter.py``, ``train/losses.py``) go through it, so a
+    float64 run (the dry run's identity check, ``parallel/dryrun.py``) stays
+    in float64 while every f32 result is the same bits as ``x.float()``."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def on_device(t: torch.Tensor, device: torch.device) -> bool:
     """Whether ``t`` lives on ``device`` (``cuda`` matches any card index)."""
     return t.device.type == device.type and device.index in (None, t.device.index)

@@ -324,6 +324,27 @@ def classifier_state_dict_from_jax_variables(variables: Mapping[str, Any]) -> Di
     return out
 
 
+def classifier_from_state_dict(sd: Mapping[str, Any]):
+    """A trained adapter classifier from its state dict in the reference's
+    key layout (a ``.pth`` the reference's ``final_main.py`` saves): a
+    ``MultipleAdapterClassifier`` when the ``old_cls.`` keys are there, else
+    an ``AdapterClassifier``; input and hidden widths read from the tensors,
+    loaded strictly, on the CPU, in eval mode."""
+    from debiasing_multi_modal_tpu_torch.models.adapter import (
+        AdapterClassifier,
+        MultipleAdapterClassifier,
+    )
+
+    sd = {k: torch.as_tensor(np.asarray(v.detach().cpu() if isinstance(v, torch.Tensor) else v))
+          for k, v in sd.items()}
+    multiple = "old_cls.adapter.layers.0.weight" in sd
+    hidden, dim = sd[("old_cls." if multiple else "") + "adapter.layers.0.weight"].shape
+    cls = MultipleAdapterClassifier if multiple else AdapterClassifier
+    module = cls(dim, hidden, generator=torch.Generator().manual_seed(0))
+    module.load_state_dict(sd, strict=True)
+    return module.eval()
+
+
 def jax_variables_from_classifier_state_dict(sd: Mapping[str, Any]) -> Dict[str, Any]:
     """The inverse of :func:`classifier_state_dict_from_jax_variables`: a
     port classifier's state dict (tensors or arrays) -> the JAX package's

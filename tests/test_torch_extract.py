@@ -12,7 +12,6 @@ byte symbols, which gives the full 49,408-id vocabulary.
 """
 
 import dataclasses
-import gzip
 import os
 
 import jax
@@ -45,7 +44,6 @@ SMALL_VIT = dict(
     vision_width=128, vision_patch_size=16, transformer_width=128,
     transformer_heads=2, transformer_layers=2,
 )
-N_MERGES = 49152 - 256 - 2
 
 
 def _close(ours, ref, rel=1e-4):
@@ -76,17 +74,7 @@ def vit_pair():
 
 
 def _write_merges(path):
-    syms = tbpe._vocab_symbol_order()
-    merges = []
-    for a in syms:
-        for b in syms:
-            merges += [f"{a} {b}", f"{a} {b}</w>"]
-            if len(merges) >= N_MERGES:
-                break
-        if len(merges) >= N_MERGES:
-            break
-    with gzip.open(path, "wt", encoding="utf-8") as f:
-        f.write("\n".join(["#version: synthetic"] + merges[:N_MERGES]) + "\n")
+    tbpe.write_synthetic_merges(path)
 
 
 @pytest.fixture

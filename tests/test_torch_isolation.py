@@ -210,3 +210,29 @@ def test_packaging_names_the_port_clis_and_ships_every_kernel_source():
     csrc = os.path.join(REPO, "debiasing_multi_modal_tpu_torch", "csrc")
     for name in os.listdir(csrc):
         assert any(fnmatch.fnmatch(f"csrc/{name}", p) for p in patterns), name
+
+
+PORT_SCRIPTS = r"""
+import json, runpy, sys
+for argv in (["scripts/make_synthetic_checkpoint_torch.py", sys.argv[1]],
+             ["scripts/synthetic_ablations_torch.py", "--small", "--rows", "0",
+              "--seeds", "42", "--device", "cpu"]):
+    sys.argv = argv
+    runpy.run_path(argv[0], run_name="__main__")
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "flax"))
+             or m == "debiasing_multi_modal_tpu"
+             or m.startswith("debiasing_multi_modal_tpu."))
+print(json.dumps({"bad": bad}))
+"""
+
+
+def test_port_scripts_import_nothing_of_jax(tmp_path):
+    """Two of the port's scripts, run as ``__main__`` in one fresh
+    interpreter, leave ``jax`` and the JAX package out of ``sys.modules``."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", PORT_SCRIPTS, str(tmp_path)], cwd=REPO,
+                          env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert (tmp_path / "RN50.pt").is_file()
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == {"bad": []}
