@@ -10,7 +10,9 @@ default (``--no_vmap`` falls back to the sequential loop); ``--stack_*``
 stack the grid's axes into it.  Runs on ``cuda`` unless ``--device cpu``.
 ``--seed_mesh`` shards each stacked program's rows over every rank of the
 process group (``torchrun``, one process per card; one process alone is a
-group of one); rank 0 writes the CSVs.
+group of one); rank 0 writes the CSVs.  ``--profile_dir`` writes a
+``torch.profiler`` trace of the sweep, with the sweep's spans in it
+(``utils/profiling.py``).
 
     python -m debiasing_multi_modal_tpu_torch.cli.sweep_main \\
         --tl_method adapter_reg_seq_alter --add_adapter --warm_reg \\
@@ -75,13 +77,13 @@ def main(args):
             "--save_results is not supported by sweep_main (the sweep's "
             "outputs are the per-cell CSVs under --result_root)"
         )
-    for flag in ("checkpoint_dir", "resume", "profile_dir"):
+    for flag in ("checkpoint_dir", "resume"):
         if getattr(args, flag, None):
             # inherited from the train parser but not wired through the
             # sweep: rejecting beats silently producing nothing
             raise SystemExit(
                 f"--{flag} is not supported by sweep_main (per-run "
-                "checkpoints/profiles are a train_main feature)"
+                "checkpoints are a train_main feature)"
             )
     if (args.stack_lr_axis or args.stack_bsr_axis or args.stack_bs_axis) \
             and args.no_vmap:
@@ -105,6 +107,7 @@ def _sweep(args, cfg, seeds, device, mesh):
     """The sweep itself; ``mesh`` shards the stacked rows (None: one process)."""
     from debiasing_multi_modal_tpu_torch.sweep.runner import run_sweep
     from debiasing_multi_modal_tpu_torch.train.loop import bundle_from_files
+    from debiasing_multi_modal_tpu_torch.utils.profiling import trace
 
     bundle = bundle_from_files(
         cfg.dataset,
@@ -120,24 +123,25 @@ def _sweep(args, cfg, seeds, device, mesh):
     def parse_list(s, typ):
         return [typ(v) for v in s.split(",")] if s else (None,)
 
-    out = run_sweep(
-        cfg,
-        bundle,
-        seeds,
-        lr_list=parse_list(args.lr_list, float),
-        bs_list=parse_list(args.bs_list, int),
-        bsr_list=parse_list(args.bsr_list, int),
-        lr_multiple=args.lr_multiple,
-        result_root=args.result_root,
-        use_vmap=not args.no_vmap,
-        verbose=True,
-        stack_lr_axis=args.stack_lr_axis,
-        stack_bsr_axis=args.stack_bsr_axis,
-        stack_bs_axis=args.stack_bs_axis,
-        skip_existing=args.skip_existing,
-        mesh=mesh,
-        device=device,
-    )
+    with trace(args.profile_dir or "", enabled=bool(args.profile_dir)):
+        out = run_sweep(
+            cfg,
+            bundle,
+            seeds,
+            lr_list=parse_list(args.lr_list, float),
+            bs_list=parse_list(args.bs_list, int),
+            bsr_list=parse_list(args.bsr_list, int),
+            lr_multiple=args.lr_multiple,
+            result_root=args.result_root,
+            use_vmap=not args.no_vmap,
+            verbose=True,
+            stack_lr_axis=args.stack_lr_axis,
+            stack_bsr_axis=args.stack_bsr_axis,
+            stack_bs_axis=args.stack_bs_axis,
+            skip_existing=args.skip_existing,
+            mesh=mesh,
+            device=device,
+        )
     if mesh is None or mesh.get_rank() == 0:
         for path in out:
             print("wrote", path)

@@ -46,6 +46,7 @@ from debiasing_multi_modal_tpu_torch.parallel.mesh import (
     gather_rows,
 )
 from debiasing_multi_modal_tpu_torch.tokenizer import tokenize
+from debiasing_multi_modal_tpu_torch.utils.profiling import annotate, spanned
 
 ZS_TEMPERATURE = 0.02  # clip_inference.py:124
 
@@ -125,14 +126,17 @@ class ExtractionRunner:
     @torch.inference_mode()
     def _step(self, images: torch.Tensor):
         cfg = self.model.config
-        if self.preprocessed:
-            x = normalize_only(images.float() / 255.0, cfg.dtype)
-        else:
-            x = preprocess_uint8(images, cfg.image_resolution, dtype=cfg.dtype)
-        feats32 = self.model.encode_image(x).float()
-        normed = l2_normalize(feats32)
-        logits = (normed @ self.zs_weights) / ZS_TEMPERATURE
-        preds = logits.argmax(dim=-1).to(torch.int32)
+        with annotate("extract.preprocess", device=True):
+            if self.preprocessed:
+                x = normalize_only(images.float() / 255.0, cfg.dtype)
+            else:
+                x = preprocess_uint8(images, cfg.image_resolution, dtype=cfg.dtype)
+        with annotate("extract.tower"):
+            feats32 = self.model.encode_image(x).float()
+        with annotate("extract.head"):
+            normed = l2_normalize(feats32)
+            logits = (normed @ self.zs_weights) / ZS_TEMPERATURE
+            preds = logits.argmax(dim=-1).to(torch.int32)
         return (normed if self.normalized else feats32), preds
 
     def upload_batch(self, images: np.ndarray) -> UploadedBatch:
@@ -142,19 +146,20 @@ class ExtractionRunner:
         memory on the runner's upload stream, and an event marks its end:
         the step that uses the batch waits on that event on the card, so the
         transfer overlaps whatever the compute stream is running."""
-        rows = len(images)
-        if self._data is not None:
-            _, n, rank = self._data
-            images = batch_rows(images, n, rank)
-        host = torch.from_numpy(np.ascontiguousarray(images))
-        if self.device.type != "cuda":
-            return UploadedBatch(host.to(self.device), rows)
-        host = host.pin_memory()
-        with torch.cuda.stream(self._upload_stream):
-            staged = host.to(self.device, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record(self._upload_stream)
-        return UploadedBatch(staged, rows, ready)
+        with annotate("extract.upload"):
+            rows = len(images)
+            if self._data is not None:
+                _, n, rank = self._data
+                images = batch_rows(images, n, rank)
+            host = torch.from_numpy(np.ascontiguousarray(images))
+            if self.device.type != "cuda":
+                return UploadedBatch(host.to(self.device), rows)
+            host = host.pin_memory()
+            with torch.cuda.stream(self._upload_stream):
+                staged = host.to(self.device, non_blocking=True)
+                ready = torch.cuda.Event()
+                ready.record(self._upload_stream)
+            return UploadedBatch(staged, rows, ready)
 
     def encode_batch_async(self, images):
         """Launch one batch; returns device tensors (no host sync).
@@ -162,25 +167,27 @@ class ExtractionRunner:
         Accepts a host uint8 array (uploaded here) or an
         :class:`UploadedBatch` already staged by :meth:`upload_batch`.
         """
-        if not isinstance(images, UploadedBatch):
-            images = self.upload_batch(images)
-        if images.ready is not None:
-            # the compute stream waits for the copy on the card, and the
-            # allocator keeps the batch until the compute stream is done
-            compute = torch.cuda.current_stream(self.device)
-            compute.wait_event(images.ready)
-            images.images.record_stream(compute)
-        emb, preds = self._step(images.images)
-        if self._data is not None:  # every data rank's rows, in rank order
-            group = self._data[0]
-            emb, preds = gather_rows(emb, group), gather_rows(preds, group)
-        return emb, preds, images.rows
+        with annotate("extract.enqueue"):
+            if not isinstance(images, UploadedBatch):
+                images = self.upload_batch(images)
+            if images.ready is not None:
+                # the compute stream waits for the copy on the card, and the
+                # allocator keeps the batch until the compute stream is done
+                compute = torch.cuda.current_stream(self.device)
+                compute.wait_event(images.ready)
+                images.images.record_stream(compute)
+            emb, preds = self._step(images.images)
+            if self._data is not None:  # every data rank's rows, in rank order
+                group = self._data[0]
+                emb, preds = gather_rows(emb, group), gather_rows(preds, group)
+            return emb, preds, images.rows
 
     def encode_batch(self, images: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """uint8 [B, H, W, 3] -> (embeddings [B, D] f32, preds [B] i32)."""
         emb, preds, b = self.encode_batch_async(images)
         return emb.cpu().numpy()[:b], preds.cpu().numpy()[:b]
 
+    @spanned("extract.run")
     def run(
         self,
         batches: Iterable[Tuple[np.ndarray, Dict[str, np.ndarray]]],
@@ -226,31 +233,39 @@ class ExtractionRunner:
         since_flush = 0
 
         def drain_one():
-            e, p, b = pending.pop(0)
-            embs.append(e.cpu().numpy()[:b])  # host sync = backpressure
-            preds.append(p.cpu().numpy()[:b])
+            with annotate("extract.drain"):
+                e, p, b = pending.pop(0)
+                embs.append(e.cpu().numpy()[:b])  # host sync = backpressure
+                preds.append(p.cpu().numpy()[:b])
 
         def flush_shard():
             nonlocal since_flush, embs, preds
-            while pending:
-                drain_one()
-            if not since_flush or not embs:
-                return
-            piece = {k: np.concatenate(v) for k, v in cols.items()}
-            piece["y_pred"] = np.concatenate(preds)
-            piece["embeddings"] = np.concatenate(embs)
-            if self._data is None:
-                _write_shard(shard_dir, piece, since_flush, shard_meta)
-            else:  # rank 0 writes; every rank reads the manifest after
-                if torch.distributed.get_rank() == 0:
+            with annotate("extract.shard_flush"):
+                while pending:
+                    drain_one()
+                if not since_flush or not embs:
+                    return
+                piece = {k: np.concatenate(v) for k, v in cols.items()}
+                piece["y_pred"] = np.concatenate(preds)
+                piece["embeddings"] = np.concatenate(embs)
+                if self._data is None:
                     _write_shard(shard_dir, piece, since_flush, shard_meta)
-                torch.distributed.barrier()
-            since_flush = 0
-            embs, preds = [], []
-            for k in cols:
-                cols[k].clear()
+                else:  # rank 0 writes; every rank reads the manifest after
+                    if torch.distributed.get_rank() == 0:
+                        _write_shard(shard_dir, piece, since_flush, shard_meta)
+                    torch.distributed.barrier()
+                since_flush = 0
+                embs, preds = [], []
+                for k in cols:
+                    cols[k].clear()
 
-        for images, meta in batches:
+        batches = iter(batches)
+        while True:
+            with annotate("extract.input_wait"):  # each next(), the last one finding the end
+                item = next(batches, None)
+            if item is None:
+                break
+            images, meta = item
             pending.append(self.encode_batch_async(images))
             for k in cols:
                 cols[k].append(np.asarray(meta[k]))

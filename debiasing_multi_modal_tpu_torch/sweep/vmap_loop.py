@@ -63,6 +63,7 @@ from debiasing_multi_modal_tpu_torch.train.steps import (
     train_epoch_vmapped,
 )
 from debiasing_multi_modal_tpu_torch.utils.platform import DeviceLike, resolve_device
+from debiasing_multi_modal_tpu_torch.utils.profiling import annotate, count, spanned
 from debiasing_multi_modal_tpu_torch.utils.staging import DeviceCache, upload
 
 Tree = Dict[str, torch.Tensor]
@@ -104,6 +105,7 @@ def _sub(tree: Tree, prefix: str) -> Tree:
     return {k: v for k, v in tree.items() if k.startswith(prefix)}
 
 
+@spanned("sweep.run")
 def train_seeds_vmapped(
     cfg: TrainConfig,
     bundle: DataBundle,
@@ -198,18 +200,19 @@ def train_seeds_vmapped(
         """Per-plan schedules: [nb] shared, or [S, nb_max] zero-padded when
         rows have their own configs or epoch lengths (warmup is indexed by
         the row's REAL batch count, matching its sequential run)."""
-        nbs = [p.num_batches for p in plans]
-        if row_cfgs is None and len(set(nbs)) == 1:
-            return epoch_batch_lrs(cfg, epoch, nbs[0], phase)
-        out = np.zeros((S, max(nbs)), np.float32)
-        memo = {}  # rows of one grid cell share (cfg, nb)
-        for i in range(S):
-            rc = row_cfgs[i] if row_cfgs is not None else cfg
-            row = memo.get((rc, nbs[i]))
-            if row is None:
-                row = memo[(rc, nbs[i])] = epoch_batch_lrs(rc, epoch, nbs[i], phase)
-            out[i, : nbs[i]] = row
-        return out
+        with annotate("sweep.plans"):
+            nbs = [p.num_batches for p in plans]
+            if row_cfgs is None and len(set(nbs)) == 1:
+                return epoch_batch_lrs(cfg, epoch, nbs[0], phase)
+            out = np.zeros((S, max(nbs)), np.float32)
+            memo = {}  # rows of one grid cell share (cfg, nb)
+            for i in range(S):
+                rc = row_cfgs[i] if row_cfgs is not None else cfg
+                row = memo.get((rc, nbs[i]))
+                if row is None:
+                    row = memo[(rc, nbs[i])] = epoch_batch_lrs(rc, epoch, nbs[i], phase)
+                out[i, : nbs[i]] = row
+            return out
 
     if cfg.is_reg_method:
         reg_idx, val_idx = stratified_split_indices(bundle.val.group, 0.5, seed=42)
@@ -292,185 +295,203 @@ def train_seeds_vmapped(
             got = groups64[id(split)] = (split, upload(split.group.astype(np.int64), dev))
         return got[1]
 
+    # the stacked plans' batch slots and those that hold a sample; they go
+    # to the counters once the whole call has run, so a cut sweep adds none
+    slots = [0, 0]
+
     def vm_train(st, split, labels, text, plans, lrs, mask_tree):
-        if len({p.indices.shape for p in plans}) == 1:
-            idx = np.stack([p.indices for p in plans]).astype(np.int64)
-            msk = np.stack([p.mask for p in plans])
-            act = None
-        else:  # rows of different batch sizes: pad to the longest epoch
-            idx, msk, act = _pad_stack_plans(plans)
-        return train_epoch_vmapped(
-            st, split.emb, stage(labels), grp(split), upload(idx, dev), upload(msk, dev),
-            upload(np.asarray(lrs, np.float32), dev), stage(text), mask_tree,
-            active=None if act is None else upload(act, dev), n_groups=bundle.n_groups,
-            momentum=cfg.momentum, weight_decay=cfg.weight_decay,
-        )
+        with annotate("sweep.plans"):
+            if len({p.indices.shape for p in plans}) == 1:
+                idx = np.stack([p.indices for p in plans]).astype(np.int64)
+                msk = np.stack([p.mask for p in plans])
+                act = None
+            else:  # rows of different batch sizes: pad to the longest epoch
+                idx, msk, act = _pad_stack_plans(plans)
+            slots[0] += msk.size
+            slots[1] += int(np.count_nonzero(msk))
+            args = (st, split.emb, stage(labels), grp(split), upload(idx, dev),
+                    upload(msk, dev), upload(np.asarray(lrs, np.float32), dev), stage(text),
+                    mask_tree)
+            active = None if act is None else upload(act, dev)
+        with annotate("sweep.train"):
+            return train_epoch_vmapped(*args, active=active, n_groups=bundle.n_groups,
+                                       momentum=cfg.momentum, weight_decay=cfg.weight_decay)
 
     def vm_eval(st, split, labels, text):
-        idx, msk = cached_eval_plan(eval_plans, split, eval_bs, lambda a: upload(a, dev))
-        return eval_epoch_vmapped(st, split.emb, stage(labels), grp(split), idx, msk,
-                                  stage(text), n_groups=bundle.n_groups)
+        with annotate("sweep.eval"):
+            idx, msk = cached_eval_plan(eval_plans, split, eval_bs, lambda a: upload(a, dev))
+            return eval_epoch_vmapped(st, split.emb, stage(labels), grp(split), idx, msk,
+                                      stage(text), n_groups=bundle.n_groups)
 
     def make_plans(split_len, bs, orders=None, shuffle=True):
         """``bs`` is shared (int) or per-row (list) for grid-stacked rows."""
-        plans = []
-        for i in range(S):
-            order = None if orders is None else orders[i]
-            bs_i = bs[i] if isinstance(bs, list) else bs
-            plans.append(epoch_plan(split_len, bs_i, shuffle=shuffle and order is None,
-                                    rng=rngs[i], order=order))
-        return plans
+        with annotate("sweep.plans"):
+            plans = []
+            for i in range(S):
+                order = None if orders is None else orders[i]
+                bs_i = bs[i] if isinstance(bs, list) else bs
+                plans.append(epoch_plan(split_len, bs_i, shuffle=shuffle and order is None,
+                                        rng=rngs[i], order=order))
+            return plans
 
     for epoch in range(1, cfg.epochs + 1):
-        # per-row balanced reg orders; per-row reg batch size when stacked
-        if cfg.balance_val and cfg.is_reg_method:
-            reg_orders = [balanced_subset_indices(reg_split.group, rngs[i], bundle.n_groups)
-                          for i in range(S)]
-            reg_bs = [min((row_cfgs[i] if row_cfgs is not None else cfg).batch_size_reg,
-                          len(reg_orders[i])) for i in range(S)]
-        elif reg_split is not None:
-            reg_orders = None
-            reg_bs = [(row_cfgs[i] if row_cfgs is not None else cfg).batch_size_reg
-                      for i in range(S)]
+        with annotate("sweep.epoch"):
+            # per-row balanced reg orders; per-row reg batch size when stacked
+            with annotate("sweep.plans"):
+                if cfg.balance_val and cfg.is_reg_method:
+                    reg_orders = [balanced_subset_indices(reg_split.group, rngs[i], bundle.n_groups)
+                                  for i in range(S)]
+                    reg_bs = [min((row_cfgs[i] if row_cfgs is not None else cfg).batch_size_reg,
+                                  len(reg_orders[i])) for i in range(S)]
+                elif reg_split is not None:
+                    reg_orders = None
+                    reg_bs = [(row_cfgs[i] if row_cfgs is not None else cfg).batch_size_reg
+                              for i in range(S)]
 
-        train_weighted = False
-        if cfg.tl_method == "adapter_reg":
-            plans = make_plans(len(bundle.train), train_bs)
-            state, stats = vm_train(state, bundle.train, train_labels, text_class, plans,
-                                    batch_lrs_plans(epoch, plans, 1), full_mask)
-            group_prompt = not cfg.use_cls_prompt_in_reg
-            rplans = make_plans(len(reg_split), reg_bs, orders=reg_orders)
-            state, reg_stats = vm_train(
-                state, reg_split, reg_labels_group if group_prompt else reg_labels_target,
-                text_group if group_prompt else text_class, rplans,
-                batch_lrs_plans(epoch, rplans, 1), full_mask)
-            if not group_prompt:
-                stats = stats.merge(reg_stats)
-        elif cfg.is_two_phase and epoch > feat_epochs:
-            if epoch == feat_epochs + 1:
-                if cfg.continue_from_best and (best["epoch"] > 0).any():
-                    # rows with a best snapshot load it; the rest keep their
-                    # phase-1 state (all phase-1 snapshots share one kind)
-                    has = upload(best["epoch"] > 0, dev)
-                    bp, bb = dev_best[False]
-                    state = StackedState.from_tensors(_select_rows(state.params, bp, has),
-                                                      _select_rows(state.buffers, bb, has),
-                                                      temperature)
-                if cfg.add_adapter:
-                    multiples = [make_multiple_classifier(cfg, g) for g in gens]
-                    for m, init in zip(multiples, inits):
-                        if "ma_new_sd" in init and not cfg.init_near_identity:
-                            m.new_adapter.load_state_dict(
-                                _tensors(init["ma_new_sd"], "new_adapter."))
-                    ma = StackedState.stack(multiples, dev, temperature)
-                    del multiples
-                    # the old branch (and, near identity, the new one) starts
-                    # from each row's phase-1 adapter
-                    targets = ("old_cls.adapter.", "new_adapter.") if cfg.init_near_identity \
-                        else ("old_cls.adapter.",)
-                    old = {**_sub(state.params, "adapter."), **_sub(state.buffers, "adapter.")}
-                    with torch.no_grad():
-                        for k, v in old.items():
-                            for prefix in targets:
-                                name = prefix + k[len("adapter."):]
-                                (ma.params if name in ma.params else ma.buffers)[name].copy_(v)
-                    ma_state = StackedState.from_tensors(ma.params, ma.buffers, temperature)
-                    ma_mask = freeze_subtrees(ma_state.params, ("old_cls",))
-                else:
-                    # a fresh optimizer on the same parameters (momentum reset)
-                    state = StackedState.from_tensors(state.params, state.buffers, temperature)
-
-            use_group = cfg.use_group_prompt(epoch)
-            labels2 = reg_labels_group if use_group else reg_labels_target
-            text2 = text_group if use_group else text_class
-            rplans = make_plans(len(reg_split), reg_bs, orders=reg_orders)
-            rlrs = batch_lrs_plans(epoch, rplans, 2)
-            if cfg.add_adapter:
-                ma_state, stats = vm_train(ma_state, reg_split, labels2, text2, rplans, rlrs,
-                                           ma_mask)
-            else:
-                state, stats = vm_train(state, reg_split, labels2, text2, rplans, rlrs,
-                                        full_mask)
-        elif cfg.tl_method == "contrastive_adapter":
-            # the rows' SupCon epochs: row construction and reshuffles draw
-            # from each row's rng in the sequential loop's order; the row
-            # counts depend only on the data, so the stack is regular
-            if contrastive_rows is None:
-                contrastive_rows, ca_counts = contrastive_rows_and_counts(cfg, bundle, rngs)
-            rows = np.stack([contrastive_epoch_rows(contrastive_rows[i], rngs[i],
-                                                    cfg.batch_factor) for i in range(S)])
-            enc = StackedState(
-                {**_sub(state.params, "adapter."), **(head.params if head else {})},
-                _sub(state.buffers, "adapter."),
-                {**_sub(state.trace, "adapter."), **(head.trace if head else {})})
-            train_contrastive_epoch_vmapped(
-                enc, bundle.train.emb, upload(rows, dev),
-                upload(np.asarray(batch_lrs(epoch, rows.shape[1], 1), np.float32), dev),
-                ones_mask(enc.params), num_anchor=ca_counts[0], num_positive=ca_counts[1],
-                num_negative=ca_counts[2], temperature=cfg.cl_temperature,
-                contrastive_weight=cfg.contrastive_weight, ca_pre_norm=cfg.ca_pre_norm,
-                momentum=cfg.momentum, weight_decay=cfg.weight_decay,
-            )
-            if cfg.ca_ce_update != 0:
-                # the interleaved CE pass (a whole epoch, or capped at
-                # ca_ce_update batches), each row's rng in the loop's order
-                ce_orders = None
-                if cfg.ca_ce_update > 0:
-                    ce_orders = [
-                        rngs[i].permutation(len(bundle.train))[
-                            : cfg.ca_ce_update
-                            * (train_bs[i] if isinstance(train_bs, list) else train_bs)]
-                        for i in range(S)]
-                plans = make_plans(len(bundle.train), train_bs, orders=ce_orders)
+            train_weighted = False
+            if cfg.tl_method == "adapter_reg":
+                plans = make_plans(len(bundle.train), train_bs)
                 state, stats = vm_train(state, bundle.train, train_labels, text_class, plans,
                                         batch_lrs_plans(epoch, plans, 1), full_mask)
+                group_prompt = not cfg.use_cls_prompt_in_reg
+                rplans = make_plans(len(reg_split), reg_bs, orders=reg_orders)
+                state, reg_stats = vm_train(
+                    state, reg_split, reg_labels_group if group_prompt else reg_labels_target,
+                    text_group if group_prompt else text_class, rplans,
+                    batch_lrs_plans(epoch, rplans, 1), full_mask)
+                if not group_prompt:
+                    stats = stats.merge(reg_stats)
+            elif cfg.is_two_phase and epoch > feat_epochs:
+                if epoch == feat_epochs + 1:
+                    if cfg.continue_from_best and (best["epoch"] > 0).any():
+                        # rows with a best snapshot load it; the rest keep their
+                        # phase-1 state (all phase-1 snapshots share one kind)
+                        has = upload(best["epoch"] > 0, dev)
+                        bp, bb = dev_best[False]
+                        state = StackedState.from_tensors(_select_rows(state.params, bp, has),
+                                                          _select_rows(state.buffers, bb, has),
+                                                          temperature)
+                    if cfg.add_adapter:
+                        multiples = [make_multiple_classifier(cfg, g) for g in gens]
+                        for m, init in zip(multiples, inits):
+                            if "ma_new_sd" in init and not cfg.init_near_identity:
+                                m.new_adapter.load_state_dict(
+                                    _tensors(init["ma_new_sd"], "new_adapter."))
+                        ma = StackedState.stack(multiples, dev, temperature)
+                        del multiples
+                        # the old branch (and, near identity, the new one) starts
+                        # from each row's phase-1 adapter
+                        targets = ("old_cls.adapter.", "new_adapter.") if cfg.init_near_identity \
+                            else ("old_cls.adapter.",)
+                        old = {**_sub(state.params, "adapter."), **_sub(state.buffers, "adapter.")}
+                        with torch.no_grad():
+                            for k, v in old.items():
+                                for prefix in targets:
+                                    name = prefix + k[len("adapter."):]
+                                    (ma.params if name in ma.params else ma.buffers)[name].copy_(v)
+                        ma_state = StackedState.from_tensors(ma.params, ma.buffers, temperature)
+                        ma_mask = freeze_subtrees(ma_state.params, ("old_cls",))
+                    else:
+                        # a fresh optimizer on the same parameters (momentum reset)
+                        state = StackedState.from_tensors(state.params, state.buffers, temperature)
+
+                use_group = cfg.use_group_prompt(epoch)
+                labels2 = reg_labels_group if use_group else reg_labels_target
+                text2 = text_group if use_group else text_class
+                rplans = make_plans(len(reg_split), reg_bs, orders=reg_orders)
+                rlrs = batch_lrs_plans(epoch, rplans, 2)
+                if cfg.add_adapter:
+                    ma_state, stats = vm_train(ma_state, reg_split, labels2, text2, rplans, rlrs,
+                                               ma_mask)
+                else:
+                    state, stats = vm_train(state, reg_split, labels2, text2, rplans, rlrs,
+                                            full_mask)
+            elif cfg.tl_method == "contrastive_adapter":
+                # the rows' SupCon epochs: row construction and reshuffles draw
+                # from each row's rng in the sequential loop's order; the row
+                # counts depend only on the data, so the stack is regular
+                with annotate("sweep.plans"):
+                    if contrastive_rows is None:
+                        contrastive_rows, ca_counts = contrastive_rows_and_counts(cfg, bundle, rngs)
+                    rows = np.stack([contrastive_epoch_rows(contrastive_rows[i], rngs[i],
+                                                            cfg.batch_factor) for i in range(S)])
+                    rows_dev = upload(rows, dev)
+                    lrs_dev = upload(np.asarray(batch_lrs(epoch, rows.shape[1], 1), np.float32),
+                                     dev)
+                enc = StackedState(
+                    {**_sub(state.params, "adapter."), **(head.params if head else {})},
+                    _sub(state.buffers, "adapter."),
+                    {**_sub(state.trace, "adapter."), **(head.trace if head else {})})
+                with annotate("sweep.train"):
+                    train_contrastive_epoch_vmapped(
+                        enc, bundle.train.emb, rows_dev, lrs_dev,
+                        ones_mask(enc.params), num_anchor=ca_counts[0], num_positive=ca_counts[1],
+                        num_negative=ca_counts[2], temperature=cfg.cl_temperature,
+                        contrastive_weight=cfg.contrastive_weight, ca_pre_norm=cfg.ca_pre_norm,
+                        momentum=cfg.momentum, weight_decay=cfg.weight_decay,
+                    )
+                if cfg.ca_ce_update != 0:
+                    # the interleaved CE pass (a whole epoch, or capped at
+                    # ca_ce_update batches), each row's rng in the loop's order
+                    ce_orders = None
+                    if cfg.ca_ce_update > 0:
+                        ce_orders = [
+                            rngs[i].permutation(len(bundle.train))[
+                                : cfg.ca_ce_update
+                                * (train_bs[i] if isinstance(train_bs, list) else train_bs)]
+                            for i in range(S)]
+                    plans = make_plans(len(bundle.train), train_bs, orders=ce_orders)
+                    state, stats = vm_train(state, bundle.train, train_labels, text_class, plans,
+                                            batch_lrs_plans(epoch, plans, 1), full_mask)
+                else:
+                    # pure SupCon: train metrics from the weighted zero-shot pass
+                    stats = vm_eval(state, bundle.train, train_labels, text_class)
+                    train_weighted = True
             else:
-                # pure SupCon: train metrics from the weighted zero-shot pass
-                stats = vm_eval(state, bundle.train, train_labels, text_class)
-                train_weighted = True
-        else:
-            orders = None
-            if sample_weights is not None:
-                orders = [weighted_sample_indices(sample_weights, len(bundle.train), rngs[i])
-                          for i in range(S)]
-            plans = make_plans(len(bundle.train), train_bs, orders=orders)
-            state, stats = vm_train(state, bundle.train, train_labels, text_class, plans,
-                                    batch_lrs_plans(epoch, plans, 1), full_mask)
+                orders = None
+                if sample_weights is not None:
+                    orders = [weighted_sample_indices(sample_weights, len(bundle.train), rngs[i])
+                              for i in range(S)]
+                plans = make_plans(len(bundle.train), train_bs, orders=orders)
+                state, stats = vm_train(state, bundle.train, train_labels, text_class, plans,
+                                        batch_lrs_plans(epoch, plans, 1), full_mask)
 
-        in_ma = cfg.add_adapter and cfg.is_two_phase and epoch > feat_epochs
-        cur = ma_state if in_ma else state
-        val_stats = vm_eval(cur, val_split, val_labels, text_class)
-        test_stats = vm_eval(cur, bundle.test, test_labels_cls, text_class)
-        # ONE host read for the epoch's train/val/test meters of every row
-        counts = torch.stack([torch.stack([s.corrects, s.counts])
-                              for s in (stats, val_stats, test_stats)]).cpu().numpy()
+            in_ma = cfg.add_adapter and cfg.is_two_phase and epoch > feat_epochs
+            cur = ma_state if in_ma else state
+            val_stats = vm_eval(cur, val_split, val_labels, text_class)
+            test_stats = vm_eval(cur, bundle.test, test_labels_cls, text_class)
+            # ONE host read for the epoch's train/val/test meters of every row
+            with annotate("sweep.read"):
+                counts = torch.stack([torch.stack([s.corrects, s.counts])
+                                      for s in (stats, val_stats, test_stats)]).cpu().numpy()
 
-        def _res(c, weighted):
-            return [results_from_counts(c[0][i], c[1][i], n_places=bundle.n_places,
-                                        train_group_ratio=(bundle.train_group_ratio
-                                                           if weighted else None))
-                    for i in range(S)]
+            def _res(c, weighted):
+                return [results_from_counts(c[0][i], c[1][i], n_places=bundle.n_places,
+                                            train_group_ratio=(bundle.train_group_ratio
+                                                               if weighted else None))
+                        for i in range(S)]
 
-        train_res = _res(counts[0], train_weighted)
-        val_res = _res(counts[1], True)
-        test_res = _res(counts[2], True)
-        for i in range(S):
-            history["train"][i].append(ordered(train_res[i]))
-            history["val"][i].append(ordered(val_res[i]))
-            history["test"][i].append(ordered(test_res[i]))
-        if verbose:
-            print(f"epoch {epoch}: val worst", [round(v["worst_acc"], 4) for v in val_res])
+            with annotate("sweep.select"):
+                train_res = _res(counts[0], train_weighted)
+                val_res = _res(counts[1], True)
+                test_res = _res(counts[2], True)
+                for i in range(S):
+                    history["train"][i].append(ordered(train_res[i]))
+                    history["val"][i].append(ordered(val_res[i]))
+                    history["test"][i].append(ordered(test_res[i]))
+                if verbose:
+                    print(f"epoch {epoch}: val worst", [round(v["worst_acc"], 4) for v in val_res])
 
-        worst = np.asarray([v["worst_acc"] for v in val_res])
-        improved = worst > best["acc"]
-        if improved.any():
-            m = upload(improved, dev)
-            base = dev_best[in_ma] or (cur.params, cur.buffers)
-            dev_best[in_ma] = (_select_rows(base[0], cur.params, m),
-                               _select_rows(base[1], cur.buffers, m))
-            best["acc"] = np.where(improved, worst, best["acc"])
-            best["epoch"] = np.where(improved, epoch, best["epoch"])
-            best["multiple"] = np.where(improved, in_ma, best["multiple"])
+                worst = np.asarray([v["worst_acc"] for v in val_res])
+                improved = worst > best["acc"]
+                if improved.any():
+                    m = upload(improved, dev)
+                    base = dev_best[in_ma] or (cur.params, cur.buffers)
+                    dev_best[in_ma] = (_select_rows(base[0], cur.params, m),
+                                       _select_rows(base[1], cur.buffers, m))
+                    best["acc"] = np.where(improved, worst, best["acc"])
+                    best["epoch"] = np.where(improved, epoch, best["epoch"])
+                    best["multiple"] = np.where(improved, in_ma, best["multiple"])
 
     # -------- final zero-shot probes with each row's best model; rows that
     # never improved keep their final state (the sequential loop's fallback)
@@ -514,6 +535,8 @@ def train_seeds_vmapped(
         results.append(((history["train"][i][be - 1], history["val"][i][be - 1],
                          history["test"][i][be - 1]),
                         (ordered(zs_class[i]), ordered(zs_spurious[i]))))
+    count("sweep.slots", slots[0])
+    count("sweep.useful_slots", slots[1])
     if data_group is None:
         return results
     parts = [None] * dist.get_world_size(data_group)

@@ -57,6 +57,7 @@ from debiasing_multi_modal_tpu_torch.parallel.mesh import RowShard
 from debiasing_multi_modal_tpu_torch.train.losses import masked_cross_entropy
 from debiasing_multi_modal_tpu_torch.train.metrics import batch_group_counts, stacked_group_counts
 from debiasing_multi_modal_tpu_torch.utils.platform import full_f32
+from debiasing_multi_modal_tpu_torch.utils.profiling import annotate
 
 
 @dataclasses.dataclass
@@ -398,16 +399,17 @@ def train_epoch_vmapped(
         torch._foreach_zero_([state.trace[n] for n in frozen])
     with full_f32():
         for b in range(nb):
-            b_idx, b_mask = idx[:, b], mask[:, b]
-            act = None if active is None else active[:, b]
-            lab = labels[b_idx]
-            logits = stacked_logits(params, state.buffers, embeddings[b_idx], text,
-                                    state.temperature, b_mask, True, act)
-            loss = masked_cross_entropy(logits, lab, b_mask)
-            grads = torch.autograd.grad(loss.sum(), live_params, allow_unused=True)
-            _sgd_stacked(params, grads, state.trace, neg_lrs[:, b], momentum, weight_decay,
-                         live, act)
-            stats.add_stacked(logits, lab, groups[b_idx], b_mask, loss)
+            with annotate("sweep.step"):
+                b_idx, b_mask = idx[:, b], mask[:, b]
+                act = None if active is None else active[:, b]
+                lab = labels[b_idx]
+                logits = stacked_logits(params, state.buffers, embeddings[b_idx], text,
+                                        state.temperature, b_mask, True, act)
+                loss = masked_cross_entropy(logits, lab, b_mask)
+                grads = torch.autograd.grad(loss.sum(), live_params, allow_unused=True)
+                _sgd_stacked(params, grads, state.trace, neg_lrs[:, b], momentum, weight_decay,
+                             live, act)
+                stats.add_stacked(logits, lab, groups[b_idx], b_mask, loss)
     return state, stats
 
 

@@ -1,8 +1,35 @@
 """Profiling for the port (counterpart of ``utils/profiling.py``).
 
 :func:`trace` records a ``torch.profiler`` trace of a region into
-``log_dir`` (TensorBoard / Chrome trace format); :func:`annotate` names a
-region inside it.
+``log_dir`` (TensorBoard / Chrome trace format), every thread's operators
+and spans in it (the extraction's upload thread too).
+
+The program's own spans and counters:
+
+- :func:`annotate` is a span.  While a ``torch.profiler`` records in the
+  process, it keeps the span's name, start, end, thread and parent in memory
+  and opens a ``record_function`` of the same name, so the span shows in
+  every trace; with ``device=True`` it also records a CUDA event pair on the
+  current stream, whose time is the stream's from the block's first launch
+  to its last kernel's end: the kernels' work and any wait of the stream
+  for the host's next launch.  Otherwise it costs one check and enters a
+  shared no-op.
+  Stamps are ``time.time_ns()``, the clock of the profiler's own events.
+- :func:`spanned` makes each call of a function a span.
+- :func:`count` adds to a named counter; counters are always on and belong
+  at epoch or batch boundaries, never inside a step.
+- :func:`spans` and :func:`counters` read them back.
+
+Spans the port opens: ``extract.run``, ``extract.input_wait``,
+``extract.enqueue``, ``extract.drain``, ``extract.shard_flush``,
+``extract.upload`` (the upload thread), ``extract.preprocess`` (with device
+time), ``extract.tower``, ``extract.head`` (``extract/runner.py``);
+``sweep.run``, ``sweep.epoch``, ``sweep.plans``, ``sweep.train``,
+``sweep.eval``, ``sweep.read``, ``sweep.select`` (``sweep/vmap_loop.py``),
+``sweep.step`` (``train/steps.py::train_epoch_vmapped``).  Counters:
+``sweep.slots`` and ``sweep.useful_slots``, the stacked rows' batch slots and
+those that hold a sample, added when a ``train_seeds_vmapped`` call has run
+to its end (a call cut short by an exception adds none).
 
 Run as a module, it breaks a Stage-A slice down on one card (bf16, seeded
 random weights, the shapes ``chip_smoke.py`` drives):
@@ -54,23 +81,31 @@ Every line names the card and its power limit.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
+import functools
 import json
 import os
 import statistics
 import subprocess
+import threading
 import time
+from typing import Dict, List, NamedTuple, Optional
+
+import torch
+from torch._C._profiler import _ExperimentalConfig
+from torch.autograd import profiler as _autograd_profiler
+from torch.profiler import record_function
 
 
 @contextlib.contextmanager
 def trace(log_dir: str, enabled: bool = True):
-    """Profile the region (host, and the card when there is one) and write
-    the trace into ``log_dir``; yields the profiler (``None`` if disabled)."""
+    """Profile the region (host, and the card when there is one) on every
+    thread and write the trace into ``log_dir``; yields the profiler
+    (``None`` if disabled)."""
     if not enabled:
         yield None
         return
-    import torch
-
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -78,23 +113,123 @@ def trace(log_dir: str, enabled: bool = True):
     with torch.profiler.profile(
         activities=activities,
         on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir),
+        experimental_config=_ExperimentalConfig(profile_all_threads=True),
     ) as prof:
         yield prof
 
 
-@contextlib.contextmanager
-def annotate(name: str):
-    """Named region visible in profiler timelines
-    (``torch.profiler.record_function``)."""
-    import torch
+MAX_SPANS = 1 << 17  # the span buffer keeps the newest 131,072 spans
 
-    with torch.profiler.record_function(name):
-        yield
+_SPANS: "collections.deque" = collections.deque(maxlen=MAX_SPANS)
+_COUNTERS: Dict[str, float] = {}
+_COUNTERS_LOCK = threading.Lock()
+_OPEN = threading.local()  # .top: the innermost open span of this thread
+_OFF = contextlib.nullcontext()
+
+
+class Span(NamedTuple):
+    """One finished span: ``parent`` is the index of the enclosing span of
+    the same thread in the list :func:`spans` returns (None at the top, or
+    when the buffer has dropped it); ``device_ms`` is the CUDA event time of
+    a ``device=True`` span on the card, else None."""
+
+    name: str
+    start_ns: int
+    end_ns: int
+    thread: int
+    parent: Optional[int]
+    device_ms: Optional[float]
+
+
+class _Recording:
+    """The context of one span while the profiler records.  Its entry in
+    the buffer is ``[name, start, end, thread, parent entry, events]``."""
+
+    __slots__ = ("entry", "fn", "device")
+
+    def __init__(self, name: str, device: bool):
+        self.entry = [name, 0, None, threading.get_ident(), None, None]
+        self.fn = record_function(name)
+        self.device = device
+
+    def __enter__(self):
+        entry = self.entry
+        entry[4] = getattr(_OPEN, "top", None)
+        _OPEN.top = entry
+        _SPANS.append(entry)
+        entry[1] = time.time_ns()
+        self.fn.__enter__()
+        if self.device and torch.cuda.is_initialized():
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            entry[5] = (start, torch.cuda.Event(enable_timing=True))
+        return self
+
+    def __exit__(self, *exc):
+        entry = self.entry
+        if entry[5] is not None:
+            entry[5][1].record()
+        self.fn.__exit__(*exc)
+        entry[2] = time.time_ns()
+        _OPEN.top = entry[4]
+        return False
+
+
+def annotate(name: str, device: bool = False):
+    """A span named ``name`` around the ``with`` block: recorded, and shown
+    in the profiler's trace, while a ``torch.profiler`` records in the
+    process; a shared no-op context otherwise.  ``device=True`` also times
+    the block on the current CUDA stream (its kernels and the stream's waits
+    for their launches)."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Recording(name, device)
+
+
+def spanned(name: str):
+    """Decorator: each call of the function is a span named ``name``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with annotate(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
+
+
+def count(name: str, n: float = 1) -> None:
+    """Add ``n`` to the counter ``name`` (always on)."""
+    with _COUNTERS_LOCK:
+        _COUNTERS[name] = _COUNTERS.get(name, 0) + n
+
+
+def counters() -> Dict[str, float]:
+    """Every counter, with each kernel wrapper's launch count in this
+    process as ``launches.<wrapper>`` (``ops.launch_counts``)."""
+    from debiasing_multi_modal_tpu_torch.ops import launch_counts
+
+    out = dict(_COUNTERS)
+    out.update((f"launches.{k}", v) for k, v in launch_counts().items())
+    return out
+
+
+def spans() -> List[Span]:
+    """The finished spans in the buffer, in the order they began.  Reading
+    a device span's time waits for its end event on the card."""
+    entries = [e for e in list(_SPANS) if e[2] is not None]
+    index = {id(e): i for i, e in enumerate(entries)}
+    out = []
+    for e in entries:
+        ms = e[5]
+        if isinstance(ms, tuple):
+            ms[1].synchronize()
+            ms = e[5] = ms[0].elapsed_time(ms[1])
+        parent = None if e[4] is None else index.get(id(e[4]))
+        out.append(Span(e[0], e[1], e[2], e[3], parent, ms))
+    return out
 
 
 def _event():
-    import torch
-
     ev = torch.cuda.Event(enable_timing=True)
     ev.record()
     return ev
@@ -116,8 +251,6 @@ def _hook_events(modules):
 def _median_spans(run, spans, reps):
     """Median ms of each (label, start key, end key) span over ``reps`` runs
     of ``run()``, which returns the dict of recorded events."""
-    import torch
-
     samples = {label: [] for label, _, _ in spans}
     for _ in range(reps):
         events = run()
@@ -187,8 +320,6 @@ def vit_image_stages(runner, uploaded, reps=10):
 
 
 def text_stages(model, tokens, reps=10):
-    import torch
-
     blocks = model.transformer.resblocks
     mods = {}
     for i, blk in enumerate(blocks):
@@ -222,7 +353,6 @@ def train_stages(model, opt, images, tokens, reps=10):
     """Median device ms of each stage of one contrastive training step of
     ``model`` on uint8 ``images`` and ``tokens``, and the step function (for
     :func:`kernel_breakdown`)."""
-    import torch
     import torch.nn.functional as F
 
     from debiasing_multi_modal_tpu_torch.ops.preprocess import preprocess_uint8
@@ -262,8 +392,6 @@ def train_stages(model, opt, images, tokens, reps=10):
 def device_ms(fn, runs=10, calls=5, warmup=2):
     """Median device ms of one call: CUDA events around ``calls``
     back-to-back calls, over ``runs`` runs."""
-    import torch
-
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -291,8 +419,6 @@ BOTTLENECK_SHAPES = [
 def bottleneck_profile(batch, card, strips=(4, 7, 8, 14, 28), groups=(1, 2)):
     """One ``bottleneck_ms`` line per block shape (bf16, seeded random
     folded weights; see the module docstring)."""
-    import torch
-
     from debiasing_multi_modal_tpu_torch.models.resnet import Bottleneck
     from debiasing_multi_modal_tpu_torch.ops import conv_gemm as cg
     from debiasing_multi_modal_tpu_torch.ops import fused_bottleneck as fb
@@ -334,7 +460,6 @@ def bottleneck_profile(batch, card, strips=(4, 7, 8, 14, 28), groups=(1, 2)):
 def kernel_breakdown(fn, reps=3, top=20, log_dir=None):
     """Device time by kernel name over ``reps`` calls of ``fn`` under the
     profiler, and the share of the profiled wall time with no kernel running."""
-    import torch
     from torch.autograd import DeviceType
 
     fn()
@@ -399,8 +524,6 @@ def main(argv=None):
         args.backbone = "ViT-B/32" if args.train else "RN50"
 
     import numpy as np
-    import torch
-
     from debiasing_multi_modal_tpu_torch.extract.runner import ExtractionRunner
     from debiasing_multi_modal_tpu_torch.models import create_clip
 

@@ -60,13 +60,6 @@ def test_meters_match_jax():
         assert (a.val, a.avg, a.sum, a.count) == (b.val, b.avg, b.sum, b.count)
     a.reset()
     assert (a.val, a.avg, a.sum, a.count) == (0.0, 0.0, 0.0, 0)
-    timer = tm.StepTimer()
-    for name in ("a", "a", "b"):
-        with timer.phase(name):
-            pass
-    assert timer.meters["a"].count == 2 and timer.meters["b"].count == 1
-    s = timer.summary()
-    assert "a " in s and "b " in s and "s (" in s
 
 
 def test_timing_gauges_run_on_cpu():
