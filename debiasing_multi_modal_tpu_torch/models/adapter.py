@@ -52,10 +52,19 @@ from torch import nn
 from debiasing_multi_modal_tpu_torch.utils.platform import at_least_f32
 
 
+class _UndrawnLinear(nn.Linear):
+    """An ``nn.Linear`` whose constructor leaves its parameters uninitialised,
+    as ``nn.utils.skip_init`` does, without that function's trip through the
+    meta device (a tenth of its host time): :func:`_linear` draws them."""
+
+    def reset_parameters(self) -> None:
+        pass
+
+
 def _linear(fan_in: int, fan_out: int, generator: Optional[torch.Generator]) -> nn.Linear:
     """An ``nn.Linear`` with the torch default distribution drawn from
     ``generator`` (torch's global RNG when it is None), weight then bias."""
-    layer = nn.utils.skip_init(nn.Linear, fan_in, fan_out)
+    layer = _UndrawnLinear(fan_in, fan_out)
     bound = 1.0 / math.sqrt(fan_in)
     with torch.no_grad():
         layer.weight.uniform_(-bound, bound, generator=generator)

@@ -15,7 +15,10 @@ Row semantics mirror train/loop.py: each row has its own numpy Generator
 order; rows of one seed therefore share their initial weights.  ``inits``
 gives the rows' initial weights instead, in ``train_all_epochs``'s ``init``
 layout.  Best-model snapshots stay on the device (:func:`_select_rows`); the
-host reads each epoch's meters once, for every row together.
+host reads each epoch's meters once, for every row together.  The rows'
+classifiers are built on worker threads, each from its own generator; the
+phase-2 ones while phase 1 trains, so the host builds them while the card
+replays phase 1's steps (train/steps.py ``StepGraphs``).
 
 With a ``mesh`` the rows are sharded over its ``data`` axis, as the JAX
 sweep shards its seed axis: each rank trains its contiguous rows as one
@@ -24,6 +27,7 @@ stacked program, and every row's results are gathered in row order.
 
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -67,6 +71,7 @@ from debiasing_multi_modal_tpu_torch.utils.profiling import annotate, count, spa
 from debiasing_multi_modal_tpu_torch.utils.staging import DeviceCache, upload
 
 Tree = Dict[str, torch.Tensor]
+DRAW_WORKERS = 4  # threads that build the rows' classifiers
 
 
 @torch.no_grad()
@@ -230,8 +235,12 @@ def train_seeds_vmapped(
             correct_class_bias=True, reweighting_by_class=False,
         )
 
-    # ----- initial weights, each row's draws in the sequential loop's order
-    singles = [make_classifier(cfg, g) for g in gens]
+    # ----- initial weights, each row's draws in the sequential loop's order.
+    # A row's classifiers draw from its own generator alone, so the rows are
+    # built on worker threads (the draws release the GIL), each row's draws
+    # in order within its task.
+    workers = ThreadPoolExecutor(max_workers=DRAW_WORKERS)
+    singles = list(workers.map(lambda g: make_classifier(cfg, g), gens))
     for module, init in zip(singles, inits):
         if "init_sd" in init:
             module.load_state_dict(_tensors(init["init_sd"]))
@@ -271,6 +280,13 @@ def train_seeds_vmapped(
     text_class, text_group = bundle.text_class, bundle.text_group
     feat_epochs = (cfg.epochs if cfg.epochs_feature_learning is None
                    else cfg.epochs_feature_learning)  # 0: stage 2 from epoch 1
+    # The phase-2 classifiers are each row generator's next draws, and
+    # nothing else draws from the generators before them: the workers build
+    # them (host work alone) while phase 1 trains on the card.
+    multiples_ready = []
+    if cfg.is_two_phase and cfg.add_adapter and cfg.epochs > feat_epochs:
+        multiples_ready = [workers.submit(make_multiple_classifier, cfg, g) for g in gens]
+    workers.shutdown(wait=False)
 
     # Per-row best bookkeeping: scalars on the host, snapshots on the device,
     # one stacked pair per module kind (a row's best may predate the
@@ -372,7 +388,7 @@ def train_seeds_vmapped(
                                                           _select_rows(state.buffers, bb, has),
                                                           temperature)
                     if cfg.add_adapter:
-                        multiples = [make_multiple_classifier(cfg, g) for g in gens]
+                        multiples = [f.result() for f in multiples_ready]
                         for m, init in zip(multiples, inits):
                             if "ma_new_sd" in init and not cfg.init_near_identity:
                                 m.new_adapter.load_state_dict(

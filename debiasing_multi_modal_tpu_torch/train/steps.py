@@ -1,7 +1,7 @@
 """Training and evaluation over whole epochs (port of ``train/steps.py``).
 
 The JAX package runs an epoch as one jitted ``lax.scan``; here an epoch is
-an eager loop over the batches of one plan (data/samplers.BatchPlan) that
+a loop over the batches of one plan (data/samplers.BatchPlan) that
 never makes the host wait for the card: the embeddings, labels and groups
 stay resident on the device, the epoch's ``[nb, B]`` plan is uploaded once,
 each batch's rows are gathered on the device, each batch's learning rate is
@@ -27,7 +27,14 @@ shared embeddings: one set of launches per step for every row, the
 products as ``torch.baddbmm``, one ``backward`` of the sum of the rows'
 losses (which gives each row exactly its own gradient), a per-row learning
 rate from an ``[S, nb]`` device tensor, and an ``active [S, nb]`` flag that
-makes a row's padded step a true no-op.
+makes a row's padded step a true no-op.  Their step bodies
+(:func:`stacked_train_step`, :func:`stacked_eval_step`) run eagerly on the
+CPU.  On a card a stacked step is a CUDA graph (:class:`StepGraphs`): the
+first steps of each shape run eagerly, the next is captured, and every later
+step of that shape, in this epoch or any later one, is a replay of the same
+kernels on static copies of the state, the meters and the step's plan slice,
+reading the split where it lies.  The host then makes a few small copies and
+one replay a step, where the eager step makes ~190 launches.
 
 Data parallelism (``train/loop.py::shard_bundle``): with a ``shard``
 (:class:`~debiasing_multi_modal_tpu_torch.parallel.mesh.RowShard`) the
@@ -43,8 +50,11 @@ sums.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
+import functools
+import weakref
 from typing import Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -57,7 +67,7 @@ from debiasing_multi_modal_tpu_torch.parallel.mesh import RowShard
 from debiasing_multi_modal_tpu_torch.train.losses import masked_cross_entropy
 from debiasing_multi_modal_tpu_torch.train.metrics import batch_group_counts, stacked_group_counts
 from debiasing_multi_modal_tpu_torch.utils.platform import full_f32
-from debiasing_multi_modal_tpu_torch.utils.profiling import annotate
+from debiasing_multi_modal_tpu_torch.utils.profiling import annotate, count
 
 
 @dataclasses.dataclass
@@ -326,9 +336,8 @@ class StackedState:
     def stack(modules: Sequence[nn.Module], device, temperature: float = 0.01) -> "StackedState":
         """One row per module (all of one class), on ``device``."""
         def stacked(named):
-            names = [n for n, _ in named(modules[0])]
-            return {n: torch.stack([dict(named(m))[n].detach() for m in modules]).to(device)
-                    for n in names}
+            trees = [dict(named(m)) for m in modules]
+            return {n: torch.stack([t[n].detach() for t in trees]).to(device) for n in trees[0]}
         return StackedState.from_tensors(stacked(lambda m: m.named_parameters()),
                                          stacked(lambda m: m.named_buffers()), temperature)
 
@@ -369,6 +378,258 @@ def _sgd_stacked(params: Mapping[str, torch.Tensor], grads: Sequence[Optional[to
         pp.copy_(torch.where(a, pp + st, pp))
 
 
+def stacked_train_step(state: StackedState, stats: EpochStats, embeddings, labels, groups, text,
+                       b_idx, b_mask, act, neg_lr, *, live: List[str], momentum: float,
+                       weight_decay: float) -> None:
+    """One stacked training step in place: the rows' batches gathered on the
+    device, their logits and losses, one backward of the summed losses, the
+    SGD update and the meters.  ``b_idx``, ``b_mask [S, B]``, ``act [S]``
+    (or None) and ``neg_lr [S]`` are the step's slice of the epoch's plan."""
+    params = state.params
+    lab = labels[b_idx]
+    logits = stacked_logits(params, state.buffers, embeddings[b_idx], text, state.temperature,
+                            b_mask, True, act)
+    loss = masked_cross_entropy(logits, lab, b_mask)
+    grads = torch.autograd.grad(loss.sum(), [params[n] for n in live], allow_unused=True)
+    _sgd_stacked(params, grads, state.trace, neg_lr, momentum, weight_decay, live, act)
+    stats.add_stacked(logits, lab, groups[b_idx], b_mask, loss)
+
+
+@torch.no_grad()
+def stacked_eval_step(state: StackedState, stats: EpochStats, embeddings, labels, groups, text,
+                      b_idx, b_mask) -> None:
+    """One stacked evaluation step: every row's logits on the batch ``b_idx
+    [B]`` (``b_mask [B]``, shared by the rows) with the running BatchNorm
+    statistics, its loss and the meters."""
+    S = state.rows
+    b_mask = b_mask.expand(S, -1)
+    lab = labels[b_idx].expand(S, -1)
+    x = embeddings[b_idx].expand(S, -1, -1)
+    logits = stacked_logits(state.params, state.buffers, x, text, state.temperature, b_mask,
+                            False)
+    loss = masked_cross_entropy(logits, lab, b_mask)
+    stats.add_stacked(logits, lab, groups[b_idx].expand(S, -1), b_mask, loss)
+
+
+# ------------------------------------------ the stacked step as a CUDA graph --
+
+
+def _leaves(x) -> List[torch.Tensor]:
+    """The tensors of a step's inputs (states, meters, tensors, Nones), in a
+    fixed order."""
+    if isinstance(x, StackedState):
+        return [*x.params.values(), *x.buffers.values(), *x.trace.values()]
+    if isinstance(x, tuple):  # EpochStats too
+        return [t for v in x for t in _leaves(v)]
+    return [] if x is None else [x]
+
+
+def _structure(x):
+    """What a captured step bakes in of its inputs: names, shapes, dtypes and
+    the zero-shot head's temperature."""
+    if isinstance(x, StackedState):
+        return (tuple((k, tuple(v.shape), v.dtype) for d in (x.params, x.buffers, x.trace)
+                      for k, v in d.items()), x.temperature)
+    if isinstance(x, tuple):
+        return tuple(_structure(v) for v in x)
+    return None if x is None else (tuple(x.shape), x.dtype)
+
+
+def _static_like(x):
+    """Uninitialised tensors of ``x``'s structure, for a graph to read and
+    write in place (parameters stay leaves that require grad)."""
+    def like(v):
+        return torch.empty_like(v).requires_grad_(v.requires_grad)
+    if isinstance(x, StackedState):
+        return StackedState(*({k: like(v) for k, v in d.items()}
+                              for d in (x.params, x.buffers, x.trace)), x.temperature)
+    if isinstance(x, EpochStats):
+        return EpochStats(*(like(v) for v in x))
+    if isinstance(x, tuple):
+        return tuple(_static_like(v) for v in x)
+    return None if x is None else like(x)
+
+
+@torch.no_grad()
+def _copy(dst, src) -> None:
+    torch._foreach_copy_(_leaves(dst), _leaves(src))
+
+
+class _Statics:
+    """The static inputs graphs read and write: ``epoch``, a call's state
+    and meters, and ``step``, one step's plan slice."""
+
+    def __init__(self, epoch, step):
+        self.epoch, self.step = _static_like(epoch), _static_like(step)
+
+
+class _Key:
+    """One key's eager steps so far, then its static inputs and its graphs,
+    by the addresses of the split they read."""
+
+    def __init__(self):
+        self.uses = 0
+        self.statics: Optional[_Statics] = None
+        self.graphs: "collections.OrderedDict[tuple, torch.cuda.CUDAGraph]" = \
+            collections.OrderedDict()
+
+
+class StepGraphs:
+    """The process's stacked steps captured as CUDA graphs, by key: the step
+    kind with its hyperparameters and the structure of its inputs, which is
+    what the captured kernels bake in (the state's names and shapes, S, B,
+    the split's rows, D, the text columns, whether ``active`` is given,
+    dtypes, device).  A key's first ``warmup`` steps run eagerly on a side
+    stream; its next step is captured there and replayed, and so is every
+    later step of the key.  A graph reads the split (embeddings, labels,
+    groups, text) where it lay at the capture, so a key keeps one graph for
+    each of the ``ADDRESSES`` split placements it saw last, and captures a
+    new one, with no warm-up, for a split that lies elsewhere.  Keys whose
+    state, meters and step inputs have one structure share one set of static
+    copies of them (a call copies its own in and out, and calls run one at a
+    time).  The graphs share one memory pool per device; the ``capacity``
+    most recently used keys are kept.  One thread drives it.
+
+    ``warmup`` must stay at or above the steps of a key's first call that
+    code wrapping the step body's callees reads (the benchmark's Stage-B
+    check, ``portbench/checks/sweep.py::CHECK_STEPS``): a capture runs the
+    wrappers while the kernels they read have not run yet, and a replay runs
+    no Python at all."""
+
+    ADDRESSES = 2
+
+    def __init__(self, warmup: int = 3, capacity: int = 32):
+        self.warmup, self.capacity = warmup, capacity
+        self._keys: "collections.OrderedDict[tuple, _Key]" = collections.OrderedDict()
+        self._statics: "weakref.WeakValueDictionary[tuple, _Statics]" = \
+            weakref.WeakValueDictionary()
+        self._streams: Dict[torch.device, torch.cuda.Stream] = {}
+        self._pools: Dict[torch.device, tuple] = {}
+
+    def takes(self, device: torch.device) -> bool:
+        """Whether steps on ``device`` are captured: on a CUDA card."""
+        return device.type == "cuda"
+
+    def key(self, key: tuple) -> _Key:
+        got = self._keys.pop(key, None) or _Key()
+        self._keys[key] = got
+        while len(self._keys) > self.capacity:
+            self._keys.popitem(last=False)
+        return got
+
+    def statics(self, key: _Key, epoch: tuple, step: tuple, device: torch.device) -> _Statics:
+        """``key``'s static inputs, shared with every live key of the same
+        structure; they live as long as a key holds them."""
+        if key.statics is None:
+            shape = (device, _structure(epoch), _structure(step))
+            key.statics = self._statics.get(shape)
+            if key.statics is None:
+                key.statics = self._statics[shape] = _Statics(epoch, step)
+        return key.statics
+
+    def graph(self, key: _Key, where: tuple) -> "Optional[torch.cuda.CUDAGraph]":
+        """``key``'s graph for the split at ``where``, if it has one."""
+        got = key.graphs.pop(where, None)
+        if got is not None:
+            key.graphs[where] = got
+        return got
+
+    def keep(self, key: _Key, where: tuple, graph) -> None:
+        key.graphs[where] = graph
+        while len(key.graphs) > self.ADDRESSES:
+            key.graphs.popitem(last=False)
+
+    def __len__(self) -> int:
+        """The graphs held."""
+        return sum(len(k.graphs) for k in self._keys.values())
+
+    def stream(self, device: torch.device) -> "torch.cuda.Stream":
+        if device not in self._streams:
+            self._streams[device] = torch.cuda.Stream(device)
+        return self._streams[device]
+
+    @contextlib.contextmanager
+    def on_side_stream(self, device: torch.device):
+        """Work in the block runs on the side stream, ordered after and
+        before the current stream's."""
+        here, side = torch.cuda.current_stream(device), self.stream(device)
+        side.wait_stream(here)
+        with torch.cuda.stream(side):
+            yield
+        here.wait_stream(side)
+
+    def capture(self, fn, device: torch.device) -> "torch.cuda.CUDAGraph":
+        """``fn``'s kernels captured on the side stream into the device's
+        pool.  Not through ``torch.cuda.graph``, which first synchronizes,
+        collects garbage and empties the allocator's cache: that moves the
+        tensors the next calls stage, so their splits would land elsewhere
+        and capture again."""
+        if device not in self._pools:
+            self._pools[device] = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(self.stream(device)):
+            graph.capture_begin(self._pools[device])
+            try:
+                fn()
+            finally:
+                graph.capture_end()
+        return graph
+
+
+STEP_GRAPHS = StepGraphs()
+
+
+def _stacked_steps(body, epoch: tuple, split: tuple, written: Tuple[int, ...], step_of,
+                   nb: int, kind: tuple, span: Optional[str]) -> None:
+    """``body(*epoch, *split, *step_of(b))`` for each of the ``nb`` steps,
+    each in a span named ``span`` (none if None).  On the CPU, and for a
+    key's warm-up steps, the body runs eagerly on the call's own tensors.
+    Once a key is warm, its static state and meters take ``epoch`` in at the
+    call's first graph step, each step's inputs are copied in before its
+    replay, and the parts of ``epoch`` the body updates in place (at the
+    indices ``written``) are copied back after the last.  The graph reads
+    ``split`` in place.  Counts each step once, as ``sweep.eager_steps``,
+    ``sweep.graph_captures`` or ``sweep.graph_replays``."""
+    device = split[0].device  # the embeddings'
+    graphs = STEP_GRAPHS if nb and STEP_GRAPHS.takes(device) else None
+    if graphs is not None:
+        key = graphs.key(kind + (device, _structure(epoch), _structure(split),
+                                 _structure(step_of(0))))
+        where = tuple((t.data_ptr(), t.stride()) for t in split)
+        graph = graphs.graph(key, where)
+    done = {"eager_steps": 0, "graph_captures": 0, "graph_replays": 0}
+    for b in range(nb):
+        with annotate(span) if span else contextlib.nullcontext():
+            step = step_of(b)
+            if graphs is None:
+                body(*epoch, *split, *step)
+                done["eager_steps"] += 1
+                continue
+            if graph is None and key.uses < graphs.warmup:
+                with graphs.on_side_stream(device):
+                    body(*epoch, *split, *step)
+                key.uses += 1
+                done["eager_steps"] += 1
+                continue
+            statics = graphs.statics(key, epoch, step, device)
+            if done["graph_captures"] + done["graph_replays"] == 0:
+                _copy(statics.epoch, epoch)
+            _copy(statics.step, step)
+            if graph is None:
+                graph = graphs.capture(lambda: body(*statics.epoch, *split, *statics.step),
+                                       device)
+                graphs.keep(key, where, graph)
+                done["graph_captures"] += 1
+            else:
+                done["graph_replays"] += 1
+            graph.replay()
+    if graphs is not None and done["graph_captures"] + done["graph_replays"]:
+        _copy(tuple(epoch[i] for i in written), tuple(statics.epoch[i] for i in written))
+    for name, n in done.items():
+        if n:
+            count("sweep." + name, n)
+
+
 def train_epoch_vmapped(
     state: StackedState,
     embeddings: torch.Tensor,  # [N, D] shared by every row
@@ -389,27 +650,21 @@ def train_epoch_vmapped(
     ``state`` in place and returns it with ``[S, ...]`` meters.  Row ``i``
     computes what :func:`train_epoch` computes on its own plan."""
     live, frozen = _live(train_mask)
-    params = state.params
-    live_params = [params[n] for n in live]
     S, nb = idx.shape[:2]
     stats = EpochStats.zeros(n_groups, embeddings.device, rows=S)
     neg_lrs = -(lrs if lrs.dim() == 2 else lrs.expand(S, -1))
     if frozen:
         # the frozen parameters' momentum is zero after any step (_sgd)
         torch._foreach_zero_([state.trace[n] for n in frozen])
+    body = functools.partial(stacked_train_step, live=live, momentum=momentum,
+                             weight_decay=weight_decay)
+
+    def step_of(b):
+        return idx[:, b], mask[:, b], None if active is None else active[:, b], neg_lrs[:, b]
+
     with full_f32():
-        for b in range(nb):
-            with annotate("sweep.step"):
-                b_idx, b_mask = idx[:, b], mask[:, b]
-                act = None if active is None else active[:, b]
-                lab = labels[b_idx]
-                logits = stacked_logits(params, state.buffers, embeddings[b_idx], text,
-                                        state.temperature, b_mask, True, act)
-                loss = masked_cross_entropy(logits, lab, b_mask)
-                grads = torch.autograd.grad(loss.sum(), live_params, allow_unused=True)
-                _sgd_stacked(params, grads, state.trace, neg_lrs[:, b], momentum, weight_decay,
-                             live, act)
-                stats.add_stacked(logits, lab, groups[b_idx], b_mask, loss)
+        _stacked_steps(body, (state, stats), (embeddings, labels, groups, text), (0, 1),
+                       step_of, nb, ("train", tuple(live), momentum, weight_decay), "sweep.step")
     return state, stats
 
 
@@ -426,16 +681,9 @@ def eval_epoch_vmapped(
     n_groups: int = 4,
 ) -> EpochStats:
     """S rows evaluated with their running BatchNorm statistics."""
-    S = state.rows
-    stats = EpochStats.zeros(n_groups, embeddings.device, rows=S)
+    stats = EpochStats.zeros(n_groups, embeddings.device, rows=state.rows)
+    state = StackedState(state.params, state.buffers, {}, state.temperature)  # no momentum
     with full_f32():
-        for b in range(idx.shape[0]):
-            b_idx = idx[b]
-            b_mask = mask[b].expand(S, -1)
-            lab = labels[b_idx].expand(S, -1)
-            x = embeddings[b_idx].expand(S, -1, -1)
-            logits = stacked_logits(state.params, state.buffers, x, text, state.temperature,
-                                    b_mask, False)
-            loss = masked_cross_entropy(logits, lab, b_mask)
-            stats.add_stacked(logits, lab, groups[b_idx].expand(S, -1), b_mask, loss)
+        _stacked_steps(stacked_eval_step, (state, stats), (embeddings, labels, groups, text),
+                       (1,), lambda b: (idx[b], mask[b]), idx.shape[0], ("eval",), None)
     return stats
