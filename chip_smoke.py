@@ -8,6 +8,8 @@
                                              # ragged S past kernel 1's gate)
     python3 chip_smoke.py --only rn50_blocks # kernels 8 and 9 at the folded RN50's
                                              # stride-1 blocks alone
+    python3 chip_smoke.py --only vitl14_336_bf16  # kernel 1 at ViT-L/14@336px's
+                                             # image shape and its bf16 batch alone
     python3 chip_smoke.py --only stage_b     # Stage B (adapter training) alone
     python3 chip_smoke.py --only contrastive # the contrastive adapter alone
     python3 chip_smoke.py --only sweep       # the stacked seed-and-grid sweep alone
@@ -36,7 +38,8 @@ line.
              PyTorch library call that computes the same function (yardstick
              only; the port never calls it): kernel 1 (whole-row attention;
              bf16 on the tensor cores, timed at the text and ViT-B/32 image
-             shapes, f32 on the CUDA cores, register-tiled, at the RN50 and
+             shapes and ViT-L/14@336px's image shape, B=256 S=577 D=1024
+             H=16, its two-pass route, f32 on the CUDA cores, register-tiled, at the RN50 and
              ViT-L/14@336px text shapes and the ViT-L/14 image shape; the attention
              kernels, their plain versions and SDPA timed by CUDA-graph replay,
              so a wrapper's host time stays out), kernel 2
@@ -114,6 +117,13 @@ line.
              images through kernel 2 and 256 prompts through f32 kernel 1
              (counts 24 and 12), both towers held to the same weights under
              the plain attention formulation; image ms and prompts/s.
+             Then vitl14_336_bf16: the same model at the extraction CLI's
+             card dtype, bf16: 256 prompts encoded, then the counts set to 0
+             and one uint8 [256, 218, 178, 3] batch (CelebA's aligned size,
+             resized on the card to 336) through ExtractionRunner.encode_batch,
+             then the counts read: kernel 1 once a block (24), kernels 2 and 4
+             never; the image embeddings within cosine 0.999 of the plain
+             attention formulation's; imgs/s.
 9. train   — ViT-B/32 at full width and depth, bf16 compute, f32 parameters,
              attn_impl="pallas": 3 SGD steps of the symmetric contrastive loss
              on 128 uint8 images (preprocessed on the card) and 128 prompts,
@@ -440,6 +450,11 @@ RAGGED_S = [(f"ragged_s{s}_{'causal' if causal else 'noncausal'}_bf16", 3, s, 51
             for s in (1, 17, 50, 77, 129, 257, 577, 832) for causal in (False, True)]
 
 
+# ViT-L/14@336px's image attention at the extraction's batch: S = 577 takes
+# kernel 1's two passes over 64-key chunks; (label, B, S, D, H, causal)
+VITL14_336_IMAGE = ("vitl14_336_image_bf16", 256, 577, 1024, 16, False)
+
+
 # Ragged f32 S at hd 64 (D=512, H=8), causal and not: kernels 1 and 3 up to
 # their gate's largest S (348), kernel 2 at every S up to its gate's (1,624).
 RAGGED_F32_S = (1, 31, 33, 63, 65, 129, 348, 417, 418, 1111, 1624)
@@ -626,6 +641,7 @@ def phase_kernels():
     for case in [("text_rn50_bf16", 256, 77, 512, 8, True, bf16, 2e-2, True),
                  ("text_rn50_f32", 256, 77, 512, 8, True, f32, 1e-5, True),
                  ("vitb32_image_bf16", 256, 50, 768, 12, False, bf16, 2e-2, True),
+                 (*VITL14_336_IMAGE, bf16, 2e-2, True),
                  ("vitl14_image_f32", 64, 257, 1024, 16, False, f32, 1e-5, True),
                  ("text_vitl14_336_f32", 256, 77, 768, 12, True, f32, 1e-5, True),
                  ("ragged_noncausal_bf16", 5, 50, 768, 12, False, bf16, 2e-2, False),
@@ -1565,6 +1581,53 @@ def phase_qtiled():
             and np.isfinite(text).all() and text.shape == (256, 768) and text_rel <= 1e-4):
         raise AssertionError(f"ViT-L/14@336px through kernels 2 and 1 disagrees: {row}")
     return {"vit_l14_336": launches}
+
+
+def phase_vitl14_336_bf16():
+    """ViT-L/14@336px at the extraction CLI's card dtype, bf16: every image
+    attention is kernel 1 on its two-pass route (S = 577), 24 launches a
+    batch, and kernels 2 and 4 never run.  The launch counts are set to 0
+    after the text encode and read after one ``encode_batch`` of 256 uint8
+    218 x 178 images; the embeddings are held to the same weights under the
+    plain attention formulation (cosine >= 0.999, as ViT-B/32's)."""
+    import numpy as np
+    import torch
+
+    from debiasing_multi_modal_tpu_torch.extract.runner import ExtractionRunner
+    from debiasing_multi_modal_tpu_torch.models import create_clip
+
+    def build(**kw):
+        return create_clip("ViT-L/14@336px", device="cuda", dtype=torch.bfloat16,
+                           generator=torch.Generator().manual_seed(SEED), **kw)
+
+    rng = np.random.default_rng(SEED + 6)
+    model = build()
+    tokens = torch.from_numpy(_tokens(256, rng)).cuda()
+    images = rng.integers(0, 256, (256, 218, 178, 3), dtype=np.uint8)
+    with torch.inference_mode():
+        zs = model.encode_text(tokens)[:2].float().cpu().numpy()
+    runner = ExtractionRunner(model, zs)
+    # ---- the image batch, with every launch count at 0 just before it
+    _zero_counts()
+    emb, preds = runner.encode_batch(images)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    # ----
+    _expect_counts("ViT-L/14@336px bf16", launches,
+                   {"short_attention": model.config.vision_layers})
+    uploaded = runner.upload_batch(images)
+    imgs_per_s = _rate(lambda: runner.encode_batch_async(uploaded), 256, 3)
+    del runner, model
+    emb_plain, _ = ExtractionRunner(build(attn_impl="xla"), zs).encode_batch(images)
+    cos = _cos_min(emb, emb_plain)
+    row = {"phase": "vitl14_336_bf16", "model": "ViT-L/14@336px", "dtype": "bfloat16",
+           "batch": 256, "image_hw": [218, 178], "launches": launches,
+           "image_kernel_vs_plain_bf16_min_cosine": cos, "imgs_per_s_device": imgs_per_s}
+    emit(row)
+    if not (np.isfinite(emb).all() and emb.shape == (256, 768) and cos >= 0.999
+            and preds.shape == (256,) and preds.min() >= 0 and preds.max() < 2):
+        raise AssertionError(f"ViT-L/14@336px bf16 through kernel 1 disagrees: {row}")
+    return {"vit_l14_336_bf16": launches}
 
 
 def _grads(model):
@@ -3346,13 +3409,16 @@ def _kernel_line(name, source, replaces, cases, launches_by_path, card, design=N
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--only", choices=["flash_f32", "qtiled_bf16", "rn50_blocks",
+                                           "vitl14_336_bf16",
                                            "stage_b", "contrastive", "sweep", "native_json",
                                            "parallel", "leaves", "reproduce"],
                         help="flash_f32: build, then only the timed f32 cases of kernels 4-6 "
                              "and the f32 128-pair training step; qtiled_bf16: build, then "
                              "only bf16 kernel 2's cases (timed at S=1025 beside SDPA); "
                              "rn50_blocks: build, fold the seeded RN50, then only the "
-                             "rn50_blocks phase (kernels 8-9, bf16 and f32); each times "
+                             "rn50_blocks phase (kernels 8-9, bf16 and f32); "
+                             "vitl14_336_bf16: build, then only kernel 1 at ViT-L/14@336px's "
+                             "image shape and the bf16 ViT-L/14@336px batch; each times "
                              "another tree's kernels with this script; "
                              "stage_b, contrastive, sweep, native_json: only that phase (no "
                              "kernel to build); parallel: build, then only that phase; "
@@ -3388,6 +3454,18 @@ def main(argv=None):
         {"parallel": phase_parallel, "reproduce": phase_reproduce}[args.only]()
         emit({"phase": "summary", "only": args.only, "seconds": time.perf_counter() - t0})
         return 0
+    if args.only == "vitl14_336_bf16":
+        import torch
+
+        from debiasing_multi_modal_tpu_torch.ops import short_attention as sa
+
+        phase_build(check=False)
+        _attention_case(sa.short_attention, sa.short_attention_reference,
+                        *VITL14_336_IMAGE, torch.bfloat16, 2e-2,
+                        torch.Generator(device="cuda").manual_seed(SEED), True)
+        phase_vitl14_336_bf16()
+        emit({"phase": "summary", "only": args.only, "seconds": time.perf_counter() - t0})
+        return 0
     if args.only == "rn50_blocks":
         import numpy as np
         import torch
@@ -3408,6 +3486,7 @@ def main(argv=None):
     del folded
     launches.update(phase_vit())
     launches.update(phase_qtiled())
+    launches.update(phase_vitl14_336_bf16())
     launches.update(phase_train())
     launches.update(phase_stage_b())
     launches.update(phase_contrastive())

@@ -30,6 +30,7 @@ from debiasing_multi_modal_tpu_torch.ops.attention import (
     multi_head_attention_packed,
 )
 from debiasing_multi_modal_tpu_torch.ops.quant import Int8Dense, int8_dense
+from debiasing_multi_modal_tpu_torch.utils.profiling import annotate
 
 QUANT_MODES = ("none", "int8", "int8_pallas")
 
@@ -175,7 +176,12 @@ class MLPBlock(nn.Module):
 
 
 class ResidualAttentionBlock(nn.Module):
-    """Pre-LN transformer block with QuickGELU MLP (clip/model.py:171-192)."""
+    """Pre-LN transformer block with QuickGELU MLP (clip/model.py:171-192).
+
+    Each residual branch, with its add, is a program span with device time
+    (``utils/profiling.annotate``): ``block.attention`` (ln_1, q/k/v, the
+    attention kernel, out_proj) and ``block.mlp`` (ln_2, c_fc, QuickGELU,
+    c_proj), recorded only while a ``torch.profiler`` records."""
 
     def __init__(self, width: int, num_heads: int, causal: bool = False,
                  dtype=torch.float32, attn_impl: str = "auto",
@@ -189,8 +195,10 @@ class ResidualAttentionBlock(nn.Module):
         self.ln_2 = LayerNormF32(width)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.ln_1(x), causal=self.causal)
-        return x + self.mlp(self.ln_2(x))
+        with annotate("block.attention", device=True):
+            x = x + self.attn(self.ln_1(x), causal=self.causal)
+        with annotate("block.mlp", device=True):
+            return x + self.mlp(self.ln_2(x))
 
 
 class Transformer(nn.Module):

@@ -26,7 +26,10 @@ Spans the port opens: ``extract.run``, ``extract.input_wait``,
 time), ``extract.tower``, ``extract.head`` (``extract/runner.py``);
 ``sweep.run``, ``sweep.epoch``, ``sweep.plans``, ``sweep.train``,
 ``sweep.eval``, ``sweep.read``, ``sweep.select`` (``sweep/vmap_loop.py``),
-``sweep.step`` (``train/steps.py::train_epoch_vmapped``).  Counters:
+``sweep.step`` (``train/steps.py::train_epoch_vmapped``);
+``block.attention`` and ``block.mlp`` (with device time), the two residual
+branches of every transformer block of both towers
+(``models/layers.py::ResidualAttentionBlock``).  Counters:
 ``sweep.slots`` and ``sweep.useful_slots``, the stacked rows' batch slots and
 those that hold a sample, added when a ``train_seeds_vmapped`` call has run
 to its end (a call cut short by an exception adds none).

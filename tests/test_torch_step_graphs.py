@@ -9,8 +9,9 @@ steps by a stand-in graph that re-runs the step's Python on the static
 inputs.  On a card (the ``on_card`` tests, skipped here; run them with
 ``python -m pytest --noconftest tests/test_torch_step_graphs.py -k on_card``)
 real graphs are held to steps run eagerly one by one, bit for bit, on small
-grids and on the 48-row grid of ``scripts/run_sweep_wb_torch.sh`` at
-Waterbirds' split sizes and D = 1024."""
+grids, on the 48-row grid of ``scripts/run_sweep_wb_torch.sh`` at
+Waterbirds' split sizes and D = 1024, and on the 6-row grid of
+``scripts/run_sweep_ca_torch.sh``'s balanced phase at CelebA's."""
 
 import contextlib
 import types
@@ -85,22 +86,33 @@ WB = dict(spec=dict(n_train=4795, n_val=1199, n_test=5794, dim=1024), bs=(512, 1
           bsr=(64, 128, 256, 512), lr=(1.0, 10.0), seeds=[42, 32, 22],
           cfg=dict(adapter_feat_dim=128, epochs=10, epochs_feature_learning=4,
                    lr_decay_epochs=(9, 10), lr_decay_rate=0.1, warm_reg=True))
+# scripts/run_sweep_ca_torch.sh's grid at CelebA's split sizes and D = 1024,
+# only its balanced phase (as the benchmark's CelebA sweep cell runs it), 25
+# epochs cut to 2: bsr 4, 8, 16 (the reg half's steps differ by row, so
+# `active` is given) x 2 seeds = 6 rows (card only)
+CA = dict(spec=dict(n_train=162770, n_val=19867, n_test=19962, dim=1024), bs=(1024,),
+          bsr=(4, 8, 16), lr=(0.1,), lr_reg=10.0, seeds=[42, 32], dataset="celeba",
+          cfg=dict(adapter_feat_dim=128, epochs=2, epochs_feature_learning=0,
+                   lr_decay_epochs=(1, 2), lr_decay_rate=0.1, warm_reg=True, balance_val=True))
+FULL = {"waterbirds48": WB, "celeba6": CA}
 
 
 def _grid(grid):
     """(base config, the grid's cells, seeds, data spec)."""
-    if grid == "waterbirds48":
-        g, spec, seeds, cfg = WB, WB["spec"], WB["seeds"], WB["cfg"]
+    if grid in FULL:
+        g = FULL[grid]
+        spec, seeds, cfg = g["spec"], g["seeds"], g["cfg"]
     else:
         g, spec, seeds = dict(GRIDS[grid], lr=(0.5, 2.0)), SPEC, [42, 7]
         cfg = dict(adapter_feat_dim=8, epochs=3, epochs_feature_learning=1,
                    lr_decay_epochs=(100,))
-    base = TrainConfig(dataset="waterbirds", input_dim=spec["dim"], batch_size=g["bs"][0],
-                       batch_size_reg=g["bsr"][0], learning_rate=g["lr"][0],
-                       learning_rate_reg=g["lr"][0], tl_method="adapter_reg_seq_alter",
-                       add_adapter=True, **cfg)
+    lr_reg = g.get("lr_reg", 1.0)
+    base = TrainConfig(dataset=g.get("dataset", "waterbirds"), input_dim=spec["dim"],
+                       batch_size=g["bs"][0], batch_size_reg=g["bsr"][0],
+                       learning_rate=g["lr"][0], learning_rate_reg=g["lr"][0] * lr_reg,
+                       tl_method="adapter_reg_seq_alter", add_adapter=True, **cfg)
     cells = [base.replace(batch_size=bs, batch_size_reg=bsr, learning_rate=lr,
-                          learning_rate_reg=lr)
+                          learning_rate_reg=lr * lr_reg)
              for bs in g["bs"] for bsr in g["bsr"] for lr in g["lr"]]
     return base, cells, seeds, spec
 
@@ -171,12 +183,13 @@ def test_stand_in_replay_binds_inputs_as_the_eager_steps_do(monkeypatch, grid):
     _assert_bit_equal(replayed, eager)
 
 
-@pytest.mark.parametrize("grid", sorted(GRIDS) + ["waterbirds48"])
+@pytest.mark.parametrize("grid", sorted(GRIDS) + sorted(FULL))
 def test_replayed_sweep_is_bit_equal_to_eager_steps_on_card(monkeypatch, card, grid):
     """The graph path against every step run eagerly (a warm-up no key
-    outlasts), on a grid with ``active`` and one without, and on the user's
-    48-row Waterbirds grid: each train epoch's parameters, buffers, momentum
-    and meters, and every row's results, are bit-equal.  A key that a sweep
+    outlasts), on a grid with ``active`` and one without, on the user's
+    48-row Waterbirds grid and on the 6-row CelebA grid's balanced phase
+    over 162,770 rows: each train epoch's parameters, buffers, momentum and
+    meters, and every row's results, are bit-equal.  A key that a sweep
     uses for exactly the warm-up's three steps (the small grids' phase-1
     validation) is captured in the next sweep; from then on no step runs
     eagerly (a split staged elsewhere than before is captured at once)."""
