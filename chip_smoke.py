@@ -276,6 +276,7 @@ from debiasing_multi_modal_tpu_torch.utils.timing import graph_ms, time_ms
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense), for bound_ms.
 HBM_BYTES_PER_S = 3.35e12
+EXP2_PER_S = 3.9e12  # exp2f on the SFUs: 16 a clock per SM, 132 SMs, ~1.85 GHz
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 PEAK_TF32_FLOPS = 495e12  # f32 kernels 4-6, 8-9: three TF32 products per product
 PEAK_INT8_OPS = 1979e12
@@ -368,6 +369,14 @@ def _attention_bound_ms(b, s, d, h, causal, dtype, itemsize, passes=1):
     return max(bytes_ms, flops_ms), ("bytes" if bytes_ms >= flops_ms else "operations")
 
 
+def _exp_bound_ms(b, s, h, causal):
+    """The exponentials' least time in a two-pass kernel: two exp2f per
+    (query, key) pair and head, at :data:`EXP2_PER_S` (informational: the
+    roofline bound above counts bytes and flops only)."""
+    pairs = h * (s * (s + 1) // 2 if causal else s * s)
+    return 2 * b * pairs / EXP2_PER_S * 1e3
+
+
 def _int8_bound_ms(m, k, n, out_itemsize, with_bias):
     """Each input read once (int8 operands, f32 scales and bias), the output
     written once; 2*M*N*K integer operations at the dense int8 peak."""
@@ -397,9 +406,11 @@ def _heads(x, h):
 
 
 def _attention_case(kernel, plain, label, b, s, d, h, causal, dtype, tol, gen,
-                    timed, packed=False):
+                    timed, packed=False, twin=None):
     """One attention kernel against its plain version (and float64); timed
-    cases add the kernel's, the plain version's and SDPA's times."""
+    cases add the kernel's, the plain version's and SDPA's times.  ``twin``:
+    another kernel of the same function that must equal this one bit for bit
+    on these inputs (timed beside it in timed cases)."""
     import torch
     import torch.nn.functional as F
 
@@ -425,6 +436,12 @@ def _attention_case(kernel, plain, label, b, s, d, h, causal, dtype, tol, gen,
     del exact
     if not (err <= tol and (dtype == torch.float32 or cos >= 0.9999)):
         raise AssertionError(f"{kernel.__name__} disagrees with its plain version: {row}")
+    if twin is not None:
+        row[f"equals_{twin.__name__}"] = bool(torch.equal(out, twin(*args, causal=causal)))
+        if not row[f"equals_{twin.__name__}"]:
+            raise AssertionError(f"{kernel.__name__} differs from {twin.__name__}: {row}")
+        if timed:
+            row[f"{twin.__name__}_ms"] = graph_ms(lambda: twin(*args, causal=causal))
     if timed:
         # device times by CUDA-graph replay; "events_ms" is the kernel timed
         # as earlier runs timed it, with its wrapper's host time behind it
@@ -439,6 +456,7 @@ def _attention_case(kernel, plain, label, b, s, d, h, causal, dtype, tol, gen,
             b, s, d, h, causal, dtype, q.element_size())
         row["two_pass_bound_ms"] = _attention_bound_ms(
             b, s, d, h, causal, dtype, q.element_size(), passes=2)[0]
+        row["two_pass_exp_bound_ms"] = _exp_bound_ms(b, s, h, causal)
     emit({"phase": "kernels", "kernel": kernel.__name__, **row})
     return row
 
@@ -451,7 +469,8 @@ RAGGED_S = [(f"ragged_s{s}_{'causal' if causal else 'noncausal'}_bf16", 3, s, 51
 
 
 # ViT-L/14@336px's image attention at the extraction's batch: S = 577 takes
-# kernel 1's two passes over 64-key chunks; (label, B, S, D, H, causal)
+# kernel 1's long-row route (two passes over 64-key chunks), timed beside
+# kernel 2, which must equal it bit for bit; (label, B, S, D, H, causal)
 VITL14_336_IMAGE = ("vitl14_336_image_bf16", 256, 577, 1024, 16, False)
 
 
@@ -649,8 +668,13 @@ def phase_kernels():
                  ("gate_largest_hd32_f32", 2, 592, 256, 8, False, f32, 1e-5, False),
                  ("gate_largest_hd128_f32", 2, 184, 512, 4, True, f32, 1e-5, False),
                  *ragged, *whole32]:
+        # the long-row route runs kernel 2's two passes: bit-equal to it
+        _, _, s, d, h, _, dtype = case[:7]
+        twin = (sa.short_attention_qtiled if dtype == bf16 and sa.long_row_route(s, d // h)
+                else None)
         results["short_attention"].append(_attention_case(
-            sa.short_attention, sa.short_attention_reference, *case[:8], gen, case[8]))
+            sa.short_attention, sa.short_attention_reference, *case[:8], gen, case[8],
+            twin=twin))
     for case in [("vitl14_336_f32", 8, 577, 1024, 16, False, f32, 1e-5, True),
                  ("ragged_causal_f32", 3, 1111, 256, 4, True, f32, 1e-5, False),
                  ("gate_largest_hd32_f32", 2, 1720, 256, 8, False, f32, 1e-5, False),
@@ -920,23 +944,24 @@ def _tokens(n, rng):
     return toks
 
 
-def _counters():
-    from debiasing_multi_modal_tpu_torch.ops import kernel_wrappers
-
-    return kernel_wrappers()
-
-
 def _zero_counts():
-    for fn in _counters().values():
+    from debiasing_multi_modal_tpu_torch.ops import kernel_wrappers, short_attention
+
+    for fn in kernel_wrappers().values():
         fn.launches = 0
+    short_attention.short_attention.long_row_launches = 0
 
 
 def _read_counts():
-    return {name: fn.launches for name, fn in _counters().items()}
+    """``ops.launch_counts()``: each wrapper's launches, and kernel 1's and
+    3's calls on the long-row route as ``short_attention.long_row_launches``."""
+    from debiasing_multi_modal_tpu_torch.ops import launch_counts
+
+    return launch_counts()
 
 
 def _expect_counts(path, got, want):
-    want = {name: want.get(name, 0) for name in _counters()}
+    want = {name: want.get(name, 0) for name in _read_counts()}
     if got != want:
         raise AssertionError(f"{path}: expected launches {want}, got {got}")
 
@@ -1585,8 +1610,9 @@ def phase_qtiled():
 
 def phase_vitl14_336_bf16():
     """ViT-L/14@336px at the extraction CLI's card dtype, bf16: every image
-    attention is kernel 1 on its two-pass route (S = 577), 24 launches a
-    batch, and kernels 2 and 4 never run.  The launch counts are set to 0
+    attention is kernel 1 on its long-row route (S = 577), 24 launches a
+    batch, all 24 counted in ``short_attention.long_row_launches``, and
+    kernels 2 and 4 never run.  The launch counts are set to 0
     after the text encode and read after one ``encode_batch`` of 256 uint8
     218 x 178 images; the embeddings are held to the same weights under the
     plain attention formulation (cosine >= 0.999, as ViT-B/32's)."""
@@ -1614,7 +1640,8 @@ def phase_vitl14_336_bf16():
     launches = _read_counts()
     # ----
     _expect_counts("ViT-L/14@336px bf16", launches,
-                   {"short_attention": model.config.vision_layers})
+                   {"short_attention": model.config.vision_layers,
+                    "short_attention.long_row_launches": model.config.vision_layers})
     uploaded = runner.upload_batch(images)
     imgs_per_s = _rate(lambda: runner.encode_batch_async(uploaded), 256, 3)
     del runner, model
@@ -3290,7 +3317,8 @@ def phase_reproduce():
                                        re.MULTILINE)]
         if len(per_process) != 2:
             raise AssertionError(f"reproduce: {len(per_process)} extract_main launch lines")
-        launches = {name: sum(p["launches"][name] for p in per_process) for name in _counters()}
+        launches = {name: sum(p["launches"][name] for p in per_process)
+                    for name in _read_counts()}
         for p in per_process:
             _expect_counts("reproduce extract_main", p["launches"],
                            {"short_attention": 12 * p["text_encodes"]})
@@ -3418,7 +3446,8 @@ def main(argv=None):
                              "rn50_blocks: build, fold the seeded RN50, then only the "
                              "rn50_blocks phase (kernels 8-9, bf16 and f32); "
                              "vitl14_336_bf16: build, then only kernel 1 at ViT-L/14@336px's "
-                             "image shape and the bf16 ViT-L/14@336px batch; each times "
+                             "image shape (timed beside kernel 2, which must equal it) and "
+                             "the bf16 ViT-L/14@336px batch; each times "
                              "another tree's kernels with this script; "
                              "stage_b, contrastive, sweep, native_json: only that phase (no "
                              "kernel to build); parallel: build, then only that phase; "
@@ -3462,7 +3491,8 @@ def main(argv=None):
         phase_build(check=False)
         _attention_case(sa.short_attention, sa.short_attention_reference,
                         *VITL14_336_IMAGE, torch.bfloat16, 2e-2,
-                        torch.Generator(device="cuda").manual_seed(SEED), True)
+                        torch.Generator(device="cuda").manual_seed(SEED), True,
+                        twin=sa.short_attention_qtiled)
         phase_vitl14_336_bf16()
         emit({"phase": "summary", "only": args.only, "seconds": time.perf_counter() - t0})
         return 0

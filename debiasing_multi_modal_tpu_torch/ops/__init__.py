@@ -19,5 +19,12 @@ def kernel_wrappers():
 
 
 def launch_counts():
-    """Each kernel wrapper's launch count in this process, by name."""
-    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+    """Each kernel wrapper's launch count in this process, by name, and
+    ``short_attention.long_row_launches``: the kernel-1 and kernel-3 calls
+    that took the long-row route."""
+    from debiasing_multi_modal_tpu_torch.ops import short_attention
+
+    counts = {name: fn.launches for name, fn in kernel_wrappers().items()}
+    counts["short_attention.long_row_launches"] = (
+        short_attention.short_attention.long_row_launches)
+    return counts

@@ -33,19 +33,25 @@ nothing.  :func:`short_attention` picks
 kernel 1 when its block fits and kernel 2 otherwise, as the JAX package's
 ``_pallas_forward`` picks whole-row before q-tiled.  Each wrapper counts its
 own launches (``short_attention.launches``, ``short_attention_qtiled.launches``,
-``short_attention_packed.launches``).
+``short_attention_packed.launches``); ``short_attention.long_row_launches``
+counts the kernel-1 and kernel-3 calls that take the long-row route
+(:func:`long_row_route`).
 
 The H100 gates are derived from shared memory, against the 227 KB a block
 may use (:func:`smem_bytes`, :func:`qtiled_smem_bytes`).  In bf16 all three
-run on the tensor cores (``mma.sync``, ``ldmatrix``, 16-byte ``cp.async``):
-kernels 1 and 3 stage one head's K_h and V_h, rows rounded up to 16 and
-swizzled, plus one 16-row Q tile per warp; kernel 2 runs
-kernel 1's two-pass device code on 128-row query tiles with K and V streamed
-through a three-stage ring of 64-key chunks, so its footprint does not
-grow with S and it equals kernel 1 bit for bit where kernel 1 takes its
-two-pass path.  Its gate keeps the largest S the first bf16 design took
-(:data:`QTILED_BF16_MAX_S`), so that longer rows go on to the flash kernels,
-which have a backward kernel.  In f32 all
+run on the tensor cores.  Where a row's keys fit one chunk
+(:func:`long_row_route` false) kernels 1 and 3 stage one head's K_h and V_h,
+rows rounded up to 16 and swizzled, plus one 16-row Q tile per warp
+(``mma.sync``, ``ldmatrix``, 16-byte ``cp.async``, as kernel 2 does on its
+128-row query tiles); longer rows take their long-row kernel (``wgmma``
+products, TMA loads of 64-key chunks into a ring, a persistent grid of
+128-row query tiles), which computes kernel 2's two passes (64-key chunks
+streamed past 16-row warp tiles) in the same order, so the two are equal bit
+for bit wherever both take a shape.  Kernel 1's gate keeps the footprint of
+its first design (K_h and V_h resident), so that every shape takes the
+kernel it took before.  Kernel 2's gate keeps the largest S the first bf16
+design took (:data:`QTILED_BF16_MAX_S`), so that longer rows go on to the
+flash kernels, which have a backward kernel.  In f32 all
 three run one device code on the CUDA cores (``csrc/attention_f32.cuh``),
 with register tiles of logits and outputs, for a tile of 32 or 64 query
 rows: kernels 1 and 3 keep K_h and V_h resident beside the tile's f32 score
@@ -84,9 +90,16 @@ _CP_ASYNC_DTYPES = (torch.float32, torch.bfloat16)  # kernels 1-3 copy both by c
 
 
 def _tc_warps(s: int, hd: int) -> int:
-    """Warps of one bf16 kernel-1 block: one per 16 query rows, at most 8
-    (4 at hd 128), ``tc_warps`` in the CUDA source."""
+    """Warps of one bf16 kernel-1 block of the first design, which the gate
+    keeps: one per 16 query rows, at most 8 (4 at hd 128)."""
     return min(4 if hd == 128 else 8, -(-s // 16))
+
+
+def long_row_route(s: int, hd: int) -> bool:
+    """Whether a bf16 kernel-1 or kernel-3 call takes the long-row route
+    (``short_attn_tc_kernel_rows`` in ``csrc/short_attention.cu``): a row's
+    keys are more than one chunk of 64, 80 keys at hd 32 and 64."""
+    return s > (64 if hd == 128 else 80)
 
 
 def _round4(s: int) -> int:
@@ -130,12 +143,15 @@ def f32_streamed_tile(s: int, hd: int) -> tuple:
 
 
 def smem_bytes(s: int, hd: int, itemsize: int) -> int:
-    """Dynamic shared memory of one kernel-1 (or kernel-3) block (mirrors
-    ``smem_bytes_bf16`` in the CUDA source and ``f32attn::resident_smem_bytes``
-    in ``csrc/attention_f32.cuh``).  bf16: K_h and V_h with rows rounded up
-    to 16, plus one 16-row Q tile per warp.  f32: the block's query rows
-    (:func:`f32_resident_rows`), their f32 score rows and K_h, V_h, rows
-    rounded up to 4."""
+    """Dynamic shared memory of one kernel-1 (or kernel-3) block, the gate of
+    both.  bf16: K_h and V_h with rows rounded up to 16, plus one 16-row Q
+    tile per warp, at most 8 (4 at hd 128): ``smem_bytes_bf16`` in the CUDA
+    source where a row fits one key chunk, and past it the first design's
+    footprint, kept as the gate (1,744 / 832 / 416 at hd 32 / 64 / 128)
+    though the long-row kernel's does not grow with S.  f32 (mirrors
+    ``f32attn::resident_smem_bytes`` in ``csrc/attention_f32.cuh``): the
+    block's query rows (:func:`f32_resident_rows`), their f32 score rows and
+    K_h, V_h, rows rounded up to 4."""
     if itemsize == 2:
         s16 = -(-s // 16) * 16
         return 2 * s16 * hd * 2 + _tc_warps(s, hd) * 16 * hd * 2
@@ -304,7 +320,13 @@ def _whole_row(q, k, v, num_heads, causal):
     cuda_build.launch("short_attention", "short_attention_forward", (q, k, v, out),
                       (b, s, d, num_heads, int(causal), _DTYPE_CODES[q.dtype]), q.device)
     short_attention.launches += 1
+    _count_long_rows(q.dtype, s, d // num_heads)
     return out
+
+
+def _count_long_rows(dtype, s, hd):
+    if dtype == torch.bfloat16 and long_row_route(s, hd):
+        short_attention.long_row_launches += 1
 
 
 def short_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -313,7 +335,8 @@ def short_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CPU tensors take :func:`short_attention_reference`.  CUDA tensors launch
     kernel 1 when :func:`supported_whole_row` holds (counted in
-    ``short_attention.launches``), else kernel 2 through
+    ``short_attention.launches``, and in ``short_attention.long_row_launches``
+    on the long-row route), else kernel 2 through
     :func:`short_attention_qtiled` when :func:`supported_qtiled` holds, else
     raise."""
     _check(q, k, v, num_heads)
@@ -328,6 +351,7 @@ def short_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 short_attention.launches = 0
+short_attention.long_row_launches = 0
 
 
 def _qtiled(q, k, v, num_heads, causal):
@@ -372,6 +396,7 @@ def _packed(qkv, num_heads, causal):
                       (b, s, d3 // 3, num_heads, int(causal), _DTYPE_CODES[qkv.dtype]),
                       qkv.device)
     short_attention_packed.launches += 1
+    _count_long_rows(qkv.dtype, s, d3 // 3 // num_heads)
     return out
 
 
@@ -381,7 +406,8 @@ def short_attention_packed(qkv: torch.Tensor, num_heads: int, *,
     the fused in-projection's output) -> ``[B, S, D]``.
 
     CPU tensors take :func:`short_attention_packed_reference`; CUDA tensors
-    launch kernel 3 (counted in ``short_attention_packed.launches``) or raise
+    launch kernel 3 (counted in ``short_attention_packed.launches``, and in
+    ``short_attention.long_row_launches`` on the long-row route) or raise
     where :func:`supported_packed` does not hold."""
     if qkv.ndim != 3 or qkv.shape[2] % 3 or (qkv.shape[2] // 3) % num_heads:
         raise ValueError(

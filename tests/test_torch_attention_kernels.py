@@ -173,6 +173,59 @@ def test_packed_dispatch_uses_kernel_3_or_splits(monkeypatch):
         tattn.multi_head_attention_packed(small, 4, impl="nope")
 
 
+@pytest.mark.parametrize("s,hd,long", [
+    (1, 64, False), (50, 64, False), (64, 64, False), (77, 64, False), (80, 64, False),
+    (81, 64, True), (577, 64, True), (832, 64, True),
+    (80, 32, False), (81, 32, True), (1744, 32, True),
+    (33, 128, False), (64, 128, False), (65, 128, True), (416, 128, True)])
+def test_long_row_route_mirrors_the_bf16_dispatch(s, hd, long):
+    """bf16 kernel 1's route (``dispatch_chunk`` in csrc/short_attention.cu):
+    a row's keys in one chunk in registers up to 80 at hd 32 and 64 and up
+    to 64 at hd 128, the long-row kernel past that."""
+    assert sa.long_row_route(s, hd) is long
+
+
+# (S, D, H, dtype) -> (supported_whole_row, supported_qtiled, supported_packed)
+# as the gates answered before the long-row kernel: its footprint does not
+# grow with S, and its gate keeps the first design's
+GATES = [((577, 1024, 16, torch.bfloat16), (True, True, True)),
+         ((577, 1024, 16, torch.float32), (False, True, False)),
+         ((1025, 1024, 16, torch.bfloat16), (False, True, False)),
+         ((832, 512, 8, torch.bfloat16), (True, True, True)),
+         ((833, 512, 8, torch.bfloat16), (False, True, False)),
+         ((1744, 256, 8, torch.bfloat16), (True, True, True)),
+         ((1745, 256, 8, torch.bfloat16), (False, True, False)),
+         ((1751, 256, 8, torch.bfloat16), (False, False, False)),
+         ((416, 512, 4, torch.bfloat16), (True, True, True)),
+         ((417, 512, 4, torch.bfloat16), (False, True, False)),
+         ((2048, 512, 8, torch.bfloat16), (False, False, False)),
+         ((50, 768, 12, torch.bfloat16), (True, True, True)),
+         ((77, 512, 8, torch.bfloat16), (True, True, True))]
+
+
+@pytest.mark.parametrize("shape,want", GATES, ids=[f"s{s}-d{d}-h{h}-{str(t)[6:]}"
+                                                   for (s, d, h, t), _ in GATES])
+def test_gates_answer_as_before_around_the_long_row_route(shape, want):
+    s, d, h, dtype = shape
+    q = torch.empty(1, s, d, dtype=dtype, device="meta")
+    qkv = torch.empty(1, s, 3 * d, dtype=dtype, device="meta")
+    assert (sa.supported_whole_row(q, q, q, h), sa.supported_qtiled(q, q, q, h),
+            sa.supported_packed(qkv, h)) == want
+
+
+def test_launch_counts_carry_the_long_row_counter():
+    from debiasing_multi_modal_tpu_torch import ops
+
+    counts = ops.launch_counts()
+    assert set(counts) == set(ops.kernel_wrappers()) | {"short_attention.long_row_launches"}
+    assert counts["short_attention.long_row_launches"] == sa.short_attention.long_row_launches
+    # on the CPU the wrappers take the plain version and count nothing
+    x = torch.zeros(1, 577, 128, dtype=torch.bfloat16)
+    sa.short_attention(x, x, x, 2)
+    sa.short_attention_packed(torch.cat([x, x, x], dim=-1), 2)
+    assert ops.launch_counts() == counts
+
+
 def test_wrappers_on_cpu_count_no_launch():
     before = (sa.short_attention_qtiled.launches, sa.short_attention_packed.launches)
     q, k, v = (torch.from_numpy(x) for x in _arrays((1, 40, 128), 3, seed=5))
@@ -243,6 +296,14 @@ def test_f32_kernels_match_plain_at_ragged_s_on_card(card, s, causal):
         assert torch.equal(whole, tiled) and torch.equal(packed, whole)
 
 
+# kernel 1's long-row route: ViT-L/14@336px's image attention (B=32: a
+# grid of several waves), ragged S at hd 64, hd 32 and hd 128 up to each
+# gate's largest; (B, S, D, H)
+LONG_ROWS = [(32, 577, 1024, 16), (3, 81, 512, 8), (3, 97, 512, 8), (3, 200, 512, 8),
+             (3, 577, 512, 8), (3, 832, 512, 8), (2, 1111, 256, 8), (2, 1744, 256, 8),
+             (3, 65, 512, 4), (3, 416, 512, 4)]
+
+
 def test_qtiled_kernel_equals_whole_row_kernel_on_card(card):
     """In f32 kernel 2 sums in kernel 1's order, so where both take a shape
     their outputs are bit-equal.  In bf16 kernel 2 runs kernel 1's two-pass
@@ -263,9 +324,9 @@ def test_qtiled_kernel_equals_whole_row_kernel_on_card(card):
                 assert (whole.float() - tiled.float()).abs().max().item() <= 2e-2
                 assert torch.nn.functional.cosine_similarity(
                     whole.float().flatten(), tiled.float().flatten(), dim=0).item() >= 0.9999
-    for s, d, h in [(81, 512, 8), (129, 512, 8), (577, 512, 8), (832, 512, 8), (1111, 256, 8),
-                    (33, 512, 4), (416, 512, 4)]:
-        q, k, v = (torch.randn(2, s, d, device="cuda", generator=g).bfloat16()
+    for b, s, d, h in [(2, 81, 512, 8), (2, 129, 512, 8), (2, 577, 512, 8), (2, 832, 512, 8),
+                       (2, 1111, 256, 8), (2, 33, 512, 4), (2, 416, 512, 4)] + LONG_ROWS:
+        q, k, v = (torch.randn(b, s, d, device="cuda", generator=g).bfloat16()
                    for _ in range(3))
         assert sa.supported_whole_row(q, k, v, h)
         for causal in (False, True):
@@ -276,7 +337,9 @@ def test_qtiled_kernel_equals_whole_row_kernel_on_card(card):
 @pytest.mark.parametrize("b,s,d,h,causal,dtype", [
     (64, 50, 768, 12, False, torch.bfloat16), (16, 77, 512, 8, True, torch.float32)] + [
     (3, s, 512, 8, causal, torch.bfloat16)
-    for s in (1, 17, 50, 77, 129, 257, 577, 832) for causal in (False, True)])
+    for s in (1, 17, 50, 77, 129, 257, 577, 832) for causal in (False, True)] + [
+    (*shape, causal, torch.bfloat16) for shape in LONG_ROWS for causal in (False, True)
+    if shape[1:] not in ((577, 512, 8), (832, 512, 8))])
 def test_packed_kernel_matches_plain_on_card(card, b, s, d, h, causal, dtype):
     g = torch.Generator(device="cuda").manual_seed(2)
     qkv = torch.randn(b, s, 3 * d, device="cuda", generator=g).to(dtype)
@@ -292,6 +355,22 @@ def test_packed_kernel_matches_plain_on_card(card, b, s, d, h, causal, dtype):
     if dtype == torch.bfloat16:
         assert torch.nn.functional.cosine_similarity(
             out.float().flatten(), ref.float().flatten(), dim=0).item() >= 0.9999
+
+
+def test_long_row_route_counts_its_launches_on_card(card):
+    """``short_attention.long_row_launches`` counts the kernel-1 and kernel-3
+    calls on the long-row route and no other, beside ``launches``."""
+    x = torch.zeros(2, 577, 1024, device="cuda", dtype=torch.bfloat16)
+    short = torch.zeros(2, 77, 512, device="cuda", dtype=torch.bfloat16)
+    before = (sa.short_attention.launches, sa.short_attention.long_row_launches,
+              sa.short_attention_packed.launches)
+    sa.short_attention(x, x, x, 16)
+    sa.short_attention_packed(torch.cat([x, x, x], dim=-1), 16)
+    sa.short_attention(short, short, short, 8, causal=True)
+    sa.short_attention(x.float(), x.float(), x.float(), 16)  # f32: kernel 2
+    torch.cuda.synchronize()
+    assert (sa.short_attention.launches, sa.short_attention.long_row_launches,
+            sa.short_attention_packed.launches) == (before[0] + 2, before[1] + 2, before[2] + 1)
 
 
 def test_kernels_refuse_what_their_gates_refuse_on_card(card):
