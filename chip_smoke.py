@@ -1974,7 +1974,7 @@ def _celeba_epoch(cfg_flags):
     from debiasing_multi_modal_tpu_torch.train.config import TrainConfig
     from debiasing_multi_modal_tpu_torch.train.loop import make_classifier
     from debiasing_multi_modal_tpu_torch.train.schedules import epoch_batch_lrs
-    from debiasing_multi_modal_tpu_torch.utils.profiling import kernel_breakdown
+    from chip_profile import kernel_breakdown
     from debiasing_multi_modal_tpu_torch.utils.staging import upload
 
     n, d, bs = CELEBA_TRAIN_ROWS, cfg_flags["input_dim"], 128
@@ -2157,7 +2157,7 @@ def _contrastive_epoch_perf(cfg, bundle, init):
         make_encoder,
     )
     from debiasing_multi_modal_tpu_torch.train.schedules import epoch_batch_lrs
-    from debiasing_multi_modal_tpu_torch.utils.profiling import kernel_breakdown
+    from chip_profile import kernel_breakdown
     from debiasing_multi_modal_tpu_torch.utils.staging import upload
 
     rng = np.random.default_rng(cfg.random_seed)
@@ -2279,7 +2279,7 @@ def _stacked_profile(state, emb, labels, groups, plans, lrs, text, mask_tree, st
 
     from debiasing_multi_modal_tpu_torch.sweep.vmap_loop import _pad_stack_plans
     from debiasing_multi_modal_tpu_torch.train import steps
-    from debiasing_multi_modal_tpu_torch.utils.profiling import kernel_breakdown
+    from chip_profile import kernel_breakdown
     from debiasing_multi_modal_tpu_torch.utils.staging import upload
 
     idx, msk, act = _pad_stack_plans(plans)
@@ -2536,7 +2536,7 @@ def phase_sweep():
     # the same grid again, warm (the first run pays the allocator's growth
     # and the libraries' first calls), under the profiler: the whole
     # program's device busy time and idle share
-    from debiasing_multi_modal_tpu_torch.utils.profiling import kernel_breakdown
+    from chip_profile import kernel_breakdown
 
     with tempfile.TemporaryDirectory() as tmp:
         warm = kernel_breakdown(

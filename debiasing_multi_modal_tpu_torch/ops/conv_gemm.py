@@ -17,7 +17,7 @@ JAX kernel's roundings.  There is no fall back from one to the other;
 
 As in the JAX package, the model never calls the kernel (``models/resnet.py``
 keeps ``F.conv2d``): it is driven at the folded RN50's stride-1 blocks by
-``chip_smoke.py`` and ``utils/profiling.py --bottleneck``, with
+``chip_smoke.py`` and ``chip_profile.py --bottleneck``, with
 :func:`block_weights` pulling a folded block's weights into these layouts.
 
 The H100 gate is shared memory: the kernel keeps a zero-bordered

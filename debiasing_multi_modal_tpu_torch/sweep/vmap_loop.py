@@ -14,11 +14,10 @@ Row semantics mirror train/loop.py: each row has its own numpy Generator
 ``torch.Generator`` (initial weights), consumed in the sequential loop's
 order; rows of one seed therefore share their initial weights.  ``inits``
 gives the rows' initial weights instead, in ``train_all_epochs``'s ``init``
-layout.  Best-model snapshots stay on the device (:func:`_select_rows`); the
-host reads each epoch's meters once, for every row together.  The rows'
-classifiers are built on worker threads, each from its own generator; the
-phase-2 ones while phase 1 trains, so the host builds them while the card
-replays phase 1's steps (train/steps.py ``StepGraphs``).
+layout.  Best-model snapshots stay on the device (:class:`_Best`); the host
+reads each epoch's meters once, for every row together.  Worker threads build
+the rows' classifiers, the phase-2 ones while the card replays phase 1's
+steps (train/steps.py ``StepGraphs``).
 
 With a ``mesh`` the rows are sharded over its ``data`` axis, as the JAX
 sweep shards its seed axis: each rank trains its contiguous rows as one
@@ -110,6 +109,344 @@ def _sub(tree: Tree, prefix: str) -> Tree:
     return {k: v for k, v in tree.items() if k.startswith(prefix)}
 
 
+def _row_results(c, bundle: DataBundle, weighted: bool) -> List[Dict[str, float]]:
+    """Each row's metrics from host ``(corrects, counts)`` ``c``, group-weighted if ``weighted``."""
+    return [results_from_counts(c[0][i], c[1][i], n_places=bundle.n_places,
+                                train_group_ratio=bundle.train_group_ratio if weighted else None)
+            for i in range(len(c[0]))]
+
+
+class _Rows:
+    """The stacked rows: each row's numpy Generator and CPU
+    ``torch.Generator`` (both seeded with its seed) and config, the device,
+    the host arrays staged to it, and the plans' batch slots and those that
+    hold a sample (they go to the counters once the whole call has run, so a
+    cut sweep adds none)."""
+
+    def __init__(self, cfg: TrainConfig, cfgs: List[TrainConfig], seeds: Sequence[int],
+                 bundle: DataBundle, dev: torch.device):
+        self.cfg, self.cfgs, self.bundle, self.dev = cfg, cfgs, bundle, dev
+        self.n = len(seeds)
+        self.rngs = [np.random.default_rng(s) for s in seeds]
+        self.gens = [torch.Generator().manual_seed(int(s)) for s in seeds]
+        self.train_bs = [rc.batch_size for rc in cfgs]
+        # eval batching is semantics-free (running BN stats, per-row logits,
+        # exact group counts): the rows share the largest cell's
+        self.eval_bs = max(rc.batch_size_reg if cfg.is_reg_method else rc.batch_size
+                           for rc in cfgs)
+        self.stage = DeviceCache(dev)
+        self._groups: Dict[int, tuple] = {}
+        self._eval_plans: Dict[Tuple[int, int], tuple] = {}
+        self.contrastive = None  # each row's SupCon rows and the counts, at the first such epoch
+        self.slots = [0, 0]
+
+    def groups(self, split) -> torch.Tensor:
+        """The split's int64 group ids on the device, uploaded once."""
+        got = self._groups.get(id(split))
+        if got is None or got[0] is not split:
+            got = self._groups[id(split)] = (split, upload(split.group.astype(np.int64), self.dev))
+        return got[1]
+
+    def plans(self, split_len: int, bs: List[int], orders=None):
+        """Each row's epoch plan over ``split_len`` samples at its batch size
+        ``bs[i]``: in ``orders[i]``, or shuffled by the row's rng."""
+        with annotate("sweep.plans"):
+            return [epoch_plan(split_len, b, shuffle=o is None, rng=rng, order=o)
+                    for b, o, rng in zip(bs, orders or [None] * self.n, self.rngs)]
+
+    def lrs(self, epoch: int, nbs: List[int], phase: int) -> np.ndarray:
+        """``[S, max(nbs)]`` rates, zero-padded: each row's schedule for an epoch of its
+        ``nbs[i]`` batches (warmup indexed by its REAL batch count, as in its sequential run)."""
+        out = np.zeros((self.n, max(nbs)), np.float32)
+        memo = {}  # rows of one grid cell share (cfg, nb)
+        for i, (rc, nb) in enumerate(zip(self.cfgs, nbs)):
+            if (rc, nb) not in memo:
+                memo[rc, nb] = epoch_batch_lrs(rc, epoch, nb, phase)
+            out[i, :nb] = memo[rc, nb]
+        return out
+
+    def reg_orders(self, reg_split):
+        """This epoch's per-row orders into the reg split (balanced subsets
+        under ``balance_val``, else None: shuffles) and reg batch sizes."""
+        with annotate("sweep.plans"):
+            if reg_split is None:
+                return None, None
+            if self.cfg.balance_val:
+                orders = [balanced_subset_indices(reg_split.group, rng, self.bundle.n_groups)
+                          for rng in self.rngs]
+                return orders, [min(rc.batch_size_reg, len(o)) for rc, o in zip(self.cfgs, orders)]
+            return None, [rc.batch_size_reg for rc in self.cfgs]
+
+    def train(self, st, split, labels, text, plans, epoch: int, phase: int, mask_tree):
+        """One stacked train epoch of ``plans`` at phase ``phase``'s rates.  Plans of one
+        shape stack; rows of different batch sizes pad to the longest epoch."""
+        dev, cfg = self.dev, self.cfg
+        with annotate("sweep.plans"):
+            lrs = self.lrs(epoch, [p.num_batches for p in plans], phase)
+            if len({p.indices.shape for p in plans}) == 1:
+                idx = np.stack([p.indices for p in plans]).astype(np.int64)
+                msk = np.stack([p.mask for p in plans])
+                act = None
+            else:
+                idx, msk, act = _pad_stack_plans(plans)
+            self.slots[0] += msk.size
+            self.slots[1] += int(np.count_nonzero(msk))
+            args = (st, split.emb, self.stage(labels), self.groups(split), upload(idx, dev),
+                    upload(msk, dev), upload(lrs, dev), self.stage(text), mask_tree)
+            active = None if act is None else upload(act, dev)
+        with annotate("sweep.train"):
+            return train_epoch_vmapped(*args, active=active, n_groups=self.bundle.n_groups,
+                                       momentum=cfg.momentum, weight_decay=cfg.weight_decay)
+
+    def evaluate(self, st, split, labels, text):
+        with annotate("sweep.eval"):
+            idx, msk = cached_eval_plan(self._eval_plans, split, self.eval_bs,
+                                        lambda a: upload(a, self.dev))
+            return eval_epoch_vmapped(st, split.emb, self.stage(labels), self.groups(split), idx,
+                                      msk, self.stage(text), n_groups=self.bundle.n_groups)
+
+
+class _Data:
+    """The splits and label vectors the epochs read.  The reg methods split
+    val in two stratified halves: the reg split and what stays val."""
+
+    def __init__(self, cfg: TrainConfig, bundle: DataBundle):
+        if cfg.is_reg_method:
+            reg_idx, val_idx = stratified_split_indices(bundle.val.group, 0.5, seed=42)
+            self.reg, self.val = bundle.val.take(reg_idx), bundle.val.take(val_idx)
+        else:
+            self.reg, self.val = None, bundle.val
+        self.sample_weights = None if not cfg.resample_ce else resampled_ce_weights(
+            bundle.train.y, bundle.train.y_pred, n_classes=cfg.n_cls, correct_class_bias=True,
+            reweighting_by_class=False)
+        self.train_labels = bundle.train.labels(cfg.train_target)
+        if int(self.train_labels.max()) >= bundle.text_class.shape[1]:
+            raise ValueError(f"train_target={cfg.train_target!r} yields labels up to "
+                             f"{int(self.train_labels.max())} but the class text matrix has "
+                             f"only {bundle.text_class.shape[1]} columns (see train/loop.py)")
+        self.val_labels = self.val.labels(cfg.train_target)
+        self.test_labels = bundle.test.labels("class")
+        self.reg_target = self.reg_group = None
+        if self.reg is None:
+            return
+        self.reg_target = self.reg.labels(cfg.train_target)
+        self.reg_group = self.reg.group.astype(np.int32)
+        if int(self.reg_group.max()) >= bundle.text_group.shape[1]:
+            raise ValueError(f"group labels reach {int(self.reg_group.max())} but the group "
+                             f"text matrix has only {bundle.text_group.shape[1]} columns")
+
+
+class _Models:
+    """The rows' stacked modules: the classifiers (``state``), the
+    contrastive heads' params and trace (``head``), and from the stage
+    switch on the MultipleAdapters (``multiple``, trained under
+    ``ma_mask``).  A row's classifiers draw from its own generator alone, in
+    the sequential loop's order, so worker threads build them (the draws
+    release the GIL); the phase-2 ones are each generator's next draws."""
+
+    def __init__(self, cfg: TrainConfig, rows: _Rows, inits: List[Mapping[str, Mapping]]):
+        workers = ThreadPoolExecutor(max_workers=DRAW_WORKERS)
+        singles = list(workers.map(lambda g: make_classifier(cfg, g), rows.gens))
+        for module, init in zip(singles, inits):
+            if "init_sd" in init:
+                module.load_state_dict(_tensors(init["init_sd"]))
+        self.temperature = cfg.zs_temperature
+        self.state = StackedState.stack(singles, rows.dev, self.temperature)
+        self.full_mask = ones_mask(self.state.params)
+        self.head: Optional[StackedState] = None
+        if cfg.tl_method == "contrastive_adapter" and cfg.ca_head is not None:
+            encoders = [make_encoder(cfg, m.adapter, g) for m, g in zip(singles, rows.gens)]
+            for enc, init in zip(encoders, inits):
+                if "ca_head_sd" in init:
+                    enc.head.load_state_dict(_tensors(init["ca_head_sd"], "head."))
+            stacked = StackedState.stack([enc.head for enc in encoders], rows.dev)
+            self.head = StackedState({f"head.{k}": v for k, v in stacked.params.items()}, {},
+                                     {f"head.{k}": v for k, v in stacked.trace.items()})
+        self.multiple, self.ma_mask = None, None
+        self.pending = [workers.submit(make_multiple_classifier, cfg, g) for g in rows.gens] \
+            if cfg.uses_multiple(cfg.epochs) else []
+        workers.shutdown(wait=False)
+
+    def current(self, multiple: bool) -> StackedState:
+        return self.multiple if multiple else self.state
+
+
+class _Best:
+    """Each row's best epoch: worst-group accuracy, epoch and module kind on
+    the host, snapshots on the device, one stacked pair per module kind (a
+    row's best may predate the MultipleAdapter switch while another's
+    postdates it).  Unselected rows hold stale values and are never read."""
+
+    def __init__(self, n: int):
+        self.acc, self.epoch, self.multiple = np.zeros(n), np.zeros(n, np.int64), np.zeros(n, bool)
+        self.snaps: Dict[bool, Optional[Tuple[Tree, Tree]]] = {False: None, True: None}
+
+    def _take(self, rows: np.ndarray, multiple: bool, cur: StackedState, dev) -> None:
+        m = upload(rows, dev)
+        base = self.snaps[multiple] or (cur.params, cur.buffers)
+        self.snaps[multiple] = (_select_rows(base[0], cur.params, m),
+                                _select_rows(base[1], cur.buffers, m))
+
+    def update(self, worst: np.ndarray, epoch: int, multiple: bool, cur: StackedState, dev):
+        """Snapshot the rows whose val worst-group accuracy improved."""
+        improved = worst > self.acc
+        if improved.any():
+            self._take(improved, multiple, cur, dev)
+            self.acc = np.where(improved, worst, self.acc)
+            self.epoch = np.where(improved, epoch, self.epoch)
+            self.multiple = np.where(improved, multiple, self.multiple)
+
+    def fill_never_improved(self, multiple: bool, final: StackedState, epochs: int, dev):
+        """Rows that never improved keep their final state (the sequential loop's fallback)."""
+        never = self.epoch == 0
+        if never.any():
+            self._take(never, multiple, final, dev)
+            self.multiple = np.where(never, multiple, self.multiple)
+            self.epoch = np.where(never, epochs, self.epoch)
+
+
+def _reg_epoch(rows: _Rows, data: _Data, models: _Models, epoch: int, reg):
+    """adapter_reg: a train epoch on the class prompts, then one on the reg
+    split (group prompts unless ``use_cls_prompt_in_reg``)."""
+    b = rows.bundle
+    plans = rows.plans(len(b.train), rows.train_bs)
+    models.state, stats = rows.train(models.state, b.train, data.train_labels, b.text_class,
+                                     plans, epoch, 1, models.full_mask)
+    group_prompt = not rows.cfg.use_cls_prompt_in_reg
+    rplans = rows.plans(len(data.reg), reg[1], orders=reg[0])
+    models.state, reg_stats = rows.train(
+        models.state, data.reg, data.reg_group if group_prompt else data.reg_target,
+        b.text_group if group_prompt else b.text_class, rplans, epoch, 1, models.full_mask)
+    return (stats if group_prompt else stats.merge(reg_stats)), False
+
+
+def _switch_stage(rows: _Rows, models: _Models, best: _Best, inits) -> None:
+    """Phase 2's first epoch.  Under ``continue_from_best`` rows with a best
+    snapshot (all of phase 1's share one kind) load it.  With ``add_adapter``
+    each row's MultipleAdapter takes its phase-1 adapter; else the
+    classifier gets a fresh optimizer (momentum reset)."""
+    cfg, t = rows.cfg, models.temperature
+    if cfg.continue_from_best and (best.epoch > 0).any():
+        has = upload(best.epoch > 0, rows.dev)
+        bp, bb = best.snaps[False]
+        models.state = StackedState.from_tensors(_select_rows(models.state.params, bp, has),
+                                                 _select_rows(models.state.buffers, bb, has), t)
+    if not cfg.add_adapter:
+        models.state = StackedState.from_tensors(models.state.params, models.state.buffers, t)
+        return
+    multiples = [f.result() for f in models.pending]
+    models.pending = []
+    for m, init in zip(multiples, inits):
+        if "ma_new_sd" in init and not cfg.init_near_identity:
+            m.new_adapter.load_state_dict(_tensors(init["ma_new_sd"], "new_adapter."))
+    ma = StackedState.stack(multiples, rows.dev, t)
+    # the old branch (and, near identity, the new one) starts from each
+    # row's phase-1 adapter
+    targets = ("old_cls.adapter.", "new_adapter.") if cfg.init_near_identity \
+        else ("old_cls.adapter.",)
+    old = {**_sub(models.state.params, "adapter."), **_sub(models.state.buffers, "adapter.")}
+    with torch.no_grad():
+        for k, v in old.items():
+            for prefix in targets:
+                name = prefix + k[len("adapter."):]
+                (ma.params if name in ma.params else ma.buffers)[name].copy_(v)
+    models.multiple = StackedState.from_tensors(ma.params, ma.buffers, t)
+    models.ma_mask = freeze_subtrees(models.multiple.params, ("old_cls",))
+
+
+def _phase2_epoch(rows: _Rows, data: _Data, models: _Models, epoch: int, reg):
+    """A sequential method past its feature epochs: the reg split alone, on
+    the MultipleAdapter with ``add_adapter``, at phase 2's rates."""
+    cfg, b = rows.cfg, rows.bundle
+    use_group = cfg.use_group_prompt(epoch)
+    labels = data.reg_group if use_group else data.reg_target
+    text = b.text_group if use_group else b.text_class
+    rplans = rows.plans(len(data.reg), reg[1], orders=reg[0])
+    if cfg.add_adapter:
+        models.multiple, stats = rows.train(models.multiple, data.reg, labels, text, rplans,
+                                            epoch, 2, models.ma_mask)
+    else:
+        models.state, stats = rows.train(models.state, data.reg, labels, text, rplans, epoch, 2,
+                                         models.full_mask)
+    return stats, False
+
+
+def _contrastive_epoch(rows: _Rows, data: _Data, models: _Models, epoch: int, reg):
+    """The rows' SupCon epoch, then the interleaved CE pass (a whole epoch,
+    or capped at ``ca_ce_update`` batches); pure SupCon takes its train
+    metrics from the weighted zero-shot pass."""
+    cfg, b, S, dev = rows.cfg, rows.bundle, rows.n, rows.dev
+    # rows and reshuffles draw from each row's rng in the sequential loop's
+    # order; the row counts depend only on the data, so the stack is regular
+    with annotate("sweep.plans"):
+        if rows.contrastive is None:
+            rows.contrastive = contrastive_rows_and_counts(cfg, b, rows.rngs)
+        ca_rows, ca_counts = rows.contrastive
+        batches = np.stack([contrastive_epoch_rows(ca_rows[i], rows.rngs[i], cfg.batch_factor)
+                            for i in range(S)])
+        rows_dev = upload(batches, dev)
+        lrs_dev = upload(rows.lrs(epoch, [batches.shape[1]] * S, 1), dev)
+    state, head = models.state, models.head or StackedState({}, {}, {})
+    enc = StackedState({**_sub(state.params, "adapter."), **head.params},
+                       _sub(state.buffers, "adapter."),
+                       {**_sub(state.trace, "adapter."), **head.trace})
+    with annotate("sweep.train"):
+        train_contrastive_epoch_vmapped(
+            enc, b.train.emb, rows_dev, lrs_dev, ones_mask(enc.params), num_anchor=ca_counts[0],
+            num_positive=ca_counts[1], num_negative=ca_counts[2], temperature=cfg.cl_temperature,
+            contrastive_weight=cfg.contrastive_weight, ca_pre_norm=cfg.ca_pre_norm,
+            momentum=cfg.momentum, weight_decay=cfg.weight_decay)
+    if cfg.ca_ce_update == 0:
+        return rows.evaluate(state, b.train, data.train_labels, b.text_class), True
+    ce_orders = [rng.permutation(len(b.train))[: cfg.ca_ce_update * bs]
+                 for rng, bs in zip(rows.rngs, rows.train_bs)] if cfg.ca_ce_update > 0 else None
+    plans = rows.plans(len(b.train), rows.train_bs, orders=ce_orders)
+    models.state, stats = rows.train(state, b.train, data.train_labels, b.text_class, plans,
+                                     epoch, 1, models.full_mask)
+    return stats, False
+
+
+def _erm_epoch(rows: _Rows, data: _Data, models: _Models, epoch: int, reg):
+    """A train-split epoch (linear_probing, adapter, phase 1), in orders
+    drawn from the resampled weights under ``resample_ce``."""
+    b = rows.bundle
+    w = data.sample_weights
+    orders = None if w is None else [weighted_sample_indices(w, len(b.train), rng)
+                                     for rng in rows.rngs]
+    plans = rows.plans(len(b.train), rows.train_bs, orders=orders)
+    models.state, stats = rows.train(models.state, b.train, data.train_labels, b.text_class,
+                                     plans, epoch, 1, models.full_mask)
+    return stats, False
+
+
+# TrainConfig.epoch_kind -> epoch (its train meters, whether they are group-weighted)
+_EPOCHS = {"reg": _reg_epoch, "phase2": _phase2_epoch, "contrastive": _contrastive_epoch,
+           "erm": _erm_epoch}
+
+
+def _probes(rows: _Rows, best: _Best, target: str) -> List[Dict[str, float]]:
+    """Each row's zero-shot probe of the test split on ``target`` with its
+    best model: one stacked evaluation per module kind."""
+    cfg, b = rows.cfg, rows.bundle
+    if cfg.tl_method == "linear_probing":
+        return [zero_shot_results(b, target, cfg.zs_temperature)] * rows.n
+    text = b.text_class if target == "class" else b.text_spurious
+    labels = b.test.labels(target)
+    out: List[Optional[Dict[str, float]]] = [None] * rows.n
+    for kind in (False, True):
+        ids = [i for i in range(rows.n) if bool(best.multiple[i]) == kind]
+        if not ids:
+            continue
+        ridx = upload(np.asarray(ids, np.int64), rows.dev)
+        sub = StackedState(*(_take_rows(t, ridx) for t in best.snaps[kind]), {},
+                           cfg.zs_temperature)
+        stats = rows.evaluate(sub, b.test, labels, text)
+        c = torch.stack([stats.corrects, stats.counts]).cpu().numpy()
+        for i, res in zip(ids, _row_results(c, b, True)):
+            out[i] = res
+    return out
+
+
 @spanned("sweep.run")
 def train_seeds_vmapped(
     cfg: TrainConfig,
@@ -135,6 +472,7 @@ def train_seeds_vmapped(
     their padded tail, so the whole (lr x bsr x bs) grid trains as one
     program.  Cells must agree with ``cfg`` in everything but
     learning_rate, learning_rate_reg, batch_size_reg and batch_size.
+    Without either, ``cfg`` is the one cell.
 
     ``inits`` (one per row, in ``train_all_epochs``'s ``init`` layout) gives
     the rows' initial weights; without it each row draws from a CPU
@@ -152,407 +490,69 @@ def train_seeds_vmapped(
     if lr_grid is not None:
         cell_grid = [cfg.replace(learning_rate=float(lr), learning_rate_reg=float(lrr))
                      for (lr, lrr) in lr_grid]
-    if cell_grid is not None:
-        for rc in cell_grid:
-            if rc.replace(learning_rate=cfg.learning_rate,
-                          learning_rate_reg=cfg.learning_rate_reg,
-                          batch_size_reg=cfg.batch_size_reg,
-                          batch_size=cfg.batch_size) != cfg:
-                raise ValueError(
-                    "cell_grid cells may differ from the base config only in "
-                    "learning_rate / learning_rate_reg / batch_size_reg / batch_size")
-        row_cfgs = [rc for rc in cell_grid for _ in seeds]
-        seeds = [s for _ in cell_grid for s in seeds]
-    else:
-        row_cfgs = None
+    cells = [cfg] if cell_grid is None else list(cell_grid)
+    for rc in cells:
+        if rc.replace(learning_rate=cfg.learning_rate, learning_rate_reg=cfg.learning_rate_reg,
+                      batch_size_reg=cfg.batch_size_reg, batch_size=cfg.batch_size) != cfg:
+            raise ValueError(
+                "cell_grid cells may differ from the base config only in "
+                "learning_rate / learning_rate_reg / batch_size_reg / batch_size")
+    row_cfgs = [rc for rc in cells for _ in seeds]
+    seeds = [s for _ in cells for s in seeds]
     S = len(seeds)
     if inits is not None and len(inits) != S:
         raise ValueError(f"inits has {len(inits)} entries for {S} rows")
     inits = list(inits) if inits is not None else [{}] * S
-    # eval batching is semantics-free (running BN stats, per-row logits,
-    # exact group counts): grid-stacked rows share the largest cell's
-    eval_bs = (
-        (max(rc.batch_size_reg for rc in row_cfgs) if row_cfgs is not None
-         else cfg.batch_size_reg)
-        if cfg.is_reg_method
-        else (max(rc.batch_size for rc in row_cfgs) if row_cfgs is not None
-              else cfg.batch_size)
-    )
     data_group = None
     if mesh is not None:
         n_data = axis_size(mesh, "data")
         if S % n_data:
-            what = (f"rows (grid cells x seeds) = {S}" if row_cfgs is not None
-                    else f"len(seeds)={S}")
+            what = f"len(seeds)={S}" if cell_grid is None else f"rows (grid cells x seeds) = {S}"
             raise ValueError(f"{what} must be divisible by the mesh data axis size ({n_data})")
         data_group = axis_group(mesh, "data")
         S //= n_data
         mine = slice(axis_rank(mesh, "data") * S, (axis_rank(mesh, "data") + 1) * S)
-        seeds, inits = seeds[mine], inits[mine]
-        row_cfgs = row_cfgs[mine] if row_cfgs is not None else None
+        seeds, inits, row_cfgs = seeds[mine], inits[mine], row_cfgs[mine]
     dev = resolve_device(device)
     bundle = move_bundle(gather_bundle(bundle), dev)
-    rngs = [np.random.default_rng(s) for s in seeds]
-    gens = [torch.Generator().manual_seed(int(s)) for s in seeds]
-
-    def batch_lrs(epoch, nb, phase):
-        """[nb] shared schedule, or [S, nb] per row when grid-stacked."""
-        if row_cfgs is None:
-            return epoch_batch_lrs(cfg, epoch, nb, phase)
-        return np.stack([epoch_batch_lrs(rc, epoch, nb, phase) for rc in row_cfgs])
-
-    def batch_lrs_plans(epoch, plans, phase):
-        """Per-plan schedules: [nb] shared, or [S, nb_max] zero-padded when
-        rows have their own configs or epoch lengths (warmup is indexed by
-        the row's REAL batch count, matching its sequential run)."""
-        with annotate("sweep.plans"):
-            nbs = [p.num_batches for p in plans]
-            if row_cfgs is None and len(set(nbs)) == 1:
-                return epoch_batch_lrs(cfg, epoch, nbs[0], phase)
-            out = np.zeros((S, max(nbs)), np.float32)
-            memo = {}  # rows of one grid cell share (cfg, nb)
-            for i in range(S):
-                rc = row_cfgs[i] if row_cfgs is not None else cfg
-                row = memo.get((rc, nbs[i]))
-                if row is None:
-                    row = memo[(rc, nbs[i])] = epoch_batch_lrs(rc, epoch, nbs[i], phase)
-                out[i, : nbs[i]] = row
-            return out
-
-    if cfg.is_reg_method:
-        reg_idx, val_idx = stratified_split_indices(bundle.val.group, 0.5, seed=42)
-        reg_split = bundle.val.take(reg_idx)
-        val_split = bundle.val.take(val_idx)
-    else:
-        reg_split, val_split = None, bundle.val
-    # the train batch size per row when bs-stacked (a list gives per-row plans)
-    train_bs = [rc.batch_size for rc in row_cfgs] if row_cfgs is not None else cfg.batch_size
-
-    sample_weights = None
-    if cfg.resample_ce:
-        sample_weights = resampled_ce_weights(
-            bundle.train.y, bundle.train.y_pred, n_classes=cfg.n_cls,
-            correct_class_bias=True, reweighting_by_class=False,
-        )
-
-    # ----- initial weights, each row's draws in the sequential loop's order.
-    # A row's classifiers draw from its own generator alone, so the rows are
-    # built on worker threads (the draws release the GIL), each row's draws
-    # in order within its task.
-    workers = ThreadPoolExecutor(max_workers=DRAW_WORKERS)
-    singles = list(workers.map(lambda g: make_classifier(cfg, g), gens))
-    for module, init in zip(singles, inits):
-        if "init_sd" in init:
-            module.load_state_dict(_tensors(init["init_sd"]))
-    temperature = cfg.zs_temperature
-    state = StackedState.stack(singles, dev, temperature)
-    full_mask = ones_mask(state.params)
-
-    head: Optional[StackedState] = None  # the contrastive heads' params and trace
-    if cfg.tl_method == "contrastive_adapter" and cfg.ca_head is not None:
-        encoders = [make_encoder(cfg, m.adapter, g) for m, g in zip(singles, gens)]
-        for enc, init in zip(encoders, inits):
-            if "ca_head_sd" in init:
-                enc.head.load_state_dict(_tensors(init["ca_head_sd"], "head."))
-        stacked = StackedState.stack([enc.head for enc in encoders], dev)
-        head = StackedState({f"head.{k}": v for k, v in stacked.params.items()}, {},
-                            {f"head.{k}": v for k, v in stacked.trace.items()})
-    del singles
-
-    ma_state: Optional[StackedState] = None
-    ma_mask = None
-
-    train_labels = bundle.train.labels(cfg.train_target)
-    if int(train_labels.max()) >= bundle.text_class.shape[1]:
-        raise ValueError(
-            f"train_target={cfg.train_target!r} yields labels up to "
-            f"{int(train_labels.max())} but the class text matrix has only "
-            f"{bundle.text_class.shape[1]} columns (see train/loop.py)")
-    val_labels = val_split.labels(cfg.train_target)
-    test_labels_cls = bundle.test.labels("class")
-    reg_labels_target = reg_split.labels(cfg.train_target) if reg_split is not None else None
-    reg_labels_group = reg_split.group.astype(np.int32) if reg_split is not None else None
-    if reg_labels_group is not None and int(reg_labels_group.max()) >= bundle.text_group.shape[1]:
-        raise ValueError(
-            f"group labels reach {int(reg_labels_group.max())} but the group "
-            f"text matrix has only {bundle.text_group.shape[1]} columns")
-
-    text_class, text_group = bundle.text_class, bundle.text_group
-    feat_epochs = (cfg.epochs if cfg.epochs_feature_learning is None
-                   else cfg.epochs_feature_learning)  # 0: stage 2 from epoch 1
-    # The phase-2 classifiers are each row generator's next draws, and
-    # nothing else draws from the generators before them: the workers build
-    # them (host work alone) while phase 1 trains on the card.
-    multiples_ready = []
-    if cfg.is_two_phase and cfg.add_adapter and cfg.epochs > feat_epochs:
-        multiples_ready = [workers.submit(make_multiple_classifier, cfg, g) for g in gens]
-    workers.shutdown(wait=False)
-
-    # Per-row best bookkeeping: scalars on the host, snapshots on the device,
-    # one stacked pair per module kind (a row's best may predate the
-    # MultipleAdapter switch while another's postdates it).  Unselected rows
-    # hold stale values and are never read.
-    best = {"acc": np.zeros(S), "epoch": np.zeros(S, np.int64),
-            "multiple": np.zeros(S, bool)}
-    dev_best: Dict[bool, Optional[Tuple[Tree, Tree]]] = {False: None, True: None}
-    contrastive_rows, ca_counts = None, None
-    history = {"train": [[] for _ in range(S)], "val": [[] for _ in range(S)],
-               "test": [[] for _ in range(S)]}
-
-    # Host arrays that recur every epoch (labels, int64 groups, text
-    # matrices, eval plans) are staged to the device once.
-    stage = DeviceCache(dev)
-    groups64: Dict[int, tuple] = {}
-    eval_plans: Dict[Tuple[int, int], tuple] = {}
-
-    def grp(split):
-        got = groups64.get(id(split))
-        if got is None or got[0] is not split:
-            got = groups64[id(split)] = (split, upload(split.group.astype(np.int64), dev))
-        return got[1]
-
-    # the stacked plans' batch slots and those that hold a sample; they go
-    # to the counters once the whole call has run, so a cut sweep adds none
-    slots = [0, 0]
-
-    def vm_train(st, split, labels, text, plans, lrs, mask_tree):
-        with annotate("sweep.plans"):
-            if len({p.indices.shape for p in plans}) == 1:
-                idx = np.stack([p.indices for p in plans]).astype(np.int64)
-                msk = np.stack([p.mask for p in plans])
-                act = None
-            else:  # rows of different batch sizes: pad to the longest epoch
-                idx, msk, act = _pad_stack_plans(plans)
-            slots[0] += msk.size
-            slots[1] += int(np.count_nonzero(msk))
-            args = (st, split.emb, stage(labels), grp(split), upload(idx, dev),
-                    upload(msk, dev), upload(np.asarray(lrs, np.float32), dev), stage(text),
-                    mask_tree)
-            active = None if act is None else upload(act, dev)
-        with annotate("sweep.train"):
-            return train_epoch_vmapped(*args, active=active, n_groups=bundle.n_groups,
-                                       momentum=cfg.momentum, weight_decay=cfg.weight_decay)
-
-    def vm_eval(st, split, labels, text):
-        with annotate("sweep.eval"):
-            idx, msk = cached_eval_plan(eval_plans, split, eval_bs, lambda a: upload(a, dev))
-            return eval_epoch_vmapped(st, split.emb, stage(labels), grp(split), idx, msk,
-                                      stage(text), n_groups=bundle.n_groups)
-
-    def make_plans(split_len, bs, orders=None, shuffle=True):
-        """``bs`` is shared (int) or per-row (list) for grid-stacked rows."""
-        with annotate("sweep.plans"):
-            plans = []
-            for i in range(S):
-                order = None if orders is None else orders[i]
-                bs_i = bs[i] if isinstance(bs, list) else bs
-                plans.append(epoch_plan(split_len, bs_i, shuffle=shuffle and order is None,
-                                        rng=rngs[i], order=order))
-            return plans
+    rows = _Rows(cfg, row_cfgs, seeds, bundle, dev)
+    data = _Data(cfg, bundle)
+    models = _Models(cfg, rows, inits)
+    best = _Best(S)
+    history = []  # per epoch: the rows' (train, val, test) results
 
     for epoch in range(1, cfg.epochs + 1):
         with annotate("sweep.epoch"):
-            # per-row balanced reg orders; per-row reg batch size when stacked
-            with annotate("sweep.plans"):
-                if cfg.balance_val and cfg.is_reg_method:
-                    reg_orders = [balanced_subset_indices(reg_split.group, rngs[i], bundle.n_groups)
-                                  for i in range(S)]
-                    reg_bs = [min((row_cfgs[i] if row_cfgs is not None else cfg).batch_size_reg,
-                                  len(reg_orders[i])) for i in range(S)]
-                elif reg_split is not None:
-                    reg_orders = None
-                    reg_bs = [(row_cfgs[i] if row_cfgs is not None else cfg).batch_size_reg
-                              for i in range(S)]
-
-            train_weighted = False
-            if cfg.tl_method == "adapter_reg":
-                plans = make_plans(len(bundle.train), train_bs)
-                state, stats = vm_train(state, bundle.train, train_labels, text_class, plans,
-                                        batch_lrs_plans(epoch, plans, 1), full_mask)
-                group_prompt = not cfg.use_cls_prompt_in_reg
-                rplans = make_plans(len(reg_split), reg_bs, orders=reg_orders)
-                state, reg_stats = vm_train(
-                    state, reg_split, reg_labels_group if group_prompt else reg_labels_target,
-                    text_group if group_prompt else text_class, rplans,
-                    batch_lrs_plans(epoch, rplans, 1), full_mask)
-                if not group_prompt:
-                    stats = stats.merge(reg_stats)
-            elif cfg.is_two_phase and epoch > feat_epochs:
-                if epoch == feat_epochs + 1:
-                    if cfg.continue_from_best and (best["epoch"] > 0).any():
-                        # rows with a best snapshot load it; the rest keep their
-                        # phase-1 state (all phase-1 snapshots share one kind)
-                        has = upload(best["epoch"] > 0, dev)
-                        bp, bb = dev_best[False]
-                        state = StackedState.from_tensors(_select_rows(state.params, bp, has),
-                                                          _select_rows(state.buffers, bb, has),
-                                                          temperature)
-                    if cfg.add_adapter:
-                        multiples = [f.result() for f in multiples_ready]
-                        for m, init in zip(multiples, inits):
-                            if "ma_new_sd" in init and not cfg.init_near_identity:
-                                m.new_adapter.load_state_dict(
-                                    _tensors(init["ma_new_sd"], "new_adapter."))
-                        ma = StackedState.stack(multiples, dev, temperature)
-                        del multiples
-                        # the old branch (and, near identity, the new one) starts
-                        # from each row's phase-1 adapter
-                        targets = ("old_cls.adapter.", "new_adapter.") if cfg.init_near_identity \
-                            else ("old_cls.adapter.",)
-                        old = {**_sub(state.params, "adapter."), **_sub(state.buffers, "adapter.")}
-                        with torch.no_grad():
-                            for k, v in old.items():
-                                for prefix in targets:
-                                    name = prefix + k[len("adapter."):]
-                                    (ma.params if name in ma.params else ma.buffers)[name].copy_(v)
-                        ma_state = StackedState.from_tensors(ma.params, ma.buffers, temperature)
-                        ma_mask = freeze_subtrees(ma_state.params, ("old_cls",))
-                    else:
-                        # a fresh optimizer on the same parameters (momentum reset)
-                        state = StackedState.from_tensors(state.params, state.buffers, temperature)
-
-                use_group = cfg.use_group_prompt(epoch)
-                labels2 = reg_labels_group if use_group else reg_labels_target
-                text2 = text_group if use_group else text_class
-                rplans = make_plans(len(reg_split), reg_bs, orders=reg_orders)
-                rlrs = batch_lrs_plans(epoch, rplans, 2)
-                if cfg.add_adapter:
-                    ma_state, stats = vm_train(ma_state, reg_split, labels2, text2, rplans, rlrs,
-                                               ma_mask)
-                else:
-                    state, stats = vm_train(state, reg_split, labels2, text2, rplans, rlrs,
-                                            full_mask)
-            elif cfg.tl_method == "contrastive_adapter":
-                # the rows' SupCon epochs: row construction and reshuffles draw
-                # from each row's rng in the sequential loop's order; the row
-                # counts depend only on the data, so the stack is regular
-                with annotate("sweep.plans"):
-                    if contrastive_rows is None:
-                        contrastive_rows, ca_counts = contrastive_rows_and_counts(cfg, bundle, rngs)
-                    rows = np.stack([contrastive_epoch_rows(contrastive_rows[i], rngs[i],
-                                                            cfg.batch_factor) for i in range(S)])
-                    rows_dev = upload(rows, dev)
-                    lrs_dev = upload(np.asarray(batch_lrs(epoch, rows.shape[1], 1), np.float32),
-                                     dev)
-                enc = StackedState(
-                    {**_sub(state.params, "adapter."), **(head.params if head else {})},
-                    _sub(state.buffers, "adapter."),
-                    {**_sub(state.trace, "adapter."), **(head.trace if head else {})})
-                with annotate("sweep.train"):
-                    train_contrastive_epoch_vmapped(
-                        enc, bundle.train.emb, rows_dev, lrs_dev,
-                        ones_mask(enc.params), num_anchor=ca_counts[0], num_positive=ca_counts[1],
-                        num_negative=ca_counts[2], temperature=cfg.cl_temperature,
-                        contrastive_weight=cfg.contrastive_weight, ca_pre_norm=cfg.ca_pre_norm,
-                        momentum=cfg.momentum, weight_decay=cfg.weight_decay,
-                    )
-                if cfg.ca_ce_update != 0:
-                    # the interleaved CE pass (a whole epoch, or capped at
-                    # ca_ce_update batches), each row's rng in the loop's order
-                    ce_orders = None
-                    if cfg.ca_ce_update > 0:
-                        ce_orders = [
-                            rngs[i].permutation(len(bundle.train))[
-                                : cfg.ca_ce_update
-                                * (train_bs[i] if isinstance(train_bs, list) else train_bs)]
-                            for i in range(S)]
-                    plans = make_plans(len(bundle.train), train_bs, orders=ce_orders)
-                    state, stats = vm_train(state, bundle.train, train_labels, text_class, plans,
-                                            batch_lrs_plans(epoch, plans, 1), full_mask)
-                else:
-                    # pure SupCon: train metrics from the weighted zero-shot pass
-                    stats = vm_eval(state, bundle.train, train_labels, text_class)
-                    train_weighted = True
-            else:
-                orders = None
-                if sample_weights is not None:
-                    orders = [weighted_sample_indices(sample_weights, len(bundle.train), rngs[i])
-                              for i in range(S)]
-                plans = make_plans(len(bundle.train), train_bs, orders=orders)
-                state, stats = vm_train(state, bundle.train, train_labels, text_class, plans,
-                                        batch_lrs_plans(epoch, plans, 1), full_mask)
-
-            in_ma = cfg.add_adapter and cfg.is_two_phase and epoch > feat_epochs
-            cur = ma_state if in_ma else state
-            val_stats = vm_eval(cur, val_split, val_labels, text_class)
-            test_stats = vm_eval(cur, bundle.test, test_labels_cls, text_class)
+            reg = rows.reg_orders(data.reg)
+            kind = cfg.epoch_kind(epoch)
+            if kind == "phase2" and epoch == cfg.feature_epochs + 1:
+                _switch_stage(rows, models, best, inits)
+            stats, train_weighted = _EPOCHS[kind](rows, data, models, epoch, reg)
+            multiple = cfg.uses_multiple(epoch)
+            cur = models.current(multiple)
+            val_stats = rows.evaluate(cur, data.val, data.val_labels, bundle.text_class)
+            test_stats = rows.evaluate(cur, bundle.test, data.test_labels, bundle.text_class)
             # ONE host read for the epoch's train/val/test meters of every row
             with annotate("sweep.read"):
                 counts = torch.stack([torch.stack([s.corrects, s.counts])
                                       for s in (stats, val_stats, test_stats)]).cpu().numpy()
-
-            def _res(c, weighted):
-                return [results_from_counts(c[0][i], c[1][i], n_places=bundle.n_places,
-                                            train_group_ratio=(bundle.train_group_ratio
-                                                               if weighted else None))
-                        for i in range(S)]
-
             with annotate("sweep.select"):
-                train_res = _res(counts[0], train_weighted)
-                val_res = _res(counts[1], True)
-                test_res = _res(counts[2], True)
-                for i in range(S):
-                    history["train"][i].append(ordered(train_res[i]))
-                    history["val"][i].append(ordered(val_res[i]))
-                    history["test"][i].append(ordered(test_res[i]))
+                res = [_row_results(c, bundle, w)
+                       for c, w in zip(counts, (train_weighted, True, True))]
+                history.append([[ordered(r) for r in part] for part in res])
                 if verbose:
-                    print(f"epoch {epoch}: val worst", [round(v["worst_acc"], 4) for v in val_res])
+                    print(f"epoch {epoch}: val worst", [round(v["worst_acc"], 4) for v in res[1]])
+                best.update(np.asarray([v["worst_acc"] for v in res[1]]), epoch, multiple, cur,
+                            dev)
 
-                worst = np.asarray([v["worst_acc"] for v in val_res])
-                improved = worst > best["acc"]
-                if improved.any():
-                    m = upload(improved, dev)
-                    base = dev_best[in_ma] or (cur.params, cur.buffers)
-                    dev_best[in_ma] = (_select_rows(base[0], cur.params, m),
-                                       _select_rows(base[1], cur.buffers, m))
-                    best["acc"] = np.where(improved, worst, best["acc"])
-                    best["epoch"] = np.where(improved, epoch, best["epoch"])
-                    best["multiple"] = np.where(improved, in_ma, best["multiple"])
-
-    # -------- final zero-shot probes with each row's best model; rows that
-    # never improved keep their final state (the sequential loop's fallback)
-    final_in_ma = cfg.add_adapter and cfg.is_two_phase and cfg.epochs > feat_epochs
-    final_state = ma_state if final_in_ma else state
-    never = best["epoch"] == 0
-    if never.any():
-        m = upload(never, dev)
-        base = dev_best[final_in_ma] or (final_state.params, final_state.buffers)
-        dev_best[final_in_ma] = (_select_rows(base[0], final_state.params, m),
-                                 _select_rows(base[1], final_state.buffers, m))
-        best["multiple"] = np.where(never, final_in_ma, best["multiple"])
-        best["epoch"] = np.where(never, cfg.epochs, best["epoch"])
-
-    def zs(target):
-        text = bundle.text_class if target == "class" else bundle.text_spurious
-        labels = bundle.test.labels(target)
-        if cfg.tl_method == "linear_probing":
-            return [zero_shot_results(bundle, target, cfg.zs_temperature)] * S
-        # one stacked evaluation per module kind
-        out: List[Optional[Dict[str, float]]] = [None] * S
-        for kind in (False, True):
-            rows = [i for i in range(S) if bool(best["multiple"][i]) == kind]
-            if not rows:
-                continue
-            ridx = upload(np.asarray(rows, np.int64), dev)
-            sub = StackedState(_take_rows(dev_best[kind][0], ridx),
-                               _take_rows(dev_best[kind][1], ridx), {}, temperature)
-            stats = vm_eval(sub, bundle.test, labels, text)
-            c = torch.stack([stats.corrects, stats.counts]).cpu().numpy()
-            for j, i in enumerate(rows):
-                out[i] = results_from_counts(c[0][j], c[1][j], n_places=bundle.n_places,
-                                             train_group_ratio=bundle.train_group_ratio)
-        return out
-
-    zs_class = zs("class")
-    zs_spurious = zs("spurious")
-    results = []
-    for i in range(S):
-        be = int(best["epoch"][i])  # never-improved rows were set to cfg.epochs above
-        results.append(((history["train"][i][be - 1], history["val"][i][be - 1],
-                         history["test"][i][be - 1]),
-                        (ordered(zs_class[i]), ordered(zs_spurious[i]))))
-    count("sweep.slots", slots[0])
-    count("sweep.useful_slots", slots[1])
+    # final zero-shot probes with each row's best model
+    multiple = cfg.uses_multiple(cfg.epochs)
+    best.fill_never_improved(multiple, models.current(multiple), cfg.epochs, dev)
+    zs_class, zs_spurious = _probes(rows, best, "class"), _probes(rows, best, "spurious")
+    results = [(tuple(part[i] for part in history[int(best.epoch[i]) - 1]),
+                (ordered(zs_class[i]), ordered(zs_spurious[i]))) for i in range(S)]
+    count("sweep.slots", rows.slots[0])
+    count("sweep.useful_slots", rows.slots[1])
     if data_group is None:
         return results
     parts = [None] * dist.get_world_size(data_group)

@@ -146,6 +146,32 @@ class TrainConfig:
         return not self.use_cls_prompt_in_reg
 
     @property
+    def feature_epochs(self) -> int:
+        """Phase 1's epochs: ``epochs_feature_learning``, or every epoch when
+        it is unset.  0 is a real value: phase 2 from epoch 1 (final_main.py:
+        933)."""
+        return self.epochs if self.epochs_feature_learning is None else self.epochs_feature_learning
+
+    def uses_multiple(self, epoch: int) -> bool:
+        """Whether ``epoch`` (absolute, 1-based) trains and evaluates the
+        MultipleAdapter: phase 2 with ``add_adapter``."""
+        return self.add_adapter and self.is_two_phase and epoch > self.feature_epochs
+
+    def epoch_kind(self, epoch: int) -> str:
+        """What ``epoch`` (absolute, 1-based) trains, tested in the
+        reference's order (final_main.py:932-984): ``"reg"`` (adapter_reg's
+        train pass then reg pass), ``"phase2"`` (a sequential method past its
+        feature epochs: the reg split alone), ``"contrastive"`` (SupCon, then
+        the CE pass) or ``"erm"`` (a train-split epoch)."""
+        if self.tl_method == "adapter_reg":
+            return "reg"
+        if self.is_two_phase and epoch > self.feature_epochs:
+            return "phase2"
+        if self.tl_method == "contrastive_adapter":
+            return "contrastive"
+        return "erm"
+
+    @property
     def warm_epochs(self) -> int:
         return 10
 

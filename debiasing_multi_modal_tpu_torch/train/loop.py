@@ -519,10 +519,6 @@ def train_all_epochs(
         (contrastive_rows,), ca_counts = contrastive_rows_and_counts(cfg, bundle, [rng], log)
         log(f"contrastive rows: {contrastive_rows.shape}")
 
-    feat_epochs = (
-        cfg.epochs if cfg.epochs_feature_learning is None
-        else cfg.epochs_feature_learning
-    )  # 0 is a real value: stage 2 from epoch 1 (reference final_main.py:933)
     start_epoch = 1
 
     # ----- resume from the latest checkpoint
@@ -553,7 +549,7 @@ def train_all_epochs(
             start_epoch = saved_epoch + 1
 
     def current_module_and_state(epoch):
-        if cfg.add_adapter and cfg.is_two_phase and epoch > feat_epochs:
+        if cfg.uses_multiple(epoch):
             return multiple, ma_state
         return single, state
 
@@ -585,7 +581,8 @@ def train_all_epochs(
 
         # ---------------- train one epoch
         train_weighted = False
-        if cfg.tl_method == "adapter_reg":
+        kind = cfg.epoch_kind(epoch)
+        if kind == "reg":
             # interleaved: train loader (class prompts) then reg loader
             state, stats = run_train(
                 state, bundle.train, train_labels, text_class,
@@ -600,9 +597,9 @@ def train_all_epochs(
             )
             if not group_prompt:
                 stats = stats.merge(reg_stats)
-        elif cfg.is_two_phase and epoch > feat_epochs:
+        elif kind == "phase2":
             # ---------------- stage switch
-            if epoch == feat_epochs + 1:
+            if epoch == cfg.feature_epochs + 1:
                 if cfg.continue_from_best and best["sd"] is not None:
                     log("Load Best (Worst-acc) Model.")
                     single.load_state_dict(best["sd"])
@@ -635,7 +632,7 @@ def train_all_epochs(
                 state, stats = run_train(
                     state, reg_split, labels2, text2, reg_bs, 2, epoch, reg_order, full_mask,
                 )
-        elif cfg.tl_method == "contrastive_adapter":
+        elif kind == "contrastive":
             # Supervised-contrastive feature learning on the adapter (the
             # reference's notebook-driven CA trainer, visualizer_supcon.py
             # train_one_epoch_cl).  The rows are reshuffled every epoch.  The

@@ -174,7 +174,7 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
 def test_port_sources_name_no_jax_import():
     pkg = os.path.join(REPO, "debiasing_multi_modal_tpu_torch")
     offenders = []
-    paths = [os.path.join(REPO, "chip_smoke.py")]
+    paths = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "chip_profile.py")]
     for root, _, files in os.walk(pkg):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     for path in paths:
@@ -236,3 +236,32 @@ def test_port_scripts_import_nothing_of_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert (tmp_path / "RN50.pt").is_file()
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == {"bad": []}
+
+
+CHIP_PROFILE = r"""
+import json, sys
+import chip_profile
+names = ("image_stages", "vit_image_stages", "text_stages", "train_stages",
+         "bottleneck_profile", "kernel_breakdown", "main")
+try:
+    chip_profile.main([])
+except SystemExit as e:
+    said = str(e)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "flax"))
+             or m == "debiasing_multi_modal_tpu"
+             or m.startswith("debiasing_multi_modal_tpu."))
+print(json.dumps({"missing": [n for n in names if not callable(getattr(chip_profile, n, None))],
+                  "said": said, "bad": bad}))
+"""
+
+
+def test_chip_profile_imports_on_the_cpu():
+    """The bring-up stage profilers' script imports without a card, holds
+    every profiler, leaves JAX out, and its CLI refuses to run without CUDA."""
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-c", CHIP_PROFILE], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == {
+        "missing": [], "said": "chip_profile.py: CUDA is not available", "bad": []}

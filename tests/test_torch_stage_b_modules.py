@@ -249,6 +249,41 @@ def test_config_is_the_jax_config():
         TrainConfig(tl_method="adapter", add_adapter=True)
 
 
+# (tl_method, epochs_feature_learning, add_adapter, epoch) -> (epoch_kind,
+# uses_multiple), 6 epochs: the reference's schedule (final_main.py:932-984)
+# tests adapter_reg, then a sequential method past its feature epochs, then
+# SupCon, else ERM; the MultipleAdapter trains in phase 2 with add_adapter.
+SCHEDULE = [
+    ("linear_probing", None, False, 1, "erm", False),
+    ("linear_probing", None, True, 3, "erm", False),
+    ("adapter", None, False, 6, "erm", False),
+    ("adapter", 2, False, 4, "erm", False),
+    ("adapter_reg", None, False, 1, "reg", False),
+    ("adapter_reg", 2, True, 5, "reg", False),
+    ("adapter_reg_seq", 2, False, 2, "erm", False),
+    ("adapter_reg_seq", 2, False, 3, "phase2", False),
+    ("adapter_reg_seq", 2, True, 3, "phase2", True),
+    ("adapter_reg_seq", 0, False, 1, "phase2", False),
+    ("adapter_reg_seq", 0, True, 1, "phase2", True),
+    ("adapter_reg_seq_alter", 2, True, 1, "erm", False),
+    ("adapter_reg_seq_alter", 2, True, 2, "erm", False),
+    ("adapter_reg_seq_alter", 2, True, 3, "phase2", True),
+    ("adapter_reg_seq_alter", 2, True, 6, "phase2", True),
+    ("adapter_reg_seq_alter", 2, False, 4, "phase2", False),
+    ("adapter_reg_seq_alter", 6, True, 6, "erm", False),
+    ("contrastive_adapter", None, False, 1, "contrastive", False),
+    ("contrastive_adapter", 2, True, 4, "contrastive", False),
+]
+
+
+@pytest.mark.parametrize("method,feature,add_adapter,epoch,kind,multiple", SCHEDULE)
+def test_epoch_schedule(method, feature, add_adapter, epoch, kind, multiple):
+    cfg = TrainConfig(tl_method=method, epochs=6, epochs_feature_learning=feature,
+                      add_adapter=add_adapter)
+    assert cfg.feature_epochs == (6 if feature is None else feature)
+    assert (cfg.epoch_kind(epoch), cfg.uses_multiple(epoch)) == (kind, multiple)
+
+
 def test_samplers_are_bit_equal_to_jax():
     rng = np.random.default_rng(4)
     groups = rng.integers(0, 4, 203).astype(np.int32)
