@@ -10,6 +10,7 @@
                                              # stride-1 blocks alone
     python3 chip_smoke.py --only vitl14_336_bf16  # kernel 1 at ViT-L/14@336px's
                                              # image shape and its bf16 batch alone
+    python3 chip_smoke.py --only layer_norm  # the LayerNorm kernel's cases alone
     python3 chip_smoke.py --only stage_b     # Stage B (adapter training) alone
     python3 chip_smoke.py --only contrastive # the contrastive adapter alone
     python3 chip_smoke.py --only sweep       # the stacked seed-and-grid sweep alone
@@ -30,9 +31,9 @@ line.
              instantiation, of kernel 7 and of kernels 8-9 (-Xptxas=-v); bf16
              kernel 4 must not spill at hd 32, 64 and 128, f32 kernel 4 and
              kernels 5 and 6 (bf16 and f32) at hd 32 and 64, kernel 7, bf16
-             kernel 2 and the six instantiations of kernels 8-9 (bf16 and
-             split-TF32 f32) at all, f32 kernels 1-3 (every tile) at hd 32
-             and 64.
+             kernel 2, the six instantiations of kernels 8-9 (bf16 and
+             split-TF32 f32) and the ten of the LayerNorm at all, f32
+             kernels 1-3 (every tile) at hd 32 and 64.
 3. kernels — hold each kernel against its plain PyTorch version on the card
              at the main paths' shapes, and time kernel, plain version and the
              PyTorch library call that computes the same function (yardstick
@@ -68,7 +69,15 @@ line.
              event time beside (SDPA, forward and backward, as yardsticks; its
              backward alone, autograd's backward captured in the graph); the
              delta pass timed beside kernels 5 and 6, and in f32 the backend
-             SDPA takes (each backend forced in turn, compared bit for bit).
+             SDPA takes (each backend forced in turn, compared bit for bit);
+             the f32 LayerNorm kernel (one pass, replaces no TPU kernel) at
+             ViT-L/14@336px's and ViT-B/32's image rows at batch 256 (bf16,
+             147,712 x 1,024 and 12,800 x 768), timed by graph replay beside
+             its bytes bound, its plain version and F.layer_norm on the bf16
+             tensor, then ragged rows at each width it is instantiated for
+             and a generic one in both dtypes, each within one ulp of the
+             working dtype of the plain version (plus 8 f32 ulps at the
+             row's largest term), with the share of elements that differ.
 4. slice   — RN50 at full width in bf16 with seeded random weights: launch
              counts set to 0, then the text tower encodes 256 synthetic
              prompts and ExtractionRunner.encode_batch extracts a uint8
@@ -122,7 +131,8 @@ line.
              and one uint8 [256, 218, 178, 3] batch (CelebA's aligned size,
              resized on the card to 336) through ExtractionRunner.encode_batch,
              then the counts read: kernel 1 once a block (24), kernels 2 and 4
-             never; the image embeddings within cosine 0.999 of the plain
+             never, the LayerNorm kernel 50 times (ln_pre, ln_1 and ln_2 of
+             each block, ln_post); the image embeddings within cosine 0.999 of the plain
              attention formulation's; imgs/s.
 9. train   — ViT-B/32 at full width and depth, bf16 compute, f32 parameters,
              attn_impl="pallas": 3 SGD steps of the symmetric contrastive loss
@@ -321,7 +331,8 @@ def phase_device():
 
 def phase_build(check=True):
     """Build every kernel and print the registers and spills of kernels 1-3,
-    of every flash instantiation, of kernel 7 and of kernels 8-9; with
+    of every flash instantiation, of kernel 7, of kernels 8-9 and of the
+    LayerNorm; with
     ``check``, fail on the spills listed in the module docstring."""
     from debiasing_multi_modal_tpu_torch.ops import cuda_build
 
@@ -333,7 +344,8 @@ def phase_build(check=True):
     for lib, source in (("short_attention", "short_attention.cu"),
                         ("short_attention_qtiled", "short_attention_qtiled.cu"),
                         ("flash_attention", "flash_attention.cu"),
-                        ("quant_gemm", "quant_gemm.cu"), ("bottleneck", "bottleneck.cu")):
+                        ("quant_gemm", "quant_gemm.cu"), ("bottleneck", "bottleneck.cu"),
+                        ("layer_norm", "layer_norm.cu")):
         usage[lib] = cuda_build.ptxas_usage(lib)
         emit({"phase": "build", "ptxas": source, "functions": usage[lib]})
     if not check:
@@ -341,17 +353,18 @@ def phase_build(check=True):
     # bf16 kernel 4 at every hd, f32 kernel 4 and bf16 and f32 kernels 5-6
     # at hd 32/64 (f32 all split-TF32), kernel 7, every f32 kernel-1
     # (resident) and kernel-2 (streamed) tile at hd 32/64, the three bf16
-    # kernel-2 instantiations and the six of kernels 8-9 (bf16 and
-    # split-TF32 f32)
+    # kernel-2 instantiations, the six of kernels 8-9 (bf16 and
+    # split-TF32 f32) and the ten of the LayerNorm (two dtypes, four widths
+    # and the generic one)
     must_not_spill = (r"fwd_tc_kernelILi(32|64|128)E|(fwd|dq|dkv)_f32tc_kernelILi(32|64)E"
                       r"|(dq|dkv)_tc_kernelILi(32|64)E|int8_gemm|f32_attn_kernelILi(32|64)E"
-                      r"|qtiled_tc_kernel|bottleneck_tc_kernel")
+                      r"|qtiled_tc_kernel|bottleneck_tc_kernel|layer_norm_kernel")
     checked = [row for rows in usage.values() for row in rows
                if re.search(must_not_spill, row["function"])]
     if set(usage) - set(cuda_build.build_logs):
         emit({"phase": "build", "ptxas": "libraries built by an earlier run: not re-read"})
-    elif len(checked) != 3 + 6 + 4 + 2 + 2 * (2 + 3) + 3 + 6:
-        raise AssertionError(f"expected 34 no-spill instantiations, found {len(checked)}")
+    elif len(checked) != 3 + 6 + 4 + 2 + 2 * (2 + 3) + 3 + 6 + 10:
+        raise AssertionError(f"expected 44 no-spill instantiations, found {len(checked)}")
     spilled = [row["function"] for row in checked
                if row.get("spill_store_bytes") or row.get("spill_load_bytes")]
     if spilled:
@@ -626,6 +639,86 @@ def _int8_case(label, m, k, n, with_bias, out_dtype, gen, timed):
     return row
 
 
+# The LayerNorm kernel's timed shapes, bf16: ViT-L/14@336px's and ViT-B/32's
+# image towers at batch 256 (rows = 256 x S), then ragged rows at each
+# instantiated width and a generic one, in both dtypes.
+LAYER_NORM_TIMED = (("vitl14_336_bf16", 147712, 1024), ("vitb32_bf16", 12800, 768))
+LAYER_NORM_RAGGED = [(f"ragged_{w}_{rows}", rows, w) for w in (512, 640, 768, 1024, 200)
+                     for rows in (1, 77, 1000)]
+
+
+def _layer_norm_bound_ms(rows, d, itemsize):
+    """Each element of x read once and of the output written once, the f32
+    weight and bias read once."""
+    return (2 * rows * d * itemsize + 2 * 4 * d) / HBM_BYTES_PER_S * 1e3
+
+
+def _layer_norm_case(label, rows, d, dtype, gen, timed):
+    """The kernel against its plain version (the f32 function rounded once
+    to the working dtype): within one ulp of the working dtype at the
+    element's magnitude plus 8 f32 ulps at the row's largest term
+    ``|x_hat * weight| + |bias|`` (the two round the same f32 terms in other
+    orders, each within 3 f32 ulps of the exact function at that scale, as
+    ``tests/test_torch_layer_norm.py`` says); timed cases add the
+    kernel's, the plain version's and ``F.layer_norm``'s time on the bf16
+    tensor with bf16 parameters (yardstick only; the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+
+    from debiasing_multi_modal_tpu_torch.ops import layer_norm as ln
+
+    x = (torch.randn(rows, d, device="cuda", generator=gen) * 2 + 0.5).to(dtype)
+    w, b = (torch.randn(d, device="cuda", generator=gen) for _ in range(2))
+    out = ln.layer_norm(x, w, b, 1e-5)
+    torch.cuda.synchronize()
+    ref = ln.layer_norm_reference(x, w, b, 1e-5)
+    bits = 7 if dtype == torch.bfloat16 else 23
+
+    def ulp(v, mantissa_bits):
+        _, e = torch.frexp(v.float().abs())
+        return torch.ldexp(torch.ones_like(v, dtype=torch.float32), e - 1 - mantissa_bits)
+
+    xd = x.double()
+    x_hat = (xd - xd.mean(-1, keepdim=True)) * torch.rsqrt(
+        xd.var(-1, correction=0, keepdim=True) + 1e-5)
+    terms = (x_hat.abs() * w.double().abs() + b.double().abs()).amax(-1, keepdim=True)
+    del xd, x_hat
+    diff = (out.float() - ref.float()).abs()
+    own = ulp(ref, bits)
+    tol = own + 8 * ulp(terms, 23)
+    row = {"case": label, "shape": [rows, d], "dtype": str(dtype),
+           "max_abs_err": diff.max().item(), "scale": ref.float().abs().max().item(),
+           "worst_over_tolerance": (diff / tol).max().item(),
+           "differing_share": (diff > 0).float().mean().item(),
+           "past_own_ulp_share": (diff > own).float().mean().item()}
+    del diff, own, tol, ref
+    if row["worst_over_tolerance"] > 1.0:
+        raise AssertionError(f"layer_norm disagrees with its plain version: {row}")
+    if timed:
+        wd, bd = w.to(dtype), b.to(dtype)
+        row["ms"] = graph_ms(lambda: ln.layer_norm(x, w, b, 1e-5))
+        row["events_ms"] = time_ms(lambda: ln.layer_norm(x, w, b, 1e-5))
+        row["plain_ms"] = graph_ms(lambda: ln.layer_norm_reference(x, w, b, 1e-5))
+        row["library_ms"] = graph_ms(lambda: F.layer_norm(x, (d,), wd, bd, 1e-5))
+        row["library_call"] = "torch.nn.functional.layer_norm (x's dtype throughout)"
+        row["bound_ms"] = _layer_norm_bound_ms(rows, d, x.element_size())
+        row["bound_by"] = "bytes"
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+    emit({"phase": "kernels", "kernel": "layer_norm", **row})
+    return row
+
+
+def _layer_norm_cases(gen):
+    import torch
+
+    rows = [_layer_norm_case(label, n, d, torch.bfloat16, gen, True)
+            for label, n, d in LAYER_NORM_TIMED]
+    for dtype in (torch.bfloat16, torch.float32):
+        rows += [_layer_norm_case(f"{label}_{str(dtype)[6:]}", n, d, dtype, gen, False)
+                 for label, n, d in LAYER_NORM_RAGGED]
+    return rows
+
+
 def phase_kernels():
     import torch
 
@@ -701,6 +794,7 @@ def phase_kernels():
                  ("ragged_m_unaligned_k_bias_bf16", 1000, 588, 256, True, bf16, False)]:
         results["int8_matmul"].append(_int8_case(*case[:6], gen, case[6]))
     results.update(_flash_cases(gen))
+    results["layer_norm"] = _layer_norm_cases(gen)
     return results
 
 
@@ -960,6 +1054,17 @@ def _read_counts():
     return launch_counts()
 
 
+def _text_layer_norms(cfg):
+    """LayerNorm launches of one text encode: ln_1 and ln_2 a block, ln_final."""
+    return 2 * cfg.transformer_layers + 1
+
+
+def _vit_layer_norms(cfg):
+    """LayerNorm launches of one ViT image encode: ln_pre, ln_1 and ln_2 a
+    block, ln_post."""
+    return 2 * cfg.vision_layers + 2
+
+
 def _expect_counts(path, got, want):
     want = {name: want.get(name, 0) for name in _read_counts()}
     if got != want:
@@ -1063,7 +1168,8 @@ def phase_slice():
     torch.cuda.synchronize()
     launches = _read_counts()
     # ----
-    _expect_counts("RN50", launches, {"short_attention": model.config.transformer_layers})
+    _expect_counts("RN50", launches, {"short_attention": model.config.transformer_layers,
+                                      "layer_norm": _text_layer_norms(model.config)})
     text32 = text.float()
     if not (torch.isfinite(text32).all() and text32.shape == (256, 1024)):
         raise AssertionError("text embeddings are not finite [256, 1024]")
@@ -1202,7 +1308,8 @@ def phase_fuse_bn(slice_perf):
     torch.cuda.synchronize()
     launches = _read_counts()
     # ----
-    _expect_counts("RN50 fuse_bn", launches, {"short_attention": model.config.transformer_layers})
+    _expect_counts("RN50 fuse_bn", launches, {"short_attention": model.config.transformer_layers,
+                                              "layer_norm": _text_layer_norms(model.config)})
     text32 = text.float()
     if not (torch.isfinite(text32).all() and text32.shape == (256, 1024)
             and np.isfinite(emb).all() and emb.shape == (256, 1024)):
@@ -1446,6 +1553,7 @@ def phase_vit():
     model = build()
     setup_s = time.perf_counter() - t0
     layers = model.config.vision_layers + model.config.transformer_layers
+    norms = _text_layer_norms(model.config) + _vit_layer_norms(model.config)
     tokens = torch.from_numpy(_tokens(256, rng)).cuda()
     images = rng.integers(0, 256, (256, 256, 256, 3), dtype=np.uint8)
     zs = None
@@ -1474,14 +1582,15 @@ def phase_vit():
 
     launches, checks, perf = {}, {}, {}
     runner, text, emb, launches["vit_b32"] = drive(
-        model, "ViT-B/32", {"short_attention": layers})
+        model, "ViT-B/32", {"short_attention": layers, "layer_norm": norms})
     fused = build(fuse_qkv=True)
     f_runner, f_text, f_emb, launches["vit_b32_fuse_qkv"] = drive(
-        fused, "ViT-B/32 fuse_qkv", {"short_attention_packed": layers})
+        fused, "ViT-B/32 fuse_qkv", {"short_attention_packed": layers, "layer_norm": norms})
     q8 = build(quant="int8_pallas")
     q_runner, q_text, q_emb, launches["vit_b32_int8_pallas"] = drive(
         q8, "ViT-B/32 int8_pallas",
-        {"short_attention": layers, "int8_matmul": 6 * model.config.vision_layers})
+        {"short_attention": layers, "int8_matmul": 6 * model.config.vision_layers,
+         "layer_norm": norms})
 
     # the same weights under the plain attention formulation, both towers
     plain = build(attn_impl="xla")
@@ -1580,7 +1689,9 @@ def phase_qtiled():
     # ----
     _expect_counts("ViT-L/14@336px", launches,
                    {"short_attention_qtiled": model.config.vision_layers,
-                    "short_attention": model.config.transformer_layers})
+                    "short_attention": model.config.transformer_layers,
+                    "layer_norm": (_vit_layer_norms(model.config)
+                                   + _text_layer_norms(model.config))})
 
     def text_encode():
         with torch.inference_mode():
@@ -1611,8 +1722,9 @@ def phase_qtiled():
 def phase_vitl14_336_bf16():
     """ViT-L/14@336px at the extraction CLI's card dtype, bf16: every image
     attention is kernel 1 on its long-row route (S = 577), 24 launches a
-    batch, all 24 counted in ``short_attention.long_row_launches``, and
-    kernels 2 and 4 never run.  The launch counts are set to 0
+    batch, all 24 counted in ``short_attention.long_row_launches``,
+    kernels 2 and 4 never run, and the LayerNorm kernel runs 50 times.  The
+    launch counts are set to 0
     after the text encode and read after one ``encode_batch`` of 256 uint8
     218 x 178 images; the embeddings are held to the same weights under the
     plain attention formulation (cosine >= 0.999, as ViT-B/32's)."""
@@ -1641,7 +1753,8 @@ def phase_vitl14_336_bf16():
     # ----
     _expect_counts("ViT-L/14@336px bf16", launches,
                    {"short_attention": model.config.vision_layers,
-                    "short_attention.long_row_launches": model.config.vision_layers})
+                    "short_attention.long_row_launches": model.config.vision_layers,
+                    "layer_norm": _vit_layer_norms(model.config)})
     uploaded = runner.upload_batch(images)
     imgs_per_s = _rate(lambda: runner.encode_batch_async(uploaded), 256, 3)
     del runner, model
@@ -1737,8 +1850,9 @@ def phase_train(f32_only=False):
         return (time.perf_counter() - t) / reps * 1e3
 
     layers = 24  # 12 image + 12 text blocks
+    norms = 2 * layers + 3  # ln_1 and ln_2 a block; ln_pre, ln_post, ln_final
     flash = {"flash_attention": layers, "flash_attention_dq": layers,
-             "flash_attention_dkv": layers}
+             "flash_attention_dkv": layers, "layer_norm": norms}
 
     def f32_step():
         """The step at the JAX package's default dtype, f32, on all 128
@@ -1786,7 +1900,8 @@ def phase_train(f32_only=False):
     del model, opt
 
     model, opt, _, launches["vit_b32_train_remat"], g_remat = first_step(
-        "ViT-B/32 train remat", {**flash, "flash_attention": 2 * layers},
+        "ViT-B/32 train remat",
+        {**flash, "flash_attention": 2 * layers, "layer_norm": norms + 2 * layers},
         attn_impl="pallas", remat=True)
     perf["train_step_ms_remat"] = step_ms(model, opt, reps=3)
     del model, opt
@@ -1797,11 +1912,12 @@ def phase_train(f32_only=False):
     checks["remat_differing"] = sorted(n for n, gap in remat_gap.items() if gap > 0)
     del g_remat
     model, opt, _, launches["vit_b32_train_xla"], g_xla = first_step(
-        "ViT-B/32 train xla", {}, attn_impl="xla")
+        "ViT-B/32 train xla", {"layer_norm": norms}, attn_impl="xla")
     perf["train_step_ms_xla"] = step_ms(model, opt, reps=3)
     del model, opt
     model, opt, _, launches["vit_b32_train_auto"], g_auto = first_step(
-        "ViT-B/32 train auto", {"short_attention": layers}, attn_impl="auto")
+        "ViT-B/32 train auto", {"short_attention": layers, "layer_norm": norms},
+        attn_impl="auto")
     perf["train_step_ms_auto"] = step_ms(model, opt, reps=3)
     del model, opt
     per, flat = _grad_cosines(g_pallas, g_xla)
@@ -2714,7 +2830,8 @@ def _parallel_extraction(mesh, data_mesh):
     rng = np.random.default_rng(SEED + 7)
     images = rng.integers(0, 256, (256, 256, 256, 3), dtype=np.uint8)
     zs = rng.standard_normal((2, 512)).astype(np.float32)
-    want = {"short_attention": model.config.vision_layers}
+    want = {"short_attention": model.config.vision_layers,
+            "layer_norm": _vit_layer_norms(model.config)}
     out, launches = {}, {}
     for name, kw in (("unsharded", {}), ("parallel_dp", {"mesh": data_mesh}),
                      ("parallel_tp", {"mesh": mesh, "tensor_parallel": True})):
@@ -2902,7 +3019,10 @@ def _pipelined_encodes(mesh):
             out = piped(model, None, inputs, stacked=stacked, **kw)
             torch.cuda.synchronize()
             launches[name] = _read_counts()
-            _expect_counts(name, launches[name], {"short_attention": n_layers * 4})
+            # ln_1 and ln_2 of each block and microbatch; the tower's own
+            # LayerNorms take pp._ln_f32
+            _expect_counts(name, launches[name], {"short_attention": n_layers * 4,
+                                                  "layer_norm": n_layers * 8})
             row = {"layers": n_layers, "microbatches": 4, "items": 256,
                    "cos_min": _cos_min(out, ref), "cos": _cos_flat(out, ref),
                    "max_abs_err": (out.float() - ref.float()).abs().max().item(),
@@ -2962,7 +3082,7 @@ def _pipelined_gradients(mesh):
         got[name] = grads(piped)
         torch.cuda.synchronize()
         launches[name] = _read_counts()
-        _expect_counts(name, launches[name], {"short_attention": want})
+        _expect_counts(name, launches[name], {"short_attention": want, "layer_norm": 2 * want})
         per = [_cos_flat(a, b) for a, b in zip(got[name], ref)]
         rows[name] = {"cos_min_per_param": min(per),
                       "cos_flat": _cos_flat(torch.cat([g.flatten() for g in got[name]]),
@@ -3321,7 +3441,8 @@ def phase_reproduce():
                     for name in _read_counts()}
         for p in per_process:
             _expect_counts("reproduce extract_main", p["launches"],
-                           {"short_attention": 12 * p["text_encodes"]})
+                           {"short_attention": 12 * p["text_encodes"],
+                            "layer_norm": 25 * p["text_encodes"]})
         for cell in ("ds_waterbirds_tl_adapter_reg_seq_alter_bs_1024_lr_1.0_lrr1.0_bsr256_"
                      "MA+rn.csv",
                      "ds_celeba_tl_adapter_reg_seq_alter_bs_1024_lr_0.1_lrr1.0_bsr4_balval_"
@@ -3399,6 +3520,10 @@ BOTTLENECK_DESIGN = ("CUDA C++; bf16 on the tensor cores: each phase an implicit
                      "from the swizzled y1 / y2 tiles at each lane's shifted pixel; f32 the "
                      "same device code as split-TF32: three mma.sync.m16n8k8 TF32 products "
                      "per product, hi/lo split on each fragment load, 16-deep f32 k-tiles)")
+LAYER_NORM_DESIGN = ("CUDA C++; one warp per row, 16-byte vector loads held in registers, "
+                     "two-pass f32 mean and variance by warp shuffles, one rounding and "
+                     "16-byte stores; a persistent grid whose warps load weight and bias "
+                     "once and the next row's vectors before reducing this one")
 INT8_DESIGN = ("CUDA C++; wgmma.mma_async m64n128k32 s8 from 128-byte-swizzled shared "
                "memory, fed by TMA (cp.async.bulk.tensor.2d) through a 3-stage mbarrier "
                "ring from one producer warp, two consumer warpgroups per 128x128 tile, the "
@@ -3437,7 +3562,7 @@ def _kernel_line(name, source, replaces, cases, launches_by_path, card, design=N
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--only", choices=["flash_f32", "qtiled_bf16", "rn50_blocks",
-                                           "vitl14_336_bf16",
+                                           "vitl14_336_bf16", "layer_norm",
                                            "stage_b", "contrastive", "sweep", "native_json",
                                            "parallel", "leaves", "reproduce"],
                         help="flash_f32: build, then only the timed f32 cases of kernels 4-6 "
@@ -3447,7 +3572,8 @@ def main(argv=None):
                              "rn50_blocks phase (kernels 8-9, bf16 and f32); "
                              "vitl14_336_bf16: build, then only kernel 1 at ViT-L/14@336px's "
                              "image shape (timed beside kernel 2, which must equal it) and "
-                             "the bf16 ViT-L/14@336px batch; each times "
+                             "the bf16 ViT-L/14@336px batch; layer_norm: build, then only "
+                             "the LayerNorm kernel's cases; each times "
                              "another tree's kernels with this script; "
                              "stage_b, contrastive, sweep, native_json: only that phase (no "
                              "kernel to build); parallel: build, then only that phase; "
@@ -3463,6 +3589,13 @@ def main(argv=None):
         phase_build(check=False)
         _flash_cases(torch.Generator(device="cuda").manual_seed(SEED), f32_only=True)
         phase_train(f32_only=True)
+        emit({"phase": "summary", "only": args.only, "seconds": time.perf_counter() - t0})
+        return 0
+    if args.only == "layer_norm":
+        import torch
+
+        phase_build(check=False)
+        _layer_norm_cases(torch.Generator(device="cuda").manual_seed(SEED))
         emit({"phase": "summary", "only": args.only, "seconds": time.perf_counter() - t0})
         return 0
     if args.only == "qtiled_bf16":
@@ -3558,6 +3691,9 @@ def main(argv=None):
         _kernel_line("fused_bottleneck", "bottleneck.cu",
                      "debiasing_multi_modal_tpu/ops/fused_bottleneck.py:41",
                      cases["fused_bottleneck"], launches, card, BOTTLENECK_DESIGN),
+        _kernel_line("layer_norm", "layer_norm.cu",
+                     "none: the JAX LayerNormF32 is left to XLA, which fuses it",
+                     cases["layer_norm"], launches, card, LAYER_NORM_DESIGN),
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],

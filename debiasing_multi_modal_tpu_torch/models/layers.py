@@ -29,6 +29,7 @@ from debiasing_multi_modal_tpu_torch.ops.attention import (
     multi_head_attention,
     multi_head_attention_packed,
 )
+from debiasing_multi_modal_tpu_torch.ops.layer_norm import layer_norm
 from debiasing_multi_modal_tpu_torch.ops.quant import Int8Dense, int8_dense
 from debiasing_multi_modal_tpu_torch.utils.profiling import annotate
 
@@ -71,15 +72,16 @@ def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tenso
 
 
 class LayerNormF32(nn.LayerNorm):
-    """LayerNorm computed in float32 and cast back to the input dtype."""
+    """LayerNorm computed in float32 and cast back to the input dtype:
+    :func:`~debiasing_multi_modal_tpu_torch.ops.layer_norm.layer_norm`, the
+    plain widen, normalize and narrow on the CPU, one kernel pass on the
+    card."""
 
     def __init__(self, width: int, eps: float = 1e-5):
         super().__init__(width, eps=eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.layer_norm(x.float(), self.normalized_shape, self.weight,
-                           self.bias, self.eps)
-        return out.to(x.dtype)
+        return layer_norm(x, self.weight, self.bias, self.eps)
 
 
 class InferenceBatchNorm(nn.Module):

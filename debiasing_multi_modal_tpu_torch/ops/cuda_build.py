@@ -127,31 +127,33 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
-def _entry(name: str, symbol: str, n_ptrs: int, n_ints: int):
+def _entry(name: str, symbol: str, n_ptrs: int, n_ints: int, n_floats: int):
     """The C function ``symbol`` of library ``name``, typed once as
-    ``n_ptrs`` pointers, ``n_ints`` ints and a trailing stream pointer,
-    returning an int (the CUDA error code)."""
+    ``n_ptrs`` pointers, ``n_ints`` ints, ``n_floats`` floats and a trailing
+    stream pointer, returning an int (the CUDA error code)."""
     key = (name, symbol)
     fn = _entries.get(key)
     if fn is None:
         fn = getattr(library(name), symbol)
         fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-                       + [ctypes.c_void_p])
+                       + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _entries[key] = fn
     return fn
 
 
-def launch(name: str, symbol: str, tensors, ints, device) -> None:
+def launch(name: str, symbol: str, tensors, ints, device, floats=()) -> None:
     """Call the C entry ``symbol`` of library ``name`` with the tensors'
-    pointers (``None`` passes NULL), the ints, and ``device``'s current
-    stream; raise on a nonzero CUDA error, which a refused launch returns."""
+    pointers (``None`` passes NULL), the ints, the floats (as C ``float``),
+    and ``device``'s current stream; raise on a nonzero CUDA error, which a
+    refused launch returns."""
     import torch
 
-    fn = _entry(name, symbol, len(tensors), len(ints))
+    fn = _entry(name, symbol, len(tensors), len(ints), len(floats))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*(None if t is None else t.data_ptr() for t in tensors), *ints, stream)
+        err = fn(*(None if t is None else t.data_ptr() for t in tensors), *ints, *floats,
+                 stream)
     if err:
         raise RuntimeError(f"{symbol} kernel launch failed: CUDA error {err}")
 
